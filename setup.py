@@ -4,7 +4,10 @@ setup(
     name="wesep-tpu",
     version="0.1.0",
     description="TPU-native target speaker extraction framework",
-    packages=find_packages(include=["wesep_tpu", "wesep_tpu.*"]),
+    packages=find_packages(include=["wesep_tpu", "wesep_tpu.*",
+                                    "wesep_tpu_torch", "wesep_tpu_torch.*"]),
+    # CUDA sources of the PyTorch port, built with nvcc at first use
+    package_data={"wesep_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -1,0 +1,34 @@
+"""Port parity: wesep_tpu_torch.ops.stft against wesep_tpu.ops.stft."""
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from wesep_tpu.ops import stft as jax_stft
+from wesep_tpu_torch.ops import stft as port_stft
+
+
+@pytest.mark.parametrize("n_fft,hop,length", [(512, 128, 8000),
+                                              (64, 16, 1001)])
+def test_stft_istft_match_jax(n_fft, hop, length):
+    rng = np.random.default_rng(n_fft)
+    x = rng.standard_normal((2, length)).astype(np.float32) * 0.3
+    want_re, want_im = jax_stft.stft(jnp.asarray(x), n_fft, hop)
+    got_re, got_im = port_stft.stft(torch.from_numpy(x), n_fft, hop)
+    assert tuple(got_re.shape) == want_re.shape  # [B, T_frames, F]
+    np.testing.assert_allclose(got_re.numpy(), np.asarray(want_re), atol=1e-4)
+    np.testing.assert_allclose(got_im.numpy(), np.asarray(want_im), atol=1e-4)
+
+    want = jax_stft.istft(want_re, want_im, n_fft, hop, length=length)
+    got = port_stft.istft(got_re, got_im, n_fft, hop, length=length)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), x, atol=1e-4)  # round trip
+
+
+def test_hann_window_matches_jax():
+    np.testing.assert_allclose(
+        port_stft.hann_window(512).numpy(),
+        np.asarray(jax_stft.hann_window(512)), atol=1e-6,
+    )

@@ -1,0 +1,156 @@
+"""Streaming transforms of the serving (test) path, numpy-native.
+
+The subset of wesep_tpu/data/processor.py that bin/infer runs: open local
+shards, group premixed shard members, parse raw json lists, shuffle,
+resample and attach the fixed pre-extracted embeddings. Each transform is a
+generator over sample dicts; waveforms are float32 [1, T].
+"""
+
+import json
+import logging
+import random
+import tarfile
+from typing import Iterable, Iterator
+from urllib.parse import urlparse
+
+import numpy as np
+from scipy import signal as sp_signal
+
+from wesep_tpu_torch.data.wav_io import read_wav
+
+AUDIO_FORMAT_SETS = {"flac", "mp3", "m4a", "ogg", "opus", "wav", "wma"}
+
+__all__ = ["url_opener", "tar_file_and_group", "parse_raw", "shuffle",
+           "resample", "sample_fix_spk_embedding"]
+
+
+def url_opener(data: Iterable[dict]) -> Iterator[dict]:
+    """Open local shard files into byte streams."""
+    for sample in data:
+        url = sample["src"]
+        if urlparse(url).scheme not in ("", "file"):
+            raise ValueError(f"only local shards are supported, got {url}")
+        sample.update(stream=open(url, "rb"))
+        yield sample
+
+
+def _group_complete(example, valid, num_speakers, prefix) -> bool:
+    """Yield only whole groups: one that failed to parse or has no mixture
+    (stray members in the tar) is dropped with a warning."""
+    if valid and "wav_mix" in example and num_speakers > 0:
+        return True
+    if valid:
+        logging.warning("dropping incomplete shard group %s", prefix)
+    return False
+
+
+def tar_file_and_group(data: Iterable[dict]) -> Iterator[dict]:
+    """Premixed shards: {key}.wav + {key}_spk{i}.wav + {key}.spk{i},
+    grouped per key."""
+    for sample in data:
+        stream = tarfile.open(fileobj=sample["stream"], mode="r:*")
+        prev_prefix = None
+        example = {}
+        num_speakers = 0
+        valid = True
+        for tarinfo in stream:
+            name = tarinfo.name
+            pos = name.rfind(".")
+            if pos <= 0:
+                raise ValueError(f"shard member without extension: {name}")
+            prefix, postfix = name[:pos], name[pos + 1:]
+            if prev_prefix is not None and prev_prefix not in prefix:
+                example["key"] = prev_prefix
+                if _group_complete(example, valid, num_speakers, prev_prefix):
+                    example["num_speaker"] = num_speakers
+                    yield example
+                num_speakers = 0
+                example = {}
+                valid = True
+            with stream.extractfile(tarinfo) as file_obj:
+                try:
+                    if "spk" in postfix:
+                        example[postfix] = file_obj.read().decode("utf8").strip()
+                        num_speakers += 1
+                    elif postfix in AUDIO_FORMAT_SETS:
+                        waveform, sample_rate = read_wav(file_obj.read())
+                        if prefix[-5:-1] == "_spk":
+                            example["wav" + prefix[-5:]] = waveform
+                            prefix = prefix[:-5]
+                        else:
+                            example["wav_mix"] = waveform
+                            example["sample_rate"] = sample_rate
+                    else:
+                        example[postfix] = file_obj.read()
+                except (ValueError, EOFError):
+                    valid = False
+                    logging.warning("error to parse %s", name)
+            prev_prefix = prefix
+        if prev_prefix is not None:
+            example["key"] = prev_prefix
+            example["num_speaker"] = num_speakers
+            if _group_complete(example, valid, num_speakers, prev_prefix):
+                yield example
+        stream.close()
+        sample["stream"].close()
+
+
+def parse_raw(data: Iterable[dict]) -> Iterator[dict]:
+    """json lines {key, wav_mix, wav_spk1.., spk1..} of file paths."""
+    for sample in data:
+        obj = json.loads(sample["src"])
+        try:
+            example = {"key": obj["key"]}
+            example["wav_mix"], example["sample_rate"] = read_wav(obj["wav_mix"])
+            n = 0
+            while f"wav_spk{n + 1}" in obj:
+                n += 1
+                example[f"wav_spk{n}"], _ = read_wav(obj[f"wav_spk{n}"])
+                example[f"spk{n}"] = obj.get(f"spk{n}", "")
+            example["num_speaker"] = n
+            yield example
+        except (OSError, ValueError, KeyError):
+            logging.warning("Failed to read %s", obj.get("key"))
+
+
+def shuffle(data: Iterable[dict], shuffle_size: int = 2500) -> Iterator[dict]:
+    """Local buffer shuffle."""
+    buf = []
+    for sample in data:
+        buf.append(sample)
+        if len(buf) >= shuffle_size:
+            random.shuffle(buf)
+            yield from buf
+            buf = []
+    random.shuffle(buf)
+    yield from buf
+
+
+def resample(data: Iterable[dict], resample_rate: int = 16000) -> Iterator[dict]:
+    """Resample every wav* entry (polyphase, scipy)."""
+    for sample in data:
+        sample_rate = sample["sample_rate"]
+        if sample_rate != resample_rate:
+            g = np.gcd(int(sample_rate), int(resample_rate))
+            sample["sample_rate"] = resample_rate
+            for key in list(sample.keys()):
+                if "wav" in key:
+                    sample[key] = sp_signal.resample_poly(
+                        sample[key], resample_rate // g, sample_rate // g,
+                        axis=-1,
+                    ).astype(np.float32)
+        yield sample
+
+
+def sample_fix_spk_embedding(
+    data: Iterable[dict], spk2embed_dict, spk1_embed, spk2_embed
+) -> Iterator[dict]:
+    """Deterministic pre-extracted embedding per target, for test sets."""
+    for sample in data:
+        for key in list(sample.keys()):
+            if key.startswith("spk"):
+                emap = spk1_embed if key == "spk1" else spk2_embed
+                sample["embed_" + key] = np.atleast_2d(
+                    spk2embed_dict[emap[sample["key"]]]
+                )
+        yield sample
