@@ -57,6 +57,103 @@ def test_bilstm_layer_matches_plain(cuda, dtype, b, t, d, h):
     assert (y.float() - ref.float()).abs().max().item() <= _tolerance(ref)
 
 
+def _grad_tolerances(refs, dtype):
+    """Per-gradient limits on the max abs error, relative to the largest
+    magnitude of the plain version's gradient: 1e-4 in f32 (sums in another
+    order), 2e-2 in bf16 (dgates and dh are rounded to bf16 every step, and
+    one flipped rounding moves a whole term)."""
+    rel = 1e-4 if dtype == torch.float32 else 2e-2
+    return [rel * max(r.float().abs().max().item(), 1e-6) for r in refs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,h", [(8, 10, 64, 128), (13, 7, 128, 256),
+                                     (1100, 2, 16, 32), (1, 1, 4, 4),
+                                     (5, 9, 128, 32)])
+def test_bilstm_layer_backward_matches_plain(cuda, dtype, b, t, d, h):
+    """Forward with cell states, then both backward kernels, each against
+    its plain version on the same tensors."""
+    args = _args(cuda, b, t, d, h, dtype)
+    counts = (cuda_lstm.bilstm_layer.launches,
+              cuda_lstm.bilstm_layer_backward.launches,
+              cuda_lstm.bilstm_layer_wgrad.launches)
+    ys, cs = cuda_lstm._forward_cuda(*args, with_cs=True)
+    ref_ys, ref_cs = cuda_lstm.bilstm_layer_reference(*args, return_cs=True)
+    assert cs.dtype == torch.float32 and cs.shape == (b, t, 2 * h)
+    assert (ys.float() - ref_ys.float()).abs().max().item() \
+        <= _tolerance(ref_ys)
+    # c is not bounded by 1 like h; in bf16 it carries h's rounding
+    assert (cs - ref_cs).abs().max().item() <= (
+        1e-4 if dtype == torch.float32 else 10 * _tolerance(ref_ys))
+    gen = torch.Generator().manual_seed(1)
+    dys = torch.randn(b, t, 2 * h, generator=gen).to(cuda).to(dtype)
+    # both versions get the same saved tensors, so only the adjoint differs
+    got = cuda_lstm._backward_cuda(*args, ref_ys, ref_cs, dys)
+    torch.cuda.synchronize()
+    assert (cuda_lstm.bilstm_layer.launches,
+            cuda_lstm.bilstm_layer_backward.launches,
+            cuda_lstm.bilstm_layer_wgrad.launches) == tuple(
+                c + 1 for c in counts)
+    want = cuda_lstm.bilstm_layer_backward_reference(
+        *args, ref_ys, ref_cs, dys)
+    assert got[0].dtype == dtype
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    # the weight-gradient kernel alone, on the serial kernel's own dgates
+    _, _, dg = cuda_lstm.bilstm_layer_backward(*args, ref_ys, ref_cs, dys)
+    dw = cuda_lstm.bilstm_layer_wgrad(args[0], ref_ys, dg)
+    dw_ref = cuda_lstm.bilstm_layer_wgrad_reference(args[0], ref_ys, dg)
+    assert (dw - dw_ref).abs().max().item() \
+        <= 1e-4 * max(dw_ref.abs().max().item(), 1e-6)
+    names = ("dx", "dwx_f", "db_f", "dwh_f", "dwx_b", "db_b", "dwh_b")
+    for name, g, w, tol in zip(names, got, want,
+                               _grad_tolerances(want, dtype)):
+        assert g.shape == w.shape, name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+def test_function_gradients_match_finite_differences(cuda):
+    """gradcheck-style: the Function's gradients through the kernels, along
+    a random direction of every input, against a central difference of the
+    kernel forward (f32; the difference quotient is good to about 1%)."""
+    args = [a.requires_grad_() for a in
+            _args(cuda, 6, 5, 16, 32, torch.float32, seed=2)]
+    gen = torch.Generator().manual_seed(3)
+    w = torch.randn(6, 5, 64, generator=gen).to(cuda)
+    loss = lambda *a: (cuda_lstm.bilstm_layer(*a) * w).sum()  # noqa: E731
+    y = cuda_lstm.bilstm_layer(*args)
+    assert y.grad_fn is not None
+    grads = torch.autograd.grad((y * w).sum(), args)
+    eps = 1e-2
+    for i, (a, g) in enumerate(zip(args, grads)):
+        v = torch.randn(a.shape, generator=gen).to(cuda)
+        with torch.no_grad():
+            plus = [p + eps * v if k == i else p for k, p in enumerate(args)]
+            minus = [p - eps * v if k == i else p for k, p in enumerate(args)]
+            numeric = ((loss(*plus) - loss(*minus)) / (2 * eps)).item()
+        analytic = (g * v).sum().item()
+        assert abs(numeric - analytic) <= 2e-2 * max(abs(analytic), 1.0), \
+            (i, numeric, analytic)
+
+
+def test_function_bf16_returns_f32_weight_gradients(cuda):
+    """A bf16 stream with f32 parameters: dx in bf16, weight gradients in
+    f32, and serving (no gradient asked) writes no cell states."""
+    args = [a.requires_grad_() for a in
+            _args(cuda, 9, 6, 64, 128, torch.bfloat16)]
+    y = cuda_lstm.bilstm_layer(*args)
+    y.float().sum().backward()
+    assert args[0].grad.dtype == torch.bfloat16
+    assert all(a.grad.dtype == torch.float32 for a in args[1:])
+    plain = [a.detach().clone().requires_grad_() for a in args]
+    cuda_lstm.bilstm_layer(*plain, plain=True).float().sum().backward()
+    for a, p, tol in zip(args, plain, _grad_tolerances(
+            [p.grad for p in plain], torch.bfloat16)):
+        assert (a.grad.float() - p.grad.float()).abs().max().item() <= tol
+    with torch.no_grad():
+        assert cuda_lstm.bilstm_layer(*args).grad_fn is None
+
+
 def test_bilstm_layer_rejects_what_it_cannot_run(cuda):
     args = _args(cuda, 2, 3, 8, 8, torch.float32)
     with pytest.raises(TypeError):

@@ -6,6 +6,8 @@ bilstm_layer_reference, and rnn.bilstm that dispatches to it for CPU
 tensors, must agree with it on the same numpy-seeded inputs.
 """
 
+import math
+
 import numpy as np
 import pytest
 
@@ -52,14 +54,18 @@ def test_backward_direction_reads_time_reversed():
 
 
 def test_bf16_keeps_stream_dtype():
-    """f32 weights must not promote a bf16 stream."""
+    """f32 weights must not promote a bf16 stream. Held to the rule of the
+    card checks: 4 units in the last place at the output's largest
+    magnitude (h is rounded to bf16 every step)."""
     args = [torch.from_numpy(a) for a in _inputs(seed=4, b=3, t=5)]
     args[0] = args[0].bfloat16()
     y = cuda_lstm.bilstm_layer(*args)
     assert y.dtype == torch.bfloat16
     want = cuda_lstm.bilstm_layer_reference(
         args[0].float(), *[a.bfloat16().float() for a in args[1:]])
-    assert (y.float() - want).abs().max() < 3e-2
+    amax = want.abs().max().item()
+    tol = 4 * 2.0 ** (math.floor(math.log2(amax)) - 7)  # 8-bit significand
+    assert (y.float() - want).abs().max().item() <= tol
 
 
 def test_wrapper_uses_plain_version_on_cpu_and_raises_elsewhere():

@@ -33,72 +33,17 @@
 // __syncthreads() per step separate the reads of h_{t-1} from the writes of
 // h_t. The tile of 8 rows spreads the serving batch (64 rows in the band
 // RNN) over 16 SMs. Rows past B in the last tile are computed on zeros and
-// never stored. Keeping Wh resident on chip (split over a thread-block
-// cluster) and running the products on the tensor cores is later work.
+// never stored. When a backward pass will follow, the cell states c_t are
+// written beside y in f32 (the adjoint kernel in bilstm_layer_bwd.cu reads
+// them); serving passes no buffer and writes nothing more. Keeping Wh
+// resident on chip (split over a thread-block cluster) and running the
+// products on the tensor cores is later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "bilstm_common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 256;  // one thread per hidden unit, H <= 256
-constexpr int kTile = 8;          // batch rows per block
-constexpr size_t kDefaultSmem = 48 * 1024;  // dynamic smem without opt-in
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-__device__ __forceinline__ float sigmoidf(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
-// acc[r][g] += sum_k src[r][k] * w[k][g*H + j], src an f32 smem tile
-// [BT][K] (K % 4 == 0), w a row-major [K][4H] matrix in global memory.
-template <typename T, int BT>
-__device__ __forceinline__ void accumulate(float (&acc)[BT][4],
-                                           const float* __restrict__ src,
-                                           const T* __restrict__ w, int K,
-                                           int H, int j) {
-  const int h4 = 4 * H;
-#pragma unroll 2
-  for (int k = 0; k < K; k += 4) {
-    float wv[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const T* row = w + static_cast<size_t>(k + kk) * h4 + j;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) wv[kk][g] = to_f32(row[g * H]);
-    }
-#pragma unroll
-    for (int r = 0; r < BT; ++r) {
-      const float4 v = *reinterpret_cast<const float4*>(src + r * K + k);
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float a = acc[r][g];
-        a = fmaf(v.x, wv[0][g], a);
-        a = fmaf(v.y, wv[1][g], a);
-        a = fmaf(v.z, wv[2][g], a);
-        a = fmaf(v.w, wv[3][g], a);
-        acc[r][g] = a;
-      }
-    }
-  }
-}
+using namespace bilstm;
 
 template <typename T, int BT>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -109,7 +54,8 @@ __global__ void __launch_bounds__(kMaxThreads)
                             const T* __restrict__ wx_b,
                             const float* __restrict__ b_b,
                             const T* __restrict__ wh_b, T* __restrict__ y,
-                            int B, int T_len, int D, int H) {
+                            float* __restrict__ cs, int B, int T_len, int D,
+                            int H) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);  // [BT][D]
   float* hs = xs + BT * D;                      // [BT][H]
@@ -133,14 +79,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   for (int s = 0; s < T_len; ++s) {
     const int t = dir ? T_len - 1 - s : s;
-    for (int i = threadIdx.x; i < BT * D; i += blockDim.x) {
-      const int r = i / D;
-      const int k = i - r * D;
-      const int b = b0 + r;
-      xs[i] = b < B
-                  ? to_f32(x[(static_cast<size_t>(b) * T_len + t) * D + k])
-                  : 0.0f;
-    }
+    stage_rows<T, BT>(xs, x, D, D, 0, b0, B, T_len, t, true);
     __syncthreads();  // x_t staged; h_{t-1} written by the previous step
 
     if (active) {
@@ -171,8 +110,10 @@ __global__ void __launch_bounds__(kMaxThreads)
         hs[r * H + j] = h_new[r];
         const int b = b0 + r;
         if (b < B) {
-          y[(static_cast<size_t>(b) * T_len + t) * (2 * H) + dir * H + j] =
-              from_f32<T>(h_new[r]);
+          const size_t at =
+              (static_cast<size_t>(b) * T_len + t) * (2 * H) + dir * H + j;
+          y[at] = from_f32<T>(h_new[r]);
+          if (cs != nullptr) cs[at] = c[r];
         }
       }
     }
@@ -182,8 +123,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 template <typename T>
 cudaError_t launch(const void* x, const void* wx_f, const void* b_f,
                    const void* wh_f, const void* wx_b, const void* b_b,
-                   const void* wh_b, void* y, int B, int T_len, int D, int H,
-                   cudaStream_t stream) {
+                   const void* wh_b, void* y, void* cs, int B, int T_len,
+                   int D, int H, cudaStream_t stream) {
   auto kernel = bilstm_layer_fwd_kernel<T, kTile>;
   const size_t smem = static_cast<size_t>(kTile) * (D + H) * sizeof(float);
   if (smem > kDefaultSmem) {  // only very wide inputs need the opt-in
@@ -198,7 +139,8 @@ cudaError_t launch(const void* x, const void* wx_f, const void* b_f,
       static_cast<const T*>(x), static_cast<const T*>(wx_f),
       static_cast<const float*>(b_f), static_cast<const T*>(wh_f),
       static_cast<const T*>(wx_b), static_cast<const float*>(b_b),
-      static_cast<const T*>(wh_b), static_cast<T*>(y), B, T_len, D, H);
+      static_cast<const T*>(wh_b), static_cast<T*>(y),
+      static_cast<float*>(cs), B, T_len, D, H);
   return cudaGetLastError();
 }
 
@@ -206,27 +148,28 @@ cudaError_t launch(const void* x, const void* wx_f, const void* b_f,
 
 // Plain C entry point, bound with ctypes by wesep_tpu_torch/ops/cuda_lstm.py.
 // Shapes: x [B, T, D]; wx_* [D, 4H], wh_* [H, 4H] in x's dtype; b_* [4H]
-// f32; y [B, T, 2H] in x's dtype; all contiguous. dtype: 0 = f32,
-// 1 = bf16. Requires D % 4 == 0, H % 4 == 0, H <= 256. Returns the CUDA
+// f32; y [B, T, 2H] in x's dtype; cs [B, T, 2H] f32 or null (the cell
+// states, written only when a backward pass will need them); all
+// contiguous. dtype: 0 = f32, 1 = bf16. Requires D % 4 == 0, H % 4 == 0, H <= 256. Returns the CUDA
 // error code of the launch (0 on success); never synchronises.
 extern "C" int bilstm_layer_forward(const void* x, const void* wx_f,
                                     const void* b_f, const void* wh_f,
                                     const void* wx_b, const void* b_b,
-                                    const void* wh_b, void* y, int B,
-                                    int T_len, int D, int H, int dtype,
-                                    void* stream) {
+                                    const void* wh_b, void* y, void* cs,
+                                    int B, int T_len, int D, int H,
+                                    int dtype, void* stream) {
   if (B <= 0 || T_len <= 0) return 0;
-  if (D % 4 != 0 || H % 4 != 0 || H > kMaxThreads || D <= 0 || H <= 0) {
+  if (D % 4 != 0 || H % 4 != 0 || H > bilstm::kMaxThreads || D <= 0 || H <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0) {
-    err = launch<float>(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, y, B, T_len, D,
-                        H, s);
+    err = launch<float>(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, y, cs, B, T_len,
+                        D, H, s);
   } else if (dtype == 1) {
-    err = launch<__nv_bfloat16>(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, y, B,
-                                T_len, D, H, s);
+    err = launch<__nv_bfloat16>(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, y, cs,
+                                B, T_len, D, H, s);
   } else {
     err = cudaErrorInvalidValue;
   }

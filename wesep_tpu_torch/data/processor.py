@@ -1,9 +1,13 @@
-"""Streaming transforms of the serving (test) path, numpy-native.
+"""Streaming transforms of the serving and training paths, numpy-native.
 
-The subset of wesep_tpu/data/processor.py that bin/infer runs: open local
-shards, group premixed shard members, parse raw json lists, shuffle,
-resample and attach the fixed pre-extracted embeddings. Each transform is a
-generator over sample dicts; waveforms are float32 [1, T].
+The subset of wesep_tpu/data/processor.py that bin/infer and bin/train run
+on premixed data with pre-extracted embeddings: open local shards, group
+premixed shard members, parse raw json lists, filter by length, shuffle,
+resample, cut random or leading chunks and attach random (train) or fixed
+(validation, test) embeddings. Each transform is a generator over sample
+dicts; waveforms are float32 [1, T]. Every random draw comes from Python's
+`random`, in the JAX package's order, so one seed gives both packages the
+same samples.
 """
 
 import json
@@ -21,7 +25,8 @@ from wesep_tpu_torch.data.wav_io import read_wav
 AUDIO_FORMAT_SETS = {"flac", "mp3", "m4a", "ogg", "opus", "wav", "wma"}
 
 __all__ = ["url_opener", "tar_file_and_group", "parse_raw", "shuffle",
-           "resample", "sample_fix_spk_embedding"]
+           "resample", "sample_spk_embedding", "sample_fix_spk_embedding",
+           "get_random_chunk", "filter_len", "random_chunk", "fix_chunk"]
 
 
 def url_opener(data: Iterable[dict]) -> Iterator[dict]:
@@ -142,6 +147,17 @@ def resample(data: Iterable[dict], resample_rate: int = 16000) -> Iterator[dict]
         yield sample
 
 
+def sample_spk_embedding(data: Iterable[dict],
+                         spk_embeds: dict) -> Iterator[dict]:
+    """Random pre-extracted embedding per target speaker, for training."""
+    for sample in data:
+        for key in list(sample.keys()):
+            if key.startswith("spk"):
+                sample["embed_" + key] = np.atleast_2d(
+                    random.choice(spk_embeds[sample[key]]))
+        yield sample
+
+
 def sample_fix_spk_embedding(
     data: Iterable[dict], spk2embed_dict, spk1_embed, spk2_embed
 ) -> Iterator[dict]:
@@ -153,4 +169,63 @@ def sample_fix_spk_embedding(
                 sample["embed_" + key] = np.atleast_2d(
                     spk2embed_dict[emap[sample["key"]]]
                 )
+        yield sample
+
+
+def get_random_chunk(data_list, chunk_len: int):
+    """One random chunk position shared by a list of [1, T] wavs; a chunk
+    that is all zero is redrawn (at most 10 times); shorter inputs are
+    tiled to chunk_len."""
+    if any(d.shape[-1] != data_list[0].shape[-1] for d in data_list):
+        raise ValueError("wavs of one sample differ in length")
+    arrays = [d[0] for d in data_list]
+    data_len = arrays[0].shape[0]
+    if data_len >= chunk_len:
+        chunk_start = random.randint(0, data_len - chunk_len)
+        for i in range(len(arrays)):
+            temp = arrays[i][chunk_start:chunk_start + chunk_len]
+            guard = 0
+            while not np.any(temp) and guard < 10:
+                chunk_start = random.randint(0, data_len - chunk_len)
+                temp = arrays[i][chunk_start:chunk_start + chunk_len]
+                guard += 1
+            arrays[i] = temp.copy()
+    else:
+        repeat_factor = chunk_len // data_len + 1
+        for i in range(len(arrays)):
+            arrays[i] = np.tile(arrays[i], repeat_factor)[:chunk_len]
+    return [a[None] for a in arrays]
+
+
+def filter_len(data: Iterable[dict], min_num_seconds: float = 1,
+               max_num_seconds: float = 1000) -> Iterator[dict]:
+    """Drop utterances that are too short, chunk those that are too long
+    (single-speaker samples with a `wav` entry)."""
+    for sample in data:
+        sample_rate = sample["sample_rate"]
+        wav = sample["wav"]
+        if wav.shape[1] < min_num_seconds * sample_rate:
+            continue
+        max_len = int(max_num_seconds * sample_rate)
+        if wav.shape[1] > max_len:
+            wav = get_random_chunk([wav], max_len)[0]
+        sample["wav"] = wav
+        yield sample
+
+
+def random_chunk(data: Iterable[dict], chunk_len: int) -> Iterator[dict]:
+    """The same random chunk of every wav* entry."""
+    for sample in data:
+        wav_keys = [k for k in list(sample.keys()) if "wav" in k]
+        chunks = get_random_chunk([sample[k] for k in wav_keys], chunk_len)
+        sample.update(zip(wav_keys, chunks))
+        yield sample
+
+
+def fix_chunk(data: Iterable[dict], chunk_len: int) -> Iterator[dict]:
+    """The leading chunk of every wav* entry."""
+    for sample in data:
+        for k in list(sample.keys()):
+            if k.startswith("wav"):
+                sample[k] = sample[k][:, :chunk_len]
         yield sample

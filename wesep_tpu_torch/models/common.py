@@ -13,7 +13,6 @@ import math
 import torch
 from torch import nn
 
-from wesep_tpu_torch.ops.cuda_lstm import bilstm_layer_reference
 from wesep_tpu_torch.ops.rnn import bilstm, lstm
 
 __all__ = ["Dense", "FiLM", "SpeakerTransform", "SpeakerFuse", "LSTM",
@@ -113,9 +112,9 @@ class LSTM(nn.Module):
 
     Weights wx_* [D, 4H], wh_* [H, 4H], b_* [4H] (one summed bias), gate
     order i, f, g, o, torch LSTM init. Setting `plain = True` runs the
-    kernel's plain version on any device; it exists so a check on the card
-    can hold the kernel path against it, and nothing on the serving path
-    sets it.
+    kernels' plain versions (forward and backward) on any device; it exists
+    so a check on the card can hold the kernel path against it, and nothing
+    on the serving or training path sets it.
     """
 
     def __init__(self, input_dim: int, hidden: int,
@@ -139,8 +138,5 @@ class LSTM(nn.Module):
     def forward(self, x):
         if not self.bidirectional:
             return lstm(x, self.wx_f, self.wh_f, self.b_f)
-        if self.plain:
-            return bilstm_layer_reference(x, self.wx_f, self.b_f, self.wh_f,
-                                          self.wx_b, self.b_b, self.wh_b)
         return bilstm(x, self.wx_f, self.wh_f, self.b_f,
-                      self.wx_b, self.wh_b, self.b_b)
+                      self.wx_b, self.wh_b, self.b_b, plain=self.plain)

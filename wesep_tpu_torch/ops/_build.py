@@ -3,8 +3,9 @@
 Each source in `wesep_tpu_torch/csrc/` has a plain C interface and no
 PyTorch headers, so nvcc compiles it in seconds. The shared library goes
 into `wesep_tpu_torch/build/` (listed in .gitignore) at first use, under a
-name keyed by a hash of the source and the flags, so an edited source is
-rebuilt and never mixed up with a stale library. The compiler's log
+name keyed by a hash of the source, the shared headers (`csrc/*.cuh`) and
+the flags, so an edited source is rebuilt and never mixed up with a stale
+library. `build_all` starts one nvcc per source, all together. The compiler's log
 (`-Xptxas -v`: registers, shared memory and spills of every kernel) is kept
 beside the library.
 """
@@ -17,7 +18,8 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "load_library"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "SOURCES", "build",
+           "build_all", "load_library"]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -28,6 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+SOURCES = ("bilstm_layer", "bilstm_layer_bwd")  # every csrc/<name>.cu
 
 
 def _nvcc() -> str:
@@ -44,33 +47,60 @@ def _nvcc() -> str:
     return path
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu into a shared library; return its path."""
+def _target(name: str):
+    """(source path, library path) of csrc/<name>.cu."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    if os.path.exists(out):
-        return out
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return src, out
+
+
+def _start(src: str):
+    """Start nvcc on `src` -> (process, temporary output path)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-        capture_output=True, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
+    return proc, tmp
+
+
+def _finish(proc, tmp: str, src: str, out: str) -> str:
+    stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
-            f"nvcc failed on {src} (exit {proc.returncode}):\n{proc.stderr}"
+            f"nvcc failed on {src} (exit {proc.returncode}):\n{stderr}"
         )
     with open(out + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write(stdout + stderr)
     # atomic: a concurrent build of the same source loses nothing
     os.replace(tmp, out)
     return out
+
+
+def build(name: str) -> str:
+    """Compile csrc/<name>.cu into a shared library; return its path."""
+    src, out = _target(name)
+    if os.path.exists(out):
+        return out
+    return _finish(*_start(src), src, out)
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile several sources at once, one nvcc each, all started
+    together; return {name: library path}."""
+    targets = {name: _target(name) for name in names}
+    running = {name: _start(src) for name, (src, out) in targets.items()
+               if not os.path.exists(out)}
+    return {name: _finish(*running[name], src, out) if name in running
+            else out for name, (src, out) in targets.items()}
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,8 +1,9 @@
 """LSTM entry points over explicit weights.
 
 Counterpart of wesep_tpu/ops/rnn.py. `bilstm` goes to the fused layer
-wrapper `cuda_lstm.bilstm_layer`, which launches the CUDA kernel for CUDA
-tensors and runs its plain version for CPU tensors. The unidirectional
+`cuda_lstm.bilstm_layer`, an autograd Function that launches the CUDA
+kernels (forward and backward) for CUDA tensors and runs their plain
+versions for CPU tensors. The unidirectional
 `lstm` has no kernel yet (pallas_lstm `lstm_fused`, still to port): it runs
 its plain version on the CPU and raises on CUDA.
 """
@@ -39,9 +40,10 @@ def lstm(x, wx, wh, b, reverse: bool = False):
     return torch.stack(ys, dim=1).to(dtype)
 
 
-def bilstm(x, wx_f, wh_f, b_f, wx_b, wh_b, b_b):
+def bilstm(x, wx_f, wh_f, b_f, wx_b, wh_b, b_b, plain: bool = False):
     """Bidirectional LSTM -> [B, T, 2H], forward then backward features.
 
     Takes (wx, wh, b) per direction like wesep_tpu.ops.rnn.bilstm; the
-    layer wrapper takes them as (wx, b, wh)."""
-    return bilstm_layer(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b)
+    layer wrapper takes them as (wx, b, wh). `plain` runs the kernels'
+    plain versions on any device."""
+    return bilstm_layer(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, plain=plain)

@@ -22,9 +22,15 @@ def hann_window(n: int, dtype=torch.float32, device=None):
 
 def stft(x, n_fft: int, hop_length: int, window=None):
     """[B, T] -> (re, im), each [B, n_frames, n_fft // 2 + 1], x's dtype;
-    center=True with reflect padding."""
+    center=True with reflect padding. A window shorter than n_fft is
+    zero-padded to n_fft, centred (the left pad is the smaller one). The
+    transform and its backward run in f32 whatever x's dtype."""
     if window is None:
         window = hann_window(n_fft, device=x.device)
+    if window.shape[0] < n_fft:
+        left = (n_fft - window.shape[0]) // 2
+        window = torch.nn.functional.pad(
+            window, (left, n_fft - window.shape[0] - left))
     spec = torch.stft(
         x.float(), n_fft, hop_length, window=window.float(), center=True,
         pad_mode="reflect", return_complex=True,

@@ -1,1 +1,2 @@
-"""Checkpoint bundles (training itself comes in a later slice)."""
+"""Training engine: losses, schedules, the optimizer chain, the train and
+eval steps, the epoch loop and checkpoint bundles."""

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 __all__ = ["parse_config_or_kwargs", "parse_override_args", "deep_update",
-           "set_seed", "setup_logger"]
+           "set_seed", "setup_logger", "table_row"]
 
 
 def parse_config_or_kwargs(config, **kwargs) -> dict:
@@ -84,3 +84,12 @@ def setup_logger(exp_dir: str, name: str = "train.log"):
     ch.setFormatter(fmt)
     logger.addHandler(ch)
     return logger
+
+
+def table_row(values, width: int = 10) -> str:
+    """One row of a fixed-width grid, for the train log."""
+    cells = []
+    for v in values:
+        s = f"{v:.4g}" if isinstance(v, float) else str(v)
+        cells.append(s[:width].center(width))
+    return "| " + " | ".join(cells) + " |"

@@ -1,5 +1,5 @@
 """List, scp and kaldi-vector I/O (the subset of
-wesep_tpu/utils/file_utils.py that bin/infer uses)."""
+wesep_tpu/utils/file_utils.py that bin/infer and bin/train use)."""
 
 import struct
 from typing import Dict, List
@@ -7,7 +7,8 @@ from typing import Dict, List
 import numpy as np
 
 __all__ = ["read_lists", "read_2columns_text", "read_label_file",
-           "read_vec_scp_file", "write_vec_ark_scp"]
+           "read_vec_scp_file", "write_vec_ark_scp", "norm_embeddings",
+           "load_speaker_embeddings"]
 
 
 def read_lists(path: str) -> List[str]:
@@ -79,3 +80,22 @@ def write_vec_ark_scp(base_path: str, vectors: Dict[str, np.ndarray]):
             ark.write(vec.tobytes())
             scp.write(f"{utt} {ark_path}:{offset}\n")
     return ark_path, scp_path
+
+
+def norm_embeddings(embeddings: np.ndarray, kaldi_style: bool = True):
+    """Scale to unit L2 norm, times sqrt(dim) in kaldi style."""
+    scale = np.sqrt(embeddings.shape[-1]) if kaldi_style else 1.0
+    norm = np.linalg.norm(embeddings, axis=-1, keepdims=True)
+    return scale * embeddings / np.maximum(norm, 1e-12)
+
+
+def load_speaker_embeddings(
+    scp_file: str, utt2spk_file: str
+) -> Dict[str, List[np.ndarray]]:
+    """spk -> [embedding [1, E], ...] over the speaker's utterances."""
+    utt_to_embed = read_vec_scp_file(scp_file)
+    utt_to_spk = read_label_file(utt2spk_file)
+    out: Dict[str, List[np.ndarray]] = {}
+    for utt, embed in utt_to_embed.items():
+        out.setdefault(utt_to_spk[utt], []).append(embed[None, :])
+    return out
