@@ -11,9 +11,12 @@ pass):
    with nvcc (one nvcc per source, started together), with the nvcc logs;
 3. kernels: each kernel against its plain PyTorch version on the card, in
    f32 and bf16, with its time, its plain version's time, a library call's
-   time for the same function and the card's bound for the work: the
-   forward kernel at the serving shapes, then the forward kernel with the
-   cell-state output and the two backward kernels at the training shapes;
+   time for the same function (where one exists) and the card's bound for
+   the work: the BiLSTM forward kernel at the serving shapes, the forward
+   kernel with the cell-state output and the two backward kernels at the
+   training shapes; then the fused TCN block, forward and backward, at
+   SpEx+'s serving shape (2 rows) and training shape (16 rows) at
+   dilations 1 and 128, and one speaker-fused block through its module;
 4. serve: the full-width v1 pBSRNN (feature_dim 128, 6 repeats, multiply
    fuse, 256-d embeddings; random weights from a seed) decodes a small
    shard through the port's bin/infer on the card; the kernel's launch
@@ -27,7 +30,20 @@ pass):
    must move, and the checkpoint must hold parameters, optimizer state and
    step and load as bin/infer loads it. Then the gradients of every
    parameter through the kernels against those through the plain LSTM
-   (f32, 2 rows x 3 s), and the time and peak memory of a train step.
+   (f32, 2 rows x 3 s), and the time and peak memory of a train step;
+6. serve SpEx+: the full-width ConvTasNet of
+   examples/librimix/tse/v2/confs/spexplus.yaml (random weights from a
+   seed) decodes a small shard with 6 s enrollment wavs through bin/infer:
+   32 launches of the fused block per forward, kernel forward against the
+   plain blocks' forward;
+7. train SpEx+: the same model trains through bin/train with the recipe's
+   loss table ([SISDR, CE] over the three scales and the speaker logits),
+   bf16, batch_size 8 (16 rows x 3 s), a few steps and one validation
+   step: 32 forward and 32 backward launches per train step, 32 forward
+   per validation step; finite losses, parameters and BatchNorm statistics
+   that moved, a checkpoint that bin/infer decodes from, whole-model
+   gradients through the kernels against those through the plain blocks,
+   and the time and peak memory of a train step.
 
 The last lines are the card line of nvidia-smi, one JSON object describing
 the kernels, and {"ok": true, "device": {...}}.
@@ -62,6 +78,18 @@ V1_MODEL_ARGS = dict(sr=16000, win=512, stride=128, feature_dim=128,
                      use_spk_transform=False, multi_fuse=False,
                      joint_training=False, spk_emb_dim=256)
 SHARD_SECONDS = (3.0, 3.0, 3.0, 3.0, 4.37)
+# SpEx+ (examples/librimix/tse/v2/confs/spexplus.yaml) at full width
+SPEX_MODEL_ARGS = dict(N=256, L=20, B=256, H=512, P=3, X=8, R=4,
+                       spk_emb_dim=256, norm="gLN", causal=False,
+                       skip_con=False, spk_fuse_type="concatConv",
+                       multi_fuse=True, encoder_type="Multi",
+                       decoder_type="Multi", joint_training=True,
+                       multi_task=True, spks_in_train=251)
+SPEX_BLOCKS = SPEX_MODEL_ARGS["R"] * SPEX_MODEL_ARGS["X"]  # fused blocks
+SPEX_T = (CHUNK - 20) // 10 + 1  # 4799 encoder frames of a 3 s chunk
+SPEX_TRAIN_STEPS = 3
+ENROLL_SECONDS = 6.0
+TCN_C, TCN_H, TCN_K = 256, 512, 3
 BUCKET = 16000
 ROWS_PER_STEP = 2
 
@@ -663,6 +691,539 @@ def train_phase(root):
     }
 
 
+TCN_GRADS = ("dx", "db1_eff", "dw1", "dp0", "dkd", "dbd", "dg0w", "dg0b",
+             "dp1", "dw2", "db2", "dg1w", "dg1b")
+
+
+def tcn_args(batch, dtype, seed=SEED):
+    """Seeded inputs of one fused block at SpEx+'s widths: the thirteen
+    arguments (x in `dtype`, f32 parameters) and a cotangent dy."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    u = lambda n: torch.rand(n, generator=gen) + 0.5  # noqa: E731
+    c, h, k = TCN_C, TCN_H, TCN_K
+    args = [r(batch, SPEX_T, c) * 0.5, r(batch, h) * 0.1, r(c, h) * 0.06,
+            torch.tensor([0.25]), r(k, h) * 0.3, r(h) * 0.1, u(h),
+            r(h) * 0.2, torch.tensor([0.2]), r(h, c) * 0.04, r(c) * 0.1,
+            u(h), r(h) * 0.2]
+    args = [a.cuda() for a in args]
+    args[0] = args[0].to(dtype)
+    return args, (r(batch, SPEX_T, c) * 0.1).cuda().to(dtype)
+
+
+def tcn_bounds(batch, dtype):
+    """Least times of the fused block on the card, forward and backward:
+    the operations the JAX package counts for it (forward 4 B T C H +
+    2 B T H k; backward, the model's count, 8 B T C H + 4 B T H k) and the
+    bytes of every input read once and every output written once (x, the
+    parameters, y; x, dy, the parameters, dx and the f32 gradients)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    c, h, k = TCN_C, TCN_H, TCN_K
+    rows = batch * SPEX_T
+    stream = rows * c * size
+    params = (2 * c * h + k * h) * size + (batch * h + 5 * h + c + 2) * 4
+    forward = _bound(4 * rows * c * h + 2 * rows * h * k,
+                     2 * stream + params + batch * 16, dtype)
+    grads = (2 * c * h + k * h + batch * h + 5 * h + c + 2) * 4
+    backward = _bound(8 * rows * c * h + 4 * rows * h * k,
+                      3 * stream + params + batch * 16 + grads, dtype)
+    return forward, backward
+
+
+def rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm()
+            / ref.float().norm().clamp_min(1e-20)).item()
+
+
+def tcn_limits(dtype):
+    """Limits of the fused block against its plain version.
+
+    y: f32 1e-4 of the largest magnitude (the products and the gLN sums
+    run in another order); bf16 4 units in the last place at the largest
+    magnitude (q is rounded to bf16, and a sum that differs in its last
+    bit flips such a rounding). Gradients: among tens of millions of PReLU
+    inputs a few lie within an f32 rounding of zero, where kernel and
+    plain version take different branches; one such flip moves one element
+    of dv or ds by (1 - slope) of its size, which no sum order can avoid.
+    So a gradient is held to a relative L2 error of 2e-3 (f32) or 2e-2
+    (bf16: dv, ds and dn0 are rounded) and to a largest error of 5e-2 of
+    its largest magnitude."""
+    if dtype == torch.float32:
+        return {"y": 1e-4, "grad_l2": 2e-3, "grad_max": 5e-2}
+    return {"y": None, "grad_l2": 2e-2, "grad_max": 5e-2}
+
+
+def check_tcn(name, batch, dtype, dilation):
+    """K4 and K4b against their plain versions at one SpEx+ shape."""
+    from wesep_tpu_torch.ops import cuda_tcn as k
+
+    args, dy = tcn_args(batch, dtype)
+    conf = (dilation, TCN_K, False, 1e-5)
+    limits = tcn_limits(dtype)
+    y, stats = k._forward_cuda(*args, *conf)
+    torch.cuda.synchronize()
+    ref_y, ref_stats = k.tcn_block_gln_reference(*args, *conf,
+                                                 return_stats=True)
+    err_y = (y.float() - ref_y.float()).abs().max().item()
+    tol_y = tolerance(ref_y) if limits["y"] is None else \
+        limits["y"] * ref_y.float().abs().max().item()
+    err_stats = rel_err(stats, ref_stats)
+    # the backward from the plain forward's statistics, so that only the
+    # adjoint differs
+    grads = k.tcn_block_gln_backward(*args, ref_stats, dy, *conf)
+    torch.cuda.synchronize()
+    again = k.tcn_block_gln_backward(*args, ref_stats, dy, *conf)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b) for a, b in zip(grads, again))
+    ref = k.tcn_block_gln_backward_reference(*args, ref_stats, dy, *conf)
+    l2 = {n: rel_l2(g, w) for n, g, w in zip(TCN_GRADS, grads, ref)}
+    mx = {n: rel_err(g, w) for n, g, w in zip(TCN_GRADS, grads, ref)}
+    err_dx = (grads[0].float() - ref[0].float()).abs().max().item()
+    del again, ref
+
+    fwd_ms = time_ms(lambda: k._forward_cuda(*args, *conf), 2, 10)
+    bwd_ms = time_ms(
+        lambda: k.tcn_block_gln_backward(*args, ref_stats, dy, *conf), 2, 10)
+    fwd_plain_ms = time_ms(
+        lambda: k.tcn_block_gln_reference(*args, *conf), 1, 5)
+    bwd_plain_ms = time_ms(lambda: k.tcn_block_gln_backward_reference(
+        *args, ref_stats, dy, *conf), 1, 5)
+    (f_ms, f_by), (b_ms, b_by) = tcn_bounds(batch, dtype)
+    case = {
+        "shape": name, "dtype": str(dtype).replace("torch.", ""),
+        "B": batch, "T": SPEX_T, "C": TCN_C, "H": TCN_H, "k": TCN_K,
+        "dilation": dilation, "limits": limits,
+        "forward": {"max_abs_err": err_y, "tolerance": tol_y,
+                    "stats_rel_err": err_stats, "ms": fwd_ms,
+                    "plain_ms": fwd_plain_ms, "library_ms": None,
+                    "bound_ms": f_ms, "bound_by": f_by},
+        "backward": {"max_abs_err": err_dx, "rel_l2": l2, "rel_max": mx,
+                     "same_bits_twice": same_bits, "ms": bwd_ms,
+                     "plain_ms": bwd_plain_ms, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by},
+    }
+    log("kernel tcn_block_gln", json.dumps(case))
+    ok = (err_y <= tol_y and err_stats <= 1e-4 and same_bits
+          and all(v <= limits["grad_l2"] for v in l2.values())
+          and all(v <= limits["grad_max"] for v in mx.values())
+          and all(torch.isfinite(t).all() for t in (y, *grads)))
+    if not ok:
+        raise AssertionError(f"tcn_block_gln disagrees at {case}")
+    return case
+
+
+def check_fused_tcn_block(dtype):
+    """One speaker-fused block through its module (the embedding folded
+    into the per-sample bias): y and the gradients of x, the embedding and
+    every parameter, kernels against the plain version of the same
+    module."""
+    from wesep_tpu_torch.models.convtasnet import FuseTCNBlock
+
+    torch.manual_seed(SEED)
+    block = FuseTCNBlock(TCN_C, 256, TCN_H, TCN_K, dilation=1,
+                         norm="gLN").cuda()
+    gen = torch.Generator().manual_seed(SEED + 4)
+    x = (torch.randn(2, SPEX_T, TCN_C, generator=gen) * 0.5).cuda() \
+        .to(dtype).requires_grad_()
+    emb = torch.randn(2, 256, generator=gen).cuda().to(dtype).requires_grad_()
+    dy = (torch.randn(2, SPEX_T, TCN_C, generator=gen) * 0.1).cuda().to(dtype)
+    names, params = zip(*block.named_parameters())
+
+    def run():
+        y = block(x, emb)
+        return y, torch.autograd.grad(y, (x, emb) + params, dy)
+
+    y, grads = run()
+    block.plain = True
+    try:
+        ref_y, ref = run()
+    finally:
+        block.plain = False
+    limits = tcn_limits(dtype)
+    err_y = (y.float() - ref_y.float()).abs().max().item()
+    tol_y = tolerance(ref_y) if limits["y"] is None else \
+        limits["y"] * ref_y.float().abs().max().item()
+    l2 = {n: rel_l2(g, w)
+          for n, g, w in zip(("x", "embed") + names, grads, ref)}
+    case = {"shape": "fused_block", "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": err_y, "tolerance": tol_y, "grad_rel_l2": l2}
+    log("kernel tcn_block_gln through FuseTCNBlock", json.dumps(case))
+    if not (err_y <= tol_y
+            and all(v <= limits["grad_l2"] for v in l2.values())):
+        raise AssertionError(f"fused TCN block disagrees: {case}")
+    return case
+
+
+def write_enrollments(root, rng, name, paths, keys):
+    """6 s enrollment wavs for the shard `name` (one per mixture and
+    target), with the utt -> wav scp, spk2enroll.json and a single.utt2spk,
+    as the v2 recipe lays them out."""
+    from wesep_tpu_torch.data.wav_io import write_wav
+
+    n = int(ENROLL_SECONDS * 16000)
+    os.makedirs(os.path.join(root, f"{name}_enroll"), exist_ok=True)
+    spk2enroll, utt2wav = {}, {}
+    for key in keys:
+        for spk in (1, 2):
+            utt = f"{key}_enr{spk}"
+            t = np.arange(n) / 16000.0
+            f0 = rng.uniform(90, 250)
+            wav = 0.1 * sum(np.sin(2 * np.pi * f0 * h * t) / h
+                            for h in range(1, 6))
+            wav = wav + 0.02 * rng.standard_normal(n)
+            path = os.path.join(root, f"{name}_enroll", utt + ".wav")
+            write_wav(path, wav.astype(np.float32), 16000)
+            utt2wav[utt] = path
+            spk2enroll[f"{key}_s{spk}"] = [[utt, path]]
+    paths["spk2utt"] = os.path.join(root, f"{name}_enroll_wav.scp")
+    with open(paths["spk2utt"], "w") as f:
+        f.writelines(f"{u} {p}\n" for u, p in utt2wav.items())
+    paths["spk2enroll"] = os.path.join(root, f"{name}_spk2enroll.json")
+    with open(paths["spk2enroll"], "w") as f:
+        json.dump(spk2enroll, f)
+    return paths
+
+
+def spex_shard(root, rng, name, seconds):
+    paths, lengths = write_shard(root, rng, name, seconds)
+    keys = [f"{name}{i:02d}" for i in range(len(lengths))]
+    return write_enrollments(root, rng, name, paths, keys), lengths
+
+
+def tcn_blocks(model):
+    from wesep_tpu_torch.models.convtasnet import FuseTCNBlock, TCNBlock
+
+    return [m for m in model.modules()
+            if isinstance(m, (TCNBlock, FuseTCNBlock))]
+
+
+def set_plain(blocks, plain):
+    for m in blocks:
+        m.plain = plain
+
+
+def serve_spex(root):
+    """Phase 6: SpEx+ through bin/infer on the card."""
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.data.wav_io import read_wav
+    from wesep_tpu_torch.models.convtasnet import ConvTasNet
+    from wesep_tpu_torch.ops.cuda_tcn import tcn_block_gln
+    from wesep_tpu_torch.train.checkpoint import save_checkpoint, split_state
+
+    rng = np.random.default_rng(SEED + 5)
+    paths, lengths = spex_shard(root, rng, "spextest", SHARD_SECONDS)
+    torch.manual_seed(SEED)
+    model = ConvTasNet(**SPEX_MODEL_ARGS)
+    ckpt = os.path.join(root, "spex_avg_model.pt")
+    params, buffers = split_state(model)
+    save_checkpoint(ckpt, [params], batch_stats=[buffers])
+    config = {
+        "model": {"tse_model": "ConvTasNet"},
+        "model_args": {"tse_model": dict(SPEX_MODEL_ARGS)},
+        "data_type": "shard",
+        "dataset_args": {"resample_rate": 16000, "speaker_feat": False,
+                         "enroll_sec": ENROLL_SECONDS},
+        "exp_dir": os.path.join(root, "exp_spex"),
+        "checkpoint": ckpt, "length_bucket": BUCKET,
+        "infer_batch_size": ROWS_PER_STEP, "device": "cuda",
+        "test_data": paths["data"], "test_spk2utt": paths["spk2utt"],
+        "test_spk1_enroll": paths["spk1_enroll"],
+        "test_spk2_enroll": paths["spk2_enroll"],
+    }
+    steps = forward_steps(lengths)
+    tcn_block_gln.launches = 0
+    t0 = time.perf_counter()
+    avg_sisnr, avg_sisnri = infer(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tcn_block_gln.launches
+    audio_s = 2 * sum(lengths) / 16000.0
+    log(f"serve SpEx+: {2 * len(lengths)} requests in {steps} forward steps, "
+        f"{wall:.3f} s wall, RTF {wall / audio_s:.5f}, avg SI-SNR "
+        f"{avg_sisnr:.3f} dB, avg SI-SNRi {avg_sisnri:.3f} dB (random "
+        "weights: shows the chain ran, not quality)")
+    log(f"serve SpEx+: tcn_block_gln launches {launches} (expected "
+        f"{SPEX_BLOCKS} x {steps})")
+    if launches != SPEX_BLOCKS * steps:
+        raise AssertionError(f"{launches} kernel launches, expected "
+                             f"{SPEX_BLOCKS * steps}")
+    if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
+        raise AssertionError("non-finite SI-SNR from infer")
+    audio = os.path.join(root, "exp_spex", "audio")
+    wavs = sorted(n for n in os.listdir(audio) if n.endswith(".wav"))
+    if len(wavs) != 2 * len(lengths):
+        raise AssertionError(f"{len(wavs)} outputs for {2 * len(lengths)} "
+                             "requests")
+    for name, n in zip(wavs[::2], lengths):
+        wav, _ = read_wav(os.path.join(audio, name))
+        if wav.shape != (1, n) or not np.isfinite(wav).all():
+            raise AssertionError(f"bad output {name}: {wav.shape}")
+
+    # kernel forward against the plain blocks' forward of the same model
+    model = model.cuda().eval()
+    gen = torch.Generator().manual_seed(SEED + 6)
+    mix = (torch.randn(ROWS_PER_STEP, CHUNK, generator=gen) * 0.1).cuda()
+    enr = (torch.randn(ROWS_PER_STEP, int(ENROLL_SECONDS * 16000),
+                       generator=gen) * 0.1).cuda()
+    blocks = tcn_blocks(model)
+    with torch.inference_mode():
+        before = tcn_block_gln.launches
+        ests = model(mix, enr)[0]
+        per_forward = tcn_block_gln.launches - before
+        step_ms = time_ms(lambda: model(mix, enr), warmup=1, runs=5)
+        set_plain(blocks, True)
+        try:
+            ests_plain = model(mix, enr)[0]
+            plain_step_ms = time_ms(lambda: model(mix, enr), 1, 3)
+        finally:
+            set_plain(blocks, False)
+    if per_forward != SPEX_BLOCKS or len(blocks) != SPEX_BLOCKS:
+        raise AssertionError(f"{per_forward} launches in one forward of "
+                             f"{len(blocks)} blocks, expected {SPEX_BLOCKS}")
+    if len(ests) != 3 or any(e.shape != mix.shape
+                             or not torch.isfinite(e).all() for e in ests):
+        raise AssertionError("kernel forward is not finite / wrong shape")
+    rel = max(rel_l2(a, b) for a, b in zip(ests, ests_plain))
+    log(f"serve SpEx+: forward [2 x 3 s] {step_ms:.3f} ms/step with the "
+        f"kernel, {plain_step_ms:.3f} ms/step with the plain blocks; "
+        f"{2 * 3.0 / (step_ms / 1e3):.1f} audio-s/s, RTF "
+        f"{step_ms / 1e3 / 6.0:.5f}; kernel vs plain rel L2 {rel:.3e} "
+        "(limit 1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError(f"kernel forward differs from plain: {rel}")
+    return launches, {
+        "requests": 2 * len(lengths), "steps": steps, "wall_s": wall,
+        "rtf_wall": wall / audio_s, "step_ms": step_ms,
+        "plain_step_ms": plain_step_ms, "rel_l2_vs_plain": rel,
+        "avg_sisnri": avg_sisnri,
+    }
+
+
+def spex_param_grads(model, batch, criterion, table):
+    """Gradients of the recipe's loss w.r.t. every parameter, by name."""
+    from wesep_tpu_torch.train.trainer import weighted_loss
+
+    names, params = zip(*model.named_parameters())
+    loss = weighted_loss(
+        model(batch["wav_mix"], batch["spk_embeds"]), batch["wav_targets"],
+        batch["spk_label"], criterion, table["loss_posi"],
+        table["loss_weight"], multi_task=True)
+    return dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def train_spex(root):
+    """Phase 7: SpEx+ through bin/train on the card."""
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.bin.train import train
+    from wesep_tpu_torch.models.convtasnet import ConvTasNet
+    from wesep_tpu_torch.ops import cuda_tcn as k
+    from wesep_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+        split_state,
+    )
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    rng = np.random.default_rng(SEED + 7)
+    tr, _ = spex_shard(root, rng, "spextrain", [4.0] * (2 * TRAIN_BATCH))
+    va, va_lengths = spex_shard(root, rng, "spexdev", [3.5] * TRAIN_BATCH)
+    torch.manual_seed(SEED)
+    init = ConvTasNet(**SPEX_MODEL_ARGS)
+    init_state = {n: v.clone() for n, v in init.state_dict().items()}
+    init_path = os.path.join(root, "spex_init.ckpt")
+    params, buffers = split_state(init)
+    save_checkpoint(init_path, [params], batch_stats=[buffers])
+    table = {"loss_posi": [[0, 1, 2], [3]],
+             "loss_weight": [[0.8, 0.1, 0.1], [0.5]]}
+    # the values of examples/librimix/tse/v2/confs/spexplus.yaml; one epoch
+    # of SPEX_TRAIN_STEPS batches on the synthetic shards
+    config = {
+        "device": "cuda", "exp_dir": os.path.join(root, "exp_spex_train"),
+        "data_type": "shard",
+        "train_data": tr["data"], "train_utt2spk": tr["utt2spk"],
+        "train_spk2utt": tr["spk2enroll"],
+        "val_data": va["data"], "val_spk2utt": va["spk2utt"],
+        "val_spk1_enroll": va["spk1_enroll"],
+        "val_spk2_enroll": va["spk2_enroll"],
+        "dataloader_args": {"batch_size": TRAIN_BATCH, "drop_last": True,
+                            "prefetch_factor": 6},
+        "dataset_args": {"resample_rate": 16000,
+                         "sample_num_per_epoch":
+                             SPEX_TRAIN_STEPS * TRAIN_BATCH,
+                         "shuffle": True,
+                         "shuffle_args": {"shuffle_size": 2500},
+                         "chunk_len": CHUNK, "speaker_feat": False,
+                         "enroll_sec": ENROLL_SECONDS},
+        "compute_dtype": "bfloat16", "log_batch_interval": 1,
+        "loss": ["SISDR", "CE"], "loss_args": table,
+        "model": {"tse_model": "ConvTasNet"},
+        "model_args": {"tse_model": dict(SPEX_MODEL_ARGS)},
+        "model_init": {"tse_model": init_path},
+        "num_avg": 2, "num_epochs": 1,
+        "optimizer": {"tse_model": "Adam"},
+        "optimizer_args": {"tse_model": {"lr": 0.001, "weight_decay": 0.0001}},
+        "clip_grad": 5.0, "save_epoch_interval": 1,
+        "scheduler": {"tse_model": "ExponentialDecrease"},
+        "scheduler_args": {"tse_model": {
+            "final_lr": 2.5e-05, "initial_lr": 0.001,
+            "warm_from_zero": False, "warm_up_epoch": 0}},
+        "seed": 42,
+    }
+    counters = (k.tcn_block_gln, k.tcn_block_gln_backward)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    state = train(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = [c.launches for c in counters]
+    val_steps = 1  # 16 validation enrollments / 2 / batch_size 8
+    expected = [SPEX_BLOCKS * (SPEX_TRAIN_STEPS + val_steps),
+                SPEX_BLOCKS * SPEX_TRAIN_STEPS]
+    log(f"train SpEx+: {SPEX_TRAIN_STEPS} steps + {val_steps} validation "
+        f"step through bin/train in {wall:.3f} s wall; launches forward / "
+        f"backward {launches} (expected {expected})")
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    with open(os.path.join(config["exp_dir"], "train.log")) as f:
+        text = f.read()
+    losses = rows_loss(text)
+    epoch = re.findall(r"Epoch 1 train_loss (\S+) val_loss (\S+)", text)
+    log(f"train SpEx+: running mean loss per step {losses}, epoch {epoch}")
+    if len(losses) != SPEX_TRAIN_STEPS or len(epoch) != 1 or not all(
+            math.isfinite(v) for v in losses + [float(e) for e in epoch[0]]):
+        raise AssertionError("missing or non-finite training losses")
+    if state.step != SPEX_TRAIN_STEPS:
+        raise AssertionError(f"{state.step} updates, expected "
+                             f"{SPEX_TRAIN_STEPS}")
+    moved = {n: (v.detach().cpu().float() - init_state[n]).abs().max().item()
+             for n, v in state.model.state_dict().items()}
+    if not all(v > 0 for v in moved.values()):
+        raise AssertionError(
+            "parameters or BatchNorm statistics that did not change: "
+            f"{[n for n, v in moved.items() if v == 0]}")
+    n_stats = len(dict(state.model.named_buffers()))
+    models = os.path.join(config["exp_dir"], "models")
+    ckpt = os.path.join(models, "checkpoint_1.ckpt")
+    bundle = load_checkpoint(ckpt)
+    if not (bundle["step"] == SPEX_TRAIN_STEPS
+            and bundle["opt_states"][0]["count"] == SPEX_TRAIN_STEPS
+            and len(bundle["batch_stats"][0]) == n_stats == 12):
+        raise AssertionError("checkpoint_1.ckpt lacks optimizer state, step "
+                             "or BatchNorm statistics")
+    del state
+    # bin/infer decodes from the checkpoint bin/train wrote
+    sisnr, _ = infer({
+        "model": config["model"], "model_args": config["model_args"],
+        "data_type": "shard", "dataset_args": config["dataset_args"],
+        "exp_dir": os.path.join(root, "exp_spex_ckpt"), "checkpoint": ckpt,
+        "save_wav": False, "device": "cuda", "length_bucket": BUCKET,
+        "test_data": va["data"], "test_spk2utt": va["spk2utt"],
+        "test_spk1_enroll": va["spk1_enroll"],
+        "test_spk2_enroll": va["spk2_enroll"]})
+    if not math.isfinite(sisnr):
+        raise AssertionError("bin/infer from the trained checkpoint: "
+                             "non-finite SI-SNR")
+    log(f"train SpEx+: bin/infer decoded {2 * len(va_lengths)} requests from "
+        f"checkpoint_1.ckpt, avg SI-SNR {sisnr:.3f} dB")
+
+    # gradients through the kernels against gradients through the plain
+    # blocks: f32, 2 rows x 3 s, relative L2 per parameter (limit 5e-3:
+    # the sums run in another order, and a PReLU input within rounding of
+    # zero may take the other branch, see tcn_limits; through 32 blocks
+    # and over only 2 x 4799 rows one such flip weighs more in a depthwise
+    # tap's gradient than in the single block's check). The three decoder
+    # biases are left out: they shift an estimate by a constant, which the
+    # zero-mean SI-SDR does not see, so their gradient is rounding noise.
+    criterion = parse_loss(["SISDR", "CE"])
+    gen = torch.Generator().manual_seed(SEED + 8)
+    model = ConvTasNet(**SPEX_MODEL_ARGS)
+    model.load_state_dict(init_state)
+    model = model.cuda().train()
+    blocks = tcn_blocks(model)
+
+    def make_batch(rows):
+        return {
+            "wav_mix": (torch.randn(rows, CHUNK, generator=gen) * 0.1).cuda(),
+            "wav_targets":
+                (torch.randn(rows, CHUNK, generator=gen) * 0.1).cuda(),
+            "spk_embeds": (torch.randn(
+                rows, int(ENROLL_SECONDS * 16000), generator=gen) * 0.1)
+            .cuda(),
+            "spk_label": torch.randint(0, 251, (rows,), generator=gen).cuda(),
+        }
+
+    small = make_batch(2)
+    got = spex_param_grads(model, small, criterion, table)
+    set_plain(blocks, True)
+    want = spex_param_grads(model, small, criterion, table)
+    set_plain(blocks, False)
+    # A PReLU slope's gradient is one number, sum(dw * min(v, 0)) over
+    # millions of terms that nearly cancel (the gLN adjoint makes dw
+    # orthogonal to 1 and to the normalised w), 1e-5 of the whole
+    # gradient's norm here: its own size is no scale for its error, so
+    # the slopes are held to 1e-5 of the whole gradient's norm instead.
+    skipped = re.compile(r"dec_\d\.ConvTranspose_0\.bias")
+    total = torch.cat([g.flatten() for g in want.values()]).norm().item()
+    rel = {n: rel_l2(got[n], want[n]) for n in want
+           if not skipped.fullmatch(n) and not n.endswith(".alpha")}
+    slopes = {n: (got[n] - want[n]).norm().item() / total for n in want
+              if n.endswith(".alpha")}
+    worst = max(rel, key=rel.get)
+    worst_slope = max(slopes, key=slopes.get)
+    log(f"train SpEx+: gradients of {len(rel)} parameters, kernels vs plain "
+        f"blocks (f32): worst relative L2 {rel[worst]:.3e} at {worst} "
+        f"(limit 5e-3); {len(slopes)} PReLU slopes: worst error "
+        f"{slopes[worst_slope]:.3e} of the whole gradient's norm at "
+        f"{worst_slope} (limit 1e-5)")
+    if not (rel[worst] <= 5e-3 and slopes[worst_slope] <= 1e-5):
+        raise AssertionError(
+            f"gradients differ: {worst} {rel[worst]}, {worst_slope} "
+            f"{slopes[worst_slope]}")
+    del got, want
+
+    # time and peak memory of one train step at the recipe's size
+    rows = 2 * TRAIN_BATCH
+    batch = make_batch(rows)
+    opt = make_optimizer(model, exponential_decrease(
+        num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+        warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0)
+    tstate = TrainState(model=model, optimizer=opt)
+    step = make_train_step(criterion, table["loss_posi"],
+                           table["loss_weight"], multi_task=True,
+                           compute_dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(tstate, batch), warmup=1, runs=5)
+    peak = torch.cuda.max_memory_allocated()
+    set_plain(blocks, True)
+    torch.cuda.reset_peak_memory_stats()
+    plain_step_ms = time_ms(lambda: step(tstate, batch), warmup=1, runs=2)
+    plain_peak = torch.cuda.max_memory_allocated()
+    set_plain(blocks, False)
+    audio = rows * CHUNK / 16000.0
+    log(f"train SpEx+: step [16 rows x 3 s, bf16] {step_ms:.3f} ms with the "
+        f"kernels (peak memory {peak / 2 ** 30:.2f} GiB), "
+        f"{plain_step_ms:.3f} ms with the plain blocks (peak "
+        f"{plain_peak / 2 ** 30:.2f} GiB); "
+        f"{audio / (step_ms / 1e3):.1f} audio-s/s")
+    return dict(zip(("tcn_block_gln", "tcn_block_gln_backward"), launches)), {
+        "steps": SPEX_TRAIN_STEPS, "val_steps": val_steps, "wall_s": wall,
+        "running_mean_loss": losses, "step_ms": step_ms,
+        "plain_step_ms": plain_step_ms,
+        "audio_s_per_s": audio / (step_ms / 1e3),
+        "peak_memory_bytes": peak, "plain_peak_memory_bytes": plain_peak,
+        "grad_rel_l2_worst": rel[worst],
+        "slope_grad_err_worst": slopes[worst_slope],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -697,6 +1258,13 @@ def main() -> int:
     train_cases = [check_training_kernels(name, t_len, batch, dtype)
                    for name, (t_len, batch) in TRAIN_SHAPES.items()
                    for dtype in (torch.float32, torch.bfloat16)]
+    tcn_cases = [check_tcn(name, batch, dtype, dilation)
+                 for name, batch in (("spex_serve", ROWS_PER_STEP),
+                                     ("spex_train", 2 * TRAIN_BATCH))
+                 for dtype in (torch.float32, torch.bfloat16)
+                 for dilation in (1, 128)]
+    fused_cases = [check_fused_tcn_block(dtype)
+                   for dtype in (torch.float32, torch.bfloat16)]
 
     # 4. serve
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -708,22 +1276,44 @@ def main() -> int:
         train_launches, trained = train_phase(root)
     log("train summary", json.dumps(trained))
 
+    # 6. serve SpEx+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        spex_serve_launches, spex_served = serve_spex(root)
+    log("serve SpEx+ summary", json.dumps(spex_served))
+
+    # 7. train SpEx+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        spex_launches, spex_trained = train_spex(root)
+    log("train SpEx+ summary", json.dumps(spex_trained))
+
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
     # training bf16)
     band = cases[0]
     train_band = train_cases[1]
+    # and of the fused TCN block: SpEx+'s training shape (16 rows, bf16)
+    # at dilation 1
+    tcn_head = next(c for c in tcn_cases if c["shape"] == "spex_train"
+                    and c["dtype"] == "bfloat16" and c["dilation"] == 1)
     sources = {"bilstm_layer": "wesep_tpu_torch/csrc/bilstm_layer.cu",
                "bilstm_layer_backward":
                    "wesep_tpu_torch/csrc/bilstm_layer_bwd.cu",
                "bilstm_layer_wgrad":
-                   "wesep_tpu_torch/csrc/bilstm_layer_bwd.cu"}
+                   "wesep_tpu_torch/csrc/bilstm_layer_bwd.cu",
+               "tcn_block_gln": "wesep_tpu_torch/csrc/tcn_block.cu",
+               "tcn_block_gln_backward":
+                   "wesep_tpu_torch/csrc/tcn_block_bwd.cu"}
     replaces = {"bilstm_layer": "wesep_tpu/ops/pallas_lstm.py:834",
                 "bilstm_layer_backward": "wesep_tpu/ops/pallas_lstm.py:932",
-                "bilstm_layer_wgrad": "wesep_tpu/ops/pallas_lstm.py:932"}
+                "bilstm_layer_wgrad": "wesep_tpu/ops/pallas_lstm.py:932",
+                "tcn_block_gln": "wesep_tpu/ops/pallas_tcn.py:230",
+                "tcn_block_gln_backward": "wesep_tpu/ops/pallas_tcn.py:527"}
     headline = {"bilstm_layer": band,
                 "bilstm_layer_backward": train_band["backward"],
-                "bilstm_layer_wgrad": train_band["wgrad"]}
+                "bilstm_layer_wgrad": train_band["wgrad"],
+                "tcn_block_gln": tcn_head["forward"],
+                "tcn_block_gln_backward": tcn_head["backward"]}
+    train_launches.update(spex_launches)
     kernels = []
     for name, head in headline.items():
         entry = {"name": name, "route": "cuda", "source": sources[name],
@@ -738,6 +1328,15 @@ def main() -> int:
             entry["cases"] = cases + [
                 dict(c["forward"], shape=c["shape"], dtype=c["dtype"],
                      T=c["T"], B=c["B"]) for c in train_cases]
+        elif name.startswith("tcn_block_gln"):
+            part = "backward" if name.endswith("backward") else "forward"
+            if part == "forward":
+                entry["launches_by_path"] = {"serve": spex_serve_launches,
+                                             "train": train_launches[name]}
+                entry["fused_block_cases"] = fused_cases
+            entry["cases"] = [
+                dict(c[part], shape=c["shape"], dtype=c["dtype"], T=c["T"],
+                     B=c["B"], dilation=c["dilation"]) for c in tcn_cases]
         else:
             part = "backward" if name == "bilstm_layer_backward" else "wgrad"
             entry["cases"] = [

@@ -12,7 +12,7 @@ import math
 import pytest
 import torch
 
-from wesep_tpu_torch.ops import cuda_lstm
+from wesep_tpu_torch.ops import _build, cuda_lstm, cuda_tcn
 
 pytestmark = pytest.mark.cuda
 
@@ -162,3 +162,148 @@ def test_bilstm_layer_rejects_what_it_cannot_run(cuda):
         cuda_lstm.bilstm_layer(*_args(cuda, 2, 3, 8, 260, torch.float32))
     with pytest.raises(ValueError):  # a weight left on the host
         cuda_lstm.bilstm_layer(args[0], args[1].cpu(), *args[2:])
+
+
+# --- the fused gLN TCN block ----------------------------------------------
+
+TCN_GRADS = ("dx", "db1_eff", "dw1", "dp0", "dkd", "dbd", "dg0w", "dg0b",
+             "dp1", "dw2", "db2", "dg1w", "dg1b")
+
+
+def _tcn_args(device, b, t, c, h, k, dtype, seed=0):
+    """The thirteen arguments of tcn_block_gln (x in `dtype`, f32
+    parameters) and a cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen)  # noqa: E731
+    u = lambda n: torch.rand(n, generator=gen) + 0.5  # noqa: E731
+    args = [r(b, t, c) * 0.5, r(b, h) * 0.1, r(c, h) * 0.08,
+            torch.tensor([0.25]), r(k, h) * 0.3, r(h) * 0.1, u(h),
+            r(h) * 0.2, torch.tensor([0.2]), r(h, c) * 0.08, r(c) * 0.1,
+            u(h), r(h) * 0.2]
+    args = [a.to(device) for a in args]
+    args[0] = args[0].to(dtype)
+    return args, (r(b, t, c) * 0.1).to(device).to(dtype)
+
+
+def _rel_l2(got, ref):
+    return ((got.float() - ref.float()).norm()
+            / ref.float().norm().clamp_min(1e-20)).item()
+
+
+# small and ragged shapes (tiles and chunks partly empty, k = 2, causal,
+# a dilation past the length), then SpEx+'s full width at 2 rows
+TCN_SHAPES = [(2, 301, 40, 72, 3, 4, True), (3, 130, 64, 128, 2, 3, False),
+              (1, 50, 8, 8, 3, 64, False), (2, 4799, 256, 512, 3, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,h,k,d,causal", TCN_SHAPES)
+def test_tcn_block_matches_plain(cuda, dtype, b, t, c, h, k, d, causal):
+    """Forward and backward kernels against their plain versions. y: 1e-4
+    of the largest magnitude in f32, 4 bf16 units in the last place in
+    bf16. Gradients: relative L2 2e-3 (f32) or 2e-2 (bf16) and largest
+    error 5e-2 of the largest magnitude: a PReLU input within an f32
+    rounding of zero may take the other branch in the two versions, which
+    moves one element of dv or ds by (1 - slope) of its size."""
+    args, dy = _tcn_args(cuda, b, t, c, h, k, dtype)
+    conf = (d, k, causal, 1e-5)
+    counts = (cuda_tcn.tcn_block_gln.launches,
+              cuda_tcn.tcn_block_gln_backward.launches)
+    y, stats = cuda_tcn._forward_cuda(*args, *conf)
+    torch.cuda.synchronize()
+    ref_y, ref_stats = cuda_tcn.tcn_block_gln_reference(
+        *args, *conf, return_stats=True)
+    assert y.dtype == dtype and y.shape == (b, t, c)
+    tol = 1e-4 * ref_y.abs().max().item() if dtype == torch.float32 \
+        else _tolerance(ref_y)
+    assert (y.float() - ref_y.float()).abs().max().item() <= tol
+    assert (stats - ref_stats).abs().max().item() \
+        <= 1e-4 * ref_stats.abs().max().item()
+    got = cuda_tcn.tcn_block_gln_backward(*args, ref_stats, dy, *conf)
+    torch.cuda.synchronize()
+    assert (cuda_tcn.tcn_block_gln.launches,
+            cuda_tcn.tcn_block_gln_backward.launches) == tuple(
+                n + 1 for n in counts)
+    want = cuda_tcn.tcn_block_gln_backward_reference(
+        *args, ref_stats, dy, *conf)
+    assert got[0].dtype == dtype
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    l2_limit = 2e-3 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(TCN_GRADS, got, want):
+        assert g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= l2_limit, (name, _rel_l2(g, w))
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 5e-2 * max(w.float().abs().max().item(), 1e-6), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tcn_block_gradients_repeat_bit_for_bit(cuda, dtype):
+    """No atomics: every sum over blocks is added in a fixed order."""
+    args, dy = _tcn_args(cuda, 4, 1500, 256, 512, 3, dtype, seed=1)
+    conf = (8, 3, False, 1e-5)
+    y1, stats = cuda_tcn._forward_cuda(*args, *conf)
+    y2, stats2 = cuda_tcn._forward_cuda(*args, *conf)
+    assert torch.equal(y1, y2) and torch.equal(stats, stats2)
+    first = cuda_tcn.tcn_block_gln_backward(*args, stats, dy, *conf)
+    for _ in range(3):
+        again = cuda_tcn.tcn_block_gln_backward(*args, stats, dy, *conf)
+        for name, a, b in zip(TCN_GRADS, first, again):
+            assert torch.equal(a, b), name
+
+
+def test_tcn_function_bf16_returns_f32_parameter_gradients(cuda):
+    """The Function on a bf16 stream with f32 parameters: dx in bf16, every
+    parameter gradient f32 in its parameter's shape; no gradient asked, no
+    graph."""
+    args, dy = _tcn_args(cuda, 2, 700, 64, 128, 3, torch.bfloat16)
+    leaves = [a.requires_grad_() for a in args]
+    y = cuda_tcn.tcn_block_gln(*leaves, 2, 3, False, 1e-5)
+    y.backward(dy)
+    assert leaves[0].grad.dtype == torch.bfloat16
+    for leaf in leaves[1:]:
+        assert leaf.grad.dtype == torch.float32
+        assert leaf.grad.shape == leaf.shape
+    plain = [a.detach().clone().requires_grad_() for a in args]
+    cuda_tcn.tcn_block_gln(*plain, 2, 3, False, 1e-5, plain=True).backward(dy)
+    for name, a, p in zip(TCN_GRADS, leaves, plain):
+        assert _rel_l2(a.grad, p.grad) <= 2e-2, name
+    with torch.no_grad():
+        assert cuda_tcn.tcn_block_gln(*args, 2, 3, False, 1e-5).grad_fn \
+            is None
+
+
+def test_tcn_block_rejects_what_it_cannot_run(cuda):
+    args, _ = _tcn_args(cuda, 2, 30, 16, 32, 3, torch.float32)
+    conf = (1, 3, False, 1e-5)
+    with pytest.raises(TypeError):
+        cuda_tcn.tcn_block_gln(args[0].half(), *args[1:], *conf)
+    bad, _ = _tcn_args(cuda, 2, 30, 12, 32, 3, torch.float32)
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        cuda_tcn.tcn_block_gln(*bad, *conf)
+    with pytest.raises(ValueError):  # a parameter left on the host
+        cuda_tcn.tcn_block_gln(args[0], args[1].cpu(), *args[2:], *conf)
+
+
+def test_failed_build_raises_and_nothing_falls_back(cuda, monkeypatch,
+                                                    tmp_path):
+    """A CUDA tensor meets a build that fails: the wrapper raises the
+    compiler's error; it does not run the plain version instead."""
+    args, _ = _tcn_args(cuda, 2, 30, 16, 32, 3, torch.float32)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (test)")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(cuda_tcn, "tcn_block_gln_reference", None)
+    cuda_tcn._library.cache_clear()
+    _build.load_library.cache_clear()
+    try:
+        before = cuda_tcn.tcn_block_gln.launches
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            cuda_tcn.tcn_block_gln(*args, 1, 3, False, 1e-5)
+        assert cuda_tcn.tcn_block_gln.launches == before
+    finally:
+        cuda_tcn._library.cache_clear()
+        _build.load_library.cache_clear()

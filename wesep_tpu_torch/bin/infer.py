@@ -3,6 +3,10 @@
 Counterpart of wesep_tpu/bin/infer.py with the same semantics, so the two
 agree on the same shard and weights:
 
+- the cue of a target is a pre-extracted embedding or, for a jointly
+  trained ConvTasNet / SpEx+, an enrollment wav wrapped or trimmed to
+  `enroll_sec` seconds; multi-scale models are scored on their first
+  (short-window) estimate;
 - each mixture gives one row per target speaker; rows are buffered per
   length bucket (`length_bucket`, default 16000 samples), zero-padded to
   the bucket and decoded `infer_batch_size` rows at a time (default 2);
@@ -20,6 +24,7 @@ It runs on `cuda` unless the config or the caller gives `device: cpu`.
 """
 
 import argparse
+import functools
 import os
 import time
 
@@ -52,11 +57,12 @@ def generate_enhanced_scp(audio_dir: str, n_spk: int = 2):
 
 def infer(config, overrides=None, **kwargs):
     """Decode the configured test set; return (avg SI-SNR, avg SI-SNRi)."""
+    from wesep_tpu_torch.bin.train import default_enroll_len
     from wesep_tpu_torch.data import BatchLoader, Dataset, tse_collate_fn_2spk
     from wesep_tpu_torch.data.wav_io import write_wav
     from wesep_tpu_torch.device import resolve_device
     from wesep_tpu_torch.models import get_model
-    from wesep_tpu_torch.train.checkpoint import load_checkpoint
+    from wesep_tpu_torch.train.checkpoint import load_checkpoint, model_state
     from wesep_tpu_torch.utils.config import (
         deep_update,
         parse_config_or_kwargs,
@@ -82,23 +88,24 @@ def infer(config, overrides=None, **kwargs):
     model_args = dict(configs["model_args"]["tse_model"])
     model_args.pop("spk_model_init", None)
     joint_training = model_args.get("joint_training", False)
-    if joint_training:
+    model_name = configs["model"]["tse_model"]
+    if joint_training and not model_name.startswith("ConvTasNet"):
         raise NotImplementedError(
-            "joint_training inference (enrollment wavs through the speaker "
-            "branch) is not ported yet"
-        )
-    model = get_model(configs["model"]["tse_model"])(**model_args)
+            f"joint_training inference of {model_name} (an external speaker "
+            "encoder on fbank features) is not ported yet; see ROADMAP.md "
+            "queue A, the joint v2 BSRNN")
+    model = get_model(model_name)(**model_args)
     model_path = configs["checkpoint"]
 
     logger = setup_logger(configs["exp_dir"], name="infer.log")
     logger.info("Load checkpoint from %s", model_path)
     audio_dir = os.path.join(configs["exp_dir"], "audio")
     os.makedirs(audio_dir, exist_ok=True)
-    model.load_state_dict(load_checkpoint(model_path)["models"][0])
+    model.load_state_dict(model_state(load_checkpoint(model_path)))
     model.to(device).eval()
 
     test_spk_embeds = configs.get("test_spk_embeds", None)
-    if test_spk_embeds:
+    if not joint_training and test_spk_embeds:
         test_spk2embed_dict = read_vec_scp_file(test_spk_embeds)
     else:
         test_spk2embed_dict = read_label_file(configs["test_spk2utt"])
@@ -113,8 +120,14 @@ def infer(config, overrides=None, **kwargs):
         joint_training=joint_training,
         whole_utt=configs.get("whole_utt", True),
     )
-    loader = BatchLoader(test_dataset, batch_size=1,
-                         collate_fn=tse_collate_fn_2spk, drop_last=False)
+    # one enrollment length (bin/train's default), so every step of one
+    # length bucket has one shape
+    collate = functools.partial(
+        tse_collate_fn_2spk, fixed_enroll_len=default_enroll_len(
+            dict(configs["dataset_args"], resample_rate=sample_rate),
+            joint_training))
+    loader = BatchLoader(test_dataset, batch_size=1, collate_fn=collate,
+                         drop_last=False)
     logger.info("test number: %d", len(test_spk2embed_dict) // 2)
 
     bucket = int(configs.get("length_bucket", 16000))
@@ -136,6 +149,8 @@ def infer(config, overrides=None, **kwargs):
         with torch.inference_mode():
             est = model(torch.from_numpy(mix_b).to(device),
                         torch.from_numpy(enr_b).to(device))[0]
+        if isinstance(est, (list, tuple)):
+            est = est[0]  # multi-scale decoders: the short-window estimate
         ests = est.float().cpu().numpy()
         for r, est in zip(rows, ests):
             est = est[: r["t_len"]]

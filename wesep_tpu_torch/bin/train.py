@@ -1,10 +1,11 @@
 """Training entry point: YAML-config driven, one process on one device.
 
 Counterpart of wesep_tpu/bin/train.py with the same semantics: the train
-and validation chains, the model, the loss table, the optimizer chain and
-the schedule come from the config; every epoch trains `epoch_iter` batches,
-validates, and writes `models/checkpoint_<N>.ckpt` (parameters, optimizer
-state, step) with a `latest_checkpoint.ckpt` link, and `final_checkpoint
+and validation chains (pre-extracted embeddings, or enrollment wavs and
+speaker labels for a jointly trained ConvTasNet / SpEx+), the model, the
+loss table, the optimizer chain and the schedule come from the config; every epoch trains `epoch_iter` batches,
+validates, and writes `models/checkpoint_<N>.ckpt` (parameters and BatchNorm
+statistics, optimizer state, step) with a `latest_checkpoint.ckpt` link, and `final_checkpoint
 .ckpt` at the end; `--checkpoint` resumes by file name; SIGTERM ends the
 epoch at the next batch and writes `preempt_epoch<N>.ckpt`. Several devices
 or processes (`model_axis`, WESEP_DIST) come with the data-parallel slice.
@@ -35,24 +36,50 @@ def get_args():
     return parser.parse_args()
 
 
-def load_enroll_maps(configs):
-    """Embedding and enrollment maps of the train and validation sets."""
+def load_enroll_maps(configs, joint_training, multi_task):
+    """Cue maps of the train and validation sets: pre-extracted embeddings
+    or, for joint training, enrollment wavs (train: spk -> [(utt, wav
+    path)], validation: utt -> wav path) and, with `multi_task`, the
+    speaker-to-id map of the training speakers."""
     from wesep_tpu_torch.utils.file_utils import (
         load_speaker_embeddings,
         read_label_file,
+        read_spk2enroll_json,
         read_vec_scp_file,
     )
 
+    dict_spk = {}
     tr_utt2spk = configs["train_utt2spk"]
-    tr_spk2embed_dict = load_speaker_embeddings(
-        configs["train_spk_embeds"], tr_utt2spk)
+    tr_spk_embeds = configs.get("train_spk_embeds", None)
+    if not joint_training and tr_spk_embeds:
+        tr_spk2embed_dict = load_speaker_embeddings(tr_spk_embeds, tr_utt2spk)
+    else:
+        tr_spk2embed_dict, dict_spk_all = read_spk2enroll_json(
+            configs["train_spk2utt"])
+        if multi_task:
+            dict_spk = dict_spk_all
     with open(tr_utt2spk) as f:
         n_train_utts = sum(1 for _ in f)
-    val_spk2embed_dict = read_vec_scp_file(configs["val_spk_embeds"])
+    val_spk_embeds = configs.get("val_spk_embeds", None)
+    if not joint_training and val_spk_embeds:
+        val_spk2embed_dict = read_vec_scp_file(val_spk_embeds)
+    else:
+        val_spk2embed_dict = read_label_file(configs["val_spk2utt"])
     val_spk1_embed = read_label_file(configs["val_spk1_enroll"])
     val_spk2_embed = read_label_file(configs["val_spk2_enroll"])
-    return (tr_spk2embed_dict, n_train_utts, val_spk2embed_dict,
+    return (tr_spk2embed_dict, dict_spk, n_train_utts, val_spk2embed_dict,
             val_spk1_embed, val_spk2_embed)
+
+
+def default_enroll_len(dataset_args, joint_training):
+    """Samples every enrollment wav is wrapped or trimmed to, so that all
+    batches have one shape: `enroll_len`, else enroll_sec * sample rate for
+    joint training, else None (embeddings pass through)."""
+    enroll_len = dataset_args.get("enroll_len", None)
+    if enroll_len is None and joint_training:
+        enroll_len = int(dataset_args.get("enroll_sec", 6)
+                         * dataset_args.get("resample_rate", 16000))
+    return enroll_len
 
 
 def _relink(model_dir: str, link: str, target: str):
@@ -79,6 +106,7 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
         load_pretrained_model,
         restore_train_state,
         save_checkpoint,
+        split_state,
     )
     from wesep_tpu_torch.train.executor import Executor
     from wesep_tpu_torch.train.losses import parse_loss
@@ -129,14 +157,15 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     model_args = dict(configs["model_args"]["tse_model"])
     joint_training = model_args.get("joint_training", False)
     multi_task = model_args.get("multi_task", False)
-    if joint_training:
+    if joint_training and not model_name.startswith("ConvTasNet"):
         raise NotImplementedError(
-            "joint_training (the v2 recipe's speaker branch and enrollment "
-            "wavs) is not ported yet; see ROADMAP.md queue A, the joint v2 "
-            "BSRNN")
+            f"joint_training of {model_name} (an external speaker encoder "
+            "on fbank features) is not ported yet; see ROADMAP.md queue A, "
+            "the joint v2 BSRNN")
 
-    (tr_spk2embed_dict, n_train_utts, val_spk2embed_dict, val_spk1_embed,
-     val_spk2_embed) = load_enroll_maps(configs)
+    (tr_spk2embed_dict, dict_spk, n_train_utts, val_spk2embed_dict,
+     val_spk1_embed, val_spk2_embed) = load_enroll_maps(
+        configs, joint_training, multi_task)
 
     dataset_args = configs["dataset_args"]
     online_mix = dataset_args.get("online_mix", False)
@@ -146,7 +175,7 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
         return Dataset(
             configs["data_type"], configs["train_data"], dataset_args,
             tr_spk2embed_dict, None, None, state="train",
-            joint_training=joint_training,
+            joint_training=joint_training, dict_spk=dict_spk,
             whole_utt=configs.get("whole_utt", False),
             repeat_dataset=configs.get("repeat_dataset", True),
             noise_prob=dataset_args.get("noise_prob", 0),
@@ -171,7 +200,8 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     dataloader_args = dict(configs.get("dataloader_args", {}))
     batch_size = dataloader_args.get("batch_size", 8)
     collate = functools.partial(
-        tse_collate_fn, fixed_enroll_len=dataset_args.get("enroll_len", None))
+        tse_collate_fn,
+        fixed_enroll_len=default_enroll_len(dataset_args, joint_training))
     num_workers = dataloader_args.get("num_workers", 0)
     if num_workers and num_workers > 1:
         train_loader = MultiWorkerLoader(
@@ -250,9 +280,10 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
         fout.write(yaml.dump(configs))
 
     def save(name):
+        params, buffers = split_state(model)
         save_checkpoint(
-            os.path.join(model_dir, name), [model.state_dict()],
-            [optimizer.state_dict()], [{}], step=state.step)
+            os.path.join(model_dir, name), [params],
+            [optimizer.state_dict()], [buffers], step=state.step)
         _relink(model_dir, "latest_checkpoint.ckpt", name)
 
     # preemption safety: SIGTERM asks for a clean stop at the next batch

@@ -1,13 +1,16 @@
 """Dataset chains, collators and loaders.
 
-Counterpart of wesep_tpu/data/dataset.py for premixed data with
-pre-extracted embeddings (joint_training=False, online_mix=False): a chain
-is a plain iterable of sample dicts, and the collators turn lists of
-samples into fixed-shape numpy batches {wav_mix, wav_targets, spk_embeds,
-key, spk}, one row per target speaker. `state` picks the chain: "train"
-draws a random chunk and a random embedding of each target speaker, "val"
-and "test" take the fixed enrollment the lists name. Online mixing, noise,
-reverberation and enrollment wavs are not ported yet.
+Counterpart of wesep_tpu/data/dataset.py for premixed data
+(online_mix=False): a chain is a plain iterable of sample dicts, and the
+collators turn lists of samples into fixed-shape numpy batches {wav_mix,
+wav_targets, spk_embeds, spk_label, key, spk}, one row per target speaker.
+`state` picks the chain: "train" draws a random chunk and a random cue of
+each target speaker, "val" and "test" take the fixed enrollment the lists
+name. The cue is a pre-extracted embedding or, with `joint_training`, an
+enrollment waveform (and the speaker's class label where `dict_spk` is
+given); the collators bring the waveforms to one length
+(`fixed_enroll_len`). Online mixing, noise, reverberation and fbank
+features of the enrollment are not ported yet.
 """
 
 import logging
@@ -50,7 +53,8 @@ class _Chain:
 def _not_ported(what: str):
     raise NotImplementedError(
         f"{what} is not ported yet (see ROADMAP.md queue A); the port's data "
-        "chain reads premixed data with pre-extracted embeddings")
+        "chain reads premixed data with pre-extracted embeddings or "
+        "enrollment wavs")
 
 
 def Dataset(
@@ -79,11 +83,13 @@ def Dataset(
     num_workers: int = 1,
 ):
     """Build the streaming chain: open -> group/parse -> [filter] ->
-    [shuffle] -> resample -> [random chunk] -> embeddings."""
+    [shuffle] -> resample -> [random chunk] -> embeddings or enrollment
+    wavs."""
     if data_type not in ("shard", "raw"):
         raise ValueError(f"data_type must be shard or raw, not {data_type}")
-    if joint_training:
-        _not_ported("joint_training (enrollment wavs and the speaker branch)")
+    if joint_training and configs.get("speaker_feat", False):
+        _not_ported("speaker_feat (fbank features of the enrollment; queue "
+                    "A, the joint v2 BSRNN)")
     if online_mix or device_augment:
         _not_ported("online mixing")
     if noise_prob > 0 or noise_enroll_prob > 0:
@@ -114,7 +120,13 @@ def Dataset(
         chain = chain.apply(processor.random_chunk,
                             configs.get("chunk_len", resample_rate * 3))
     if state == "train":
+        if joint_training:
+            return chain.apply(processor.sample_enrollment, spk2embed_dict,
+                               dict_spk)
         return chain.apply(processor.sample_spk_embedding, spk2embed_dict)
+    if joint_training:
+        return chain.apply(processor.sample_fix_spk_enrollment,
+                           spk2embed_dict, spk1_embed, spk2_embed, dict_spk)
     return chain.apply(processor.sample_fix_spk_embedding,
                        spk2embed_dict, spk1_embed, spk2_embed)
 

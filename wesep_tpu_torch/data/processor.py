@@ -1,10 +1,11 @@
 """Streaming transforms of the serving and training paths, numpy-native.
 
 The subset of wesep_tpu/data/processor.py that bin/infer and bin/train run
-on premixed data with pre-extracted embeddings: open local shards, group
-premixed shard members, parse raw json lists, filter by length, shuffle,
-resample, cut random or leading chunks and attach random (train) or fixed
-(validation, test) embeddings. Each transform is a generator over sample
+on premixed data: open local shards, group premixed shard members, parse
+raw json lists, filter by length, shuffle, resample, cut random or leading
+chunks and attach random (train) or fixed (validation, test) speaker cues:
+pre-extracted embeddings or, for joint training, enrollment waveforms with
+the speaker's class label. Each transform is a generator over sample
 dicts; waveforms are float32 [1, T]. Every random draw comes from Python's
 `random`, in the JAX package's order, so one seed gives both packages the
 same samples.
@@ -25,7 +26,9 @@ from wesep_tpu_torch.data.wav_io import read_wav
 AUDIO_FORMAT_SETS = {"flac", "mp3", "m4a", "ogg", "opus", "wav", "wma"}
 
 __all__ = ["url_opener", "tar_file_and_group", "parse_raw", "shuffle",
-           "resample", "sample_spk_embedding", "sample_fix_spk_embedding",
+           "resample", "spk_to_id", "sample_spk_embedding",
+           "sample_fix_spk_embedding", "sample_enrollment",
+           "sample_fix_spk_enrollment",
            "get_random_chunk", "filter_len", "random_chunk", "fix_chunk"]
 
 
@@ -169,6 +172,47 @@ def sample_fix_spk_embedding(
                 sample["embed_" + key] = np.atleast_2d(
                     spk2embed_dict[emap[sample["key"]]]
                 )
+        yield sample
+
+
+def spk_to_id(data: Iterable[dict], spk2id: dict) -> Iterator[dict]:
+    """spk string -> integer `label`, -1 if unknown."""
+    for sample in data:
+        sample["label"] = spk2id.get(sample["spk"], -1)
+        yield sample
+
+
+def _attach_enrollment(sample, key, path, dict_spk):
+    enrollment, _ = read_wav(path)
+    sample["embed_" + key] = enrollment[:1]  # [1, T]
+    if dict_spk:
+        sample[key + "_label"] = dict_spk[sample[key]]
+
+
+def sample_enrollment(data: Iterable[dict], spk_embeds: dict,
+                      dict_spk=None) -> Iterator[dict]:
+    """Random enrollment wav per target speaker (spk_embeds: spk ->
+    [(utt, wav path), ...]) and, with `dict_spk`, the speaker's label, for
+    joint training."""
+    for sample in data:
+        for key in list(sample.keys()):
+            if key.startswith("spk"):
+                path = random.choice(spk_embeds[sample[key]])[1]
+                _attach_enrollment(sample, key, path, dict_spk)
+        yield sample
+
+
+def sample_fix_spk_enrollment(data: Iterable[dict], spk2embed_dict,
+                              spk1_embed, spk2_embed,
+                              dict_spk=None) -> Iterator[dict]:
+    """Deterministic enrollment wav per target (utt -> wav path), for
+    validation and test sets."""
+    for sample in data:
+        for key in list(sample.keys()):
+            if key.startswith("spk"):
+                emap = spk1_embed if key == "spk1" else spk2_embed
+                path = spk2embed_dict[emap[sample["key"]]]
+                _attach_enrollment(sample, key, path, dict_spk)
         yield sample
 
 

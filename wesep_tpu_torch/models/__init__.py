@@ -4,7 +4,11 @@ __all__ = ["get_model"]
 
 
 def get_model(model_name: str):
-    """Model class by name. Only BSRNN is ported so far."""
+    """Model class by name: BSRNN and ConvTasNet (SpEx+) are ported."""
+    if model_name.startswith("ConvTasNet"):
+        from wesep_tpu_torch.models.convtasnet import ConvTasNet
+
+        return ConvTasNet
     if model_name == "BSRNN":
         from wesep_tpu_torch.models.bsrnn import BSRNN
 

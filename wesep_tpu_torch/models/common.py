@@ -1,22 +1,25 @@
-"""Shared building blocks: Dense, FiLM, speaker transform/fusion, LSTM.
+"""Shared building blocks: Dense, Conv1d, norms, PReLU, FiLM, speaker
+transform/fusion, LSTM.
 
-Counterpart of wesep_tpu/models/common.py (Dense, FiLM, SpeakerTransform,
-SpeakerFuse, LSTM). Layouts are channels-last as in the JAX package, and
-every parameter keeps the JAX name and shape (Dense `kernel` is [in, out]),
-so a JAX param tree flattens onto the state_dict
-(utils/jax_params.py). Parameters are f32; each module computes in its
-input's dtype, so f32 parameters never promote a bf16 stream.
+Counterpart of wesep_tpu/models/common.py. Layouts are channels-last as in
+the JAX package, and every parameter keeps the JAX name and shape (Dense
+`kernel` is [in, out], Conv1d `kernel` is [k, in / groups, out]), so a JAX
+param tree flattens onto the state_dict (utils/jax_params.py). Parameters
+are f32; each module computes in its input's dtype, so f32 parameters never
+promote a bf16 stream.
 """
 
 import math
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from wesep_tpu_torch.ops.rnn import bilstm, lstm
 
-__all__ = ["Dense", "FiLM", "SpeakerTransform", "SpeakerFuse", "LSTM",
-           "uniform_param"]
+__all__ = ["Dense", "Conv1d", "GlobalLayerNorm", "ChannelLayerNorm",
+           "BatchNorm", "BatchNorm1d", "PReLU", "get_norm", "norm_auto_name",
+           "FiLM", "SpeakerTransform", "SpeakerFuse", "LSTM", "uniform_param"]
 
 
 def uniform_param(*shape, fan_in: int) -> nn.Parameter:
@@ -36,6 +39,185 @@ class Dense(nn.Module):
     def forward(self, x):
         y = torch.matmul(x, self.kernel.to(x.dtype))
         return (y.float() + self.bias).to(x.dtype)
+
+
+class _ConvParams(nn.Module):
+    """`kernel` [k, in / groups, out] and `bias` [out] of a convolution,
+    torch-default init."""
+
+    def __init__(self, kernel_size, in_per_group, features, use_bias):
+        super().__init__()
+        fan_in = kernel_size * in_per_group
+        self.kernel = uniform_param(kernel_size, in_per_group, features,
+                                    fan_in=fan_in)
+        if use_bias:
+            self.bias = uniform_param(features, fan_in=fan_in)
+        else:
+            self.register_parameter("bias", None)
+
+
+class Conv1d(nn.Module):
+    """1-D convolution on [B, T, C], torch-default init.
+
+    `padding` is an int (both sides) or a (before, after) pair. The
+    parameters sit where the JAX tree has them: a depthwise convolution
+    (groups == in == out, stride 1) holds `kernel` [k, 1, C] and `bias`
+    itself, any other holds them in a child `Conv_0`. A pointwise
+    convolution is one matrix product and a convolution of a one-channel
+    input (the learned encoders on a waveform) a product over its unfolded
+    frames; the rest go through `F.conv1d` in torch's own layout."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int = 1,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 padding=0, use_bias: bool = True):
+        super().__init__()
+        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.padding = (padding, padding) if isinstance(padding, int) \
+            else tuple(padding)
+        self.depthwise = (groups == in_channels and features == in_channels
+                          and stride == 1 and kernel_size <= 8)
+        params = _ConvParams(kernel_size, in_channels // groups, features,
+                             use_bias)
+        if self.depthwise:
+            self.kernel, self.bias = params.kernel, params.bias
+        else:
+            self.Conv_0 = params
+
+    def forward(self, x):
+        held = self if self.depthwise else self.Conv_0
+        kernel = held.kernel.to(x.dtype)
+        bias = None if held.bias is None else held.bias.to(x.dtype)
+        if any(self.padding):
+            x = F.pad(x, (0, 0, *self.padding))
+        k, in_per_group, _ = kernel.shape
+        if self.groups == 1 and self.stride == 1 and k == 1:
+            y = torch.matmul(x, kernel[0])
+        elif self.groups == 1 and in_per_group == 1 and self.dilation == 1:
+            frames = x[..., 0].unfold(-1, k, self.stride)  # [B, T', k]
+            y = torch.matmul(frames, kernel[:, 0])
+        else:
+            y = F.conv1d(x.transpose(1, 2), kernel.permute(2, 1, 0), None,
+                         self.stride, 0, self.dilation, self.groups)
+            y = y.transpose(1, 2)
+        return y if bias is None else y + bias
+
+
+class GlobalLayerNorm(nn.Module):
+    """gLN: normalise over all but the batch axis, per-channel affine.
+    Single-pass statistics (E[x^2] - E[x]^2, clamped at 0) summed in f32
+    over the stream's dtype; the affine is applied in the stream's dtype."""
+
+    eps = 1e-5
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        axes = tuple(range(1, x.dim()))
+        mean = x.float().mean(dim=axes, keepdim=True)
+        meansq = (x * x).float().mean(dim=axes, keepdim=True)
+        var = (meansq - mean * mean).clamp_min(0.0)
+        a = self.weight * torch.rsqrt(var + self.eps)
+        return a.to(x.dtype) * x + (self.bias - mean * a).to(x.dtype)
+
+
+class _Affine(nn.Module):
+    def __init__(self, channels: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+
+class ChannelLayerNorm(nn.Module):
+    """cLN: LayerNorm over the channel (last) axis at every position, in
+    f32, returned in the input's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.LayerNorm_0 = _Affine(channels)
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), x.shape[-1:], self.LayerNorm_0.scale,
+                         self.LayerNorm_0.bias, self.eps)
+        return y.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Batch norm over all but the channel (last) axis, in f32.
+
+    Parameters `scale`, `bias`; buffers `mean`, `var`. In training mode it
+    normalises with the batch's statistics (biased variance E[x^2] -
+    E[x]^2, clamped at 0) and moves the buffers by
+    new = momentum * old + (1 - momentum) * batch (momentum 0.9 keeps 90 %
+    of the old value; torch's own BatchNorm calls that momentum 0.1 and
+    would store the unbiased variance); in eval mode it uses the buffers."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("mean", torch.zeros(channels))
+        self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x):
+        x32 = x.float()
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x32.mean(dim=axes)
+            var = ((x32 * x32).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_(
+                    mean, alpha=1.0 - self.momentum)
+                self.var.mul_(self.momentum).add_(
+                    var, alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.mean, self.var
+        return (x32 - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
+            + self.bias
+
+
+class BatchNorm1d(nn.Module):
+    """BatchNorm over (B, T) per channel, returned in the input's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
+        super().__init__()
+        self.BatchNorm_0 = BatchNorm(channels, eps, momentum)
+
+    def forward(self, x):
+        return self.BatchNorm_0(x).to(x.dtype)
+
+
+_NORMS = {"cLN": ChannelLayerNorm, "gLN": GlobalLayerNorm, "BN": BatchNorm1d}
+
+
+def get_norm(kind: str, channels: int, eps: float = 1e-5) -> nn.Module:
+    """cLN / gLN / BN selector."""
+    if kind not in _NORMS:
+        raise ValueError(f"Unsupported norm: {kind}")
+    return _NORMS[kind](channels, eps=eps)
+
+
+def norm_auto_name(kind: str, idx: int) -> str:
+    """The name the JAX tree gives the idx-th norm of `kind` in a module."""
+    return f"{_NORMS[kind].__name__}_{idx}"
+
+
+class PReLU(nn.Module):
+    """PReLU with a single shared slope `alpha` [1], initially 0.25."""
+
+    def __init__(self, init: float = 0.25):
+        super().__init__()
+        self.alpha = nn.Parameter(torch.full((1,), init))
+
+    def forward(self, x):
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
 
 
 class FiLM(nn.Module):

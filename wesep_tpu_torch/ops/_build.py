@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-SOURCES = ("bilstm_layer", "bilstm_layer_bwd")  # every csrc/<name>.cu
+SOURCES = ("bilstm_layer", "bilstm_layer_bwd", "tcn_block",
+           "tcn_block_bwd")  # every csrc/<name>.cu
 
 
 def _nvcc() -> str:

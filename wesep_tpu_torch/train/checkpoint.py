@@ -3,9 +3,12 @@
 Counterpart of wesep_tpu/train/checkpoint.py with the same bundle layout,
 {"models": [...], "opt_states": [...], "batch_stats": [...], "step": n,
 "extra": {...}}: the generator first, a discriminator second where there
-is one. A model is its state_dict; an optimizer state is what
-`trainer.Optimizer.state_dict()` gives. Bundles that hold only "models"
-and "step" load as well. Reading the JAX package's msgpack bundles is a
+is one. A model's entry in "models" holds its parameters and its entry in
+"batch_stats" its buffers (the BatchNorm running statistics), both by
+state_dict name, as the JAX bundle keeps `params` and `batch_stats` apart:
+averaging takes the mean of the parameters and the newest checkpoint's
+statistics. An optimizer state is what `trainer.Optimizer.state_dict()`
+gives. Bundles that hold only "models" and "step" load as well. Reading the JAX package's msgpack bundles is a
 later item of ROADMAP.md.
 """
 
@@ -15,9 +18,9 @@ from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["save_checkpoint", "load_checkpoint", "load_pretrained_model",
-           "restore_train_state", "find_epoch_checkpoints",
-           "average_checkpoints"]
+__all__ = ["save_checkpoint", "load_checkpoint", "split_state",
+           "model_state", "load_pretrained_model", "restore_train_state",
+           "find_epoch_checkpoints", "average_checkpoints"]
 
 
 def _to_host(tree):
@@ -50,20 +53,39 @@ def load_checkpoint(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def split_state(model: torch.nn.Module):
+    """(parameters, buffers) of a model's state_dict, by name."""
+    state = model.state_dict()
+    params = {name for name, _ in model.named_parameters()}
+    return ({k: v for k, v in state.items() if k in params},
+            {k: v for k, v in state.items() if k not in params})
+
+
+def model_state(bundle: dict, model_index: int = 0) -> dict:
+    """The state_dict of bundle model i: its parameters and, where the
+    bundle has them, its buffers."""
+    state = dict(bundle["models"][model_index])
+    stats = bundle.get("batch_stats") or []
+    if len(stats) > model_index:
+        state.update(stats[model_index])
+    return state
+
+
 def load_pretrained_model(model: torch.nn.Module, path: str,
                           model_index: int = 0) -> torch.nn.Module:
-    """Load bundle["models"][i] into `model` in place, by name; names the
+    """Load bundle model i into `model` in place, by name; names the
     bundle lacks keep their values."""
-    state = load_checkpoint(path)["models"][model_index]
-    model.load_state_dict(state, strict=False)
+    model.load_state_dict(model_state(load_checkpoint(path), model_index),
+                          strict=False)
     return model
 
 
 def restore_train_state(state, path: str, model_index: int = 0):
     """Fill a trainer.TrainState from a bundle (resume training): the
-    parameters, the optimizer state where the bundle has one, the step."""
+    parameters and buffers, the optimizer state where the bundle has one,
+    the step."""
     bundle = load_checkpoint(path)
-    state.model.load_state_dict(bundle["models"][model_index])
+    state.model.load_state_dict(model_state(bundle, model_index))
     if bundle.get("opt_states"):
         state.optimizer.load_state_dict(bundle["opt_states"][model_index])
     state.step = int(bundle.get("step", 0))

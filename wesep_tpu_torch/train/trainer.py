@@ -11,7 +11,11 @@ from the JAX package's optimizer state (utils/jax_params.py).
 
 Loss weighting follows the (loss_posi, loss_weight) table: loss = sum_i
 sum_j w[i][j] * mean(L_i(outputs[posi[i][j]], targets)), with CE routed to
-`spk_label` when `multi_task`.
+`spk_label` when `multi_task`; a model that returns a list of estimates
+(the multi-scale decoders) is indexed by position, the speaker logits last.
+A train step runs the model in train mode, so BatchNorm statistics move
+once per (micro)batch, in order; an eval step runs it in eval mode and
+leaves them as they are.
 """
 
 import dataclasses

@@ -1,14 +1,15 @@
 """List, scp and kaldi-vector I/O (the subset of
 wesep_tpu/utils/file_utils.py that bin/infer and bin/train use)."""
 
+import json
 import struct
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
 __all__ = ["read_lists", "read_2columns_text", "read_label_file",
            "read_vec_scp_file", "write_vec_ark_scp", "norm_embeddings",
-           "load_speaker_embeddings"]
+           "load_speaker_embeddings", "read_spk2enroll_json"]
 
 
 def read_lists(path: str) -> List[str]:
@@ -99,3 +100,12 @@ def load_speaker_embeddings(
     for utt, embed in utt_to_embed.items():
         out.setdefault(utt_to_spk[utt], []).append(embed[None, :])
     return out
+
+
+def read_spk2enroll_json(path: str) -> Tuple[Dict, Dict]:
+    """spk2enroll.json {spk: [(utt, wav path), ...]} and the speaker-to-id
+    map over its sorted speakers."""
+    with open(path, "r", encoding="utf8") as f:
+        spk2enroll = json.load(f)
+    dict_spk = {spk: i for i, spk in enumerate(sorted(spk2enroll.keys()))}
+    return spk2enroll, dict_spk

@@ -1,4 +1,4 @@
-"""Weight bridge: JAX (flax) BSRNN param tree -> port state_dict.
+"""Weight bridge: JAX (flax) param trees -> port state_dicts.
 
 The port names every parameter as the JAX tree does and keeps its shape
 (Dense/einsum kernels [in, out], LSTM weights wx_* [D, 4H], wh_* [H, 4H]
@@ -10,6 +10,15 @@ with '.' between levels:
     bsnet_{j}.{band_rnn,band_comm}.{norm_scale,norm_bias,
         rnn.{wx_f,wh_f,b_f,wx_b,wh_b,b_b},proj.{kernel,bias}}
     mask_{norm,fc1,fc2,out}_{g}.*       spk_transform.Dense_{i}.*
+
+ConvTasNet (SpEx+) crosses the same way, since the port keeps flax's own
+shapes there too (Conv1d `kernel` [k, in / groups, out] under `Conv_0`, or
+in the module itself for a depthwise convolution; `ConvTranspose_0.kernel`
+[k, in, out], spatially reversed; LayerNorm `scale`/`bias`), with two
+additions: the BatchNorm statistics, which flax keeps in a second tree
+`batch_stats` (`mean`, `var` beside the `scale`, `bias` of `params`), land
+on the buffers of the same names, and the `CheckpointTCNBlock_{i}` names
+that `remat=True` gives the TCN blocks become `TCNBlock_{i}`.
 
 The params are plain nested dicts of arrays (numpy, or anything
 `np.asarray` takes), as `model.init(...)["params"]` or a msgpack bundle's
@@ -27,8 +36,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["bsrnn_state_dict_from_jax", "load_jax_params",
-           "optimizer_state_from_jax"]
+__all__ = ["bsrnn_state_dict_from_jax", "convtasnet_state_dict_from_jax",
+           "load_jax_params", "optimizer_state_from_jax"]
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -44,16 +53,32 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
 
 def bsrnn_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     """JAX BSRNN params (nested dict) -> port BSRNN state_dict (f32)."""
+    return convtasnet_state_dict_from_jax(params)
+
+
+def convtasnet_state_dict_from_jax(params,
+                                   batch_stats=None) -> Dict[str, torch.Tensor]:
+    """JAX ConvTasNet params and BatchNorm statistics (nested dicts) ->
+    port ConvTasNet state_dict (f32)."""
+    flat = _flatten(params)
+    stats = _flatten(batch_stats or {})
+    clash = set(flat) & set(stats)
+    if clash:
+        raise ValueError(f"names in both params and batch_stats: {clash}")
+    flat.update(stats)
     return {
-        k: torch.from_numpy(np.array(v, dtype=np.float32))
-        for k, v in _flatten(params).items()
+        k.replace("CheckpointTCNBlock_", "TCNBlock_"):
+            torch.from_numpy(np.array(v, dtype=np.float32))
+        for k, v in flat.items()
     }
 
 
-def load_jax_params(model: torch.nn.Module, params) -> torch.nn.Module:
-    """Load JAX params into a port model in place (strict: every name and
-    shape must match)."""
-    model.load_state_dict(bsrnn_state_dict_from_jax(params), strict=True)
+def load_jax_params(model: torch.nn.Module, params,
+                    batch_stats=None) -> torch.nn.Module:
+    """Load JAX params (and BatchNorm statistics) into a port model in
+    place (strict: every name and shape must match)."""
+    model.load_state_dict(
+        convtasnet_state_dict_from_jax(params, batch_stats), strict=True)
     return model
 
 
