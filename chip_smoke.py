@@ -17,6 +17,12 @@ pass):
    training shapes; then the fused TCN block, forward and backward, at
    SpEx+'s serving shape (2 rows) and training shape (16 rows) at
    dilations 1 and 128, and one speaker-fused block through its module;
+   then the unfold-fused BiLSTM layer (forward, serial adjoint, weight
+   gradients, with cuDNN's LSTM over the materialised frames as yardstick)
+   at TF-GridNet's intra and inter RNN shapes for serving (2 rows x 3 s)
+   and training (8 rows x 1 s), in f32 and bf16, and once at hs 2, with
+   the weight gradients repeated bit for bit; and the plain layer's
+   kernels at TF-GridNet's materialised shapes (D = H = 192);
 4. serve: the full-width v1 pBSRNN (feature_dim 128, 6 repeats, multiply
    fuse, 256-d embeddings; random weights from a seed) decodes a small
    shard through the port's bin/infer on the card; the kernel's launch
@@ -43,7 +49,22 @@ pass):
    per validation step; finite losses, parameters and BatchNorm statistics
    that moved, a checkpoint that bin/infer decodes from, whole-model
    gradients through the kernels against those through the plain blocks,
-   and the time and peak memory of a train step.
+   and the time and peak memory of a train step;
+8. serve TF-GridNet: the full-width model of
+   examples/librimix/tse/v1/confs/tfgridnet.yaml (random weights from a
+   seed) decodes a small shard through bin/infer twice, with
+   WESEP_LSTM_UNFOLD=1 (12 launches of the unfold-fused kernel per
+   forward, none of the plain layer's) and without it (12 of the plain
+   layer's, none of the unfold-fused); on each route the kernels' forward
+   against the plain versions' forward, and the step time;
+9. train TF-GridNet: the same model trains through bin/train with
+   WESEP_LSTM_UNFOLD=1, bf16, batch_size 4 (8 rows x 1 s), a few steps
+   and one validation step: 12 forward launches per train and validation
+   step and 12 of each backward kernel per train step; finite losses,
+   parameters that moved, a checkpoint that bin/infer decodes from,
+   whole-model gradients through the kernels against those through the
+   plain versions, and the time and peak memory of a train step on both
+   routes.
 
 The last lines are the card line of nvidia-smi, one JSON object describing
 the kernels, and {"ok": true, "device": {...}}.
@@ -93,6 +114,43 @@ TCN_C, TCN_H, TCN_K = 256, 512, 3
 BUCKET = 16000
 ROWS_PER_STEP = 2
 
+# TF-GridNet (examples/librimix/tse/v1/confs/tfgridnet.yaml) at full width
+GRID_MODEL_ARGS = dict(n_srcs=1, sr=16000, n_fft=128, stride=64,
+                       n_layers=6, lstm_hidden_units=192, attn_n_head=4,
+                       attn_approx_qk_dim=512, emb_dim=48, emb_ks=4,
+                       emb_hs=1, spk_emb_dim=256, spk_fuse_type="multiply",
+                       joint_training=False)
+GRID_C, GRID_H, GRID_KS = 48, 192, 4
+GRID_RNNS = 2 * GRID_MODEL_ARGS["n_layers"]  # intra + inter per block
+GRID_BATCH = 4         # the conf's batch_size: 8 rows of 1 s per step
+GRID_CHUNK = 16000
+GRID_TRAIN_STEPS = 4
+# parameters whose true gradient is zero, so that two correct versions
+# return rounding noise: the keys' norm bias adds one logit to every key of
+# a query, which the softmax cancels; the real part of the deconv bias is a
+# constant spectrum, an impulse at the first sample of each frame, where
+# the periodic Hann window is 0
+GRID_NOISE_ONLY = ("attn_norm_K_bias", "deconv.bias")
+
+
+def grid_rnn_shapes(rows, samples):
+    """(B', L) of the intra (frequency) and inter (time) RNNs of a
+    TF-GridNet block for `rows` rows of `samples` samples: the frames and
+    the 65 bins, each padded by 2 * (emb_ks - emb_hs) (hs 1)."""
+    olp = GRID_KS - GRID_MODEL_ARGS["emb_hs"]
+    t_pad = samples // GRID_MODEL_ARGS["stride"] + 1 + 2 * olp
+    q_pad = GRID_MODEL_ARGS["n_fft"] // 2 + 1 + 2 * olp
+    return {"intra": (rows * t_pad, q_pad), "inter": (rows * q_pad, t_pad)}
+
+
+# the unfold-fused layer at TF-GridNet's shapes: serving 2 rows x 3 s and
+# training 8 rows x 1 s
+UNFOLD_SHAPES = {
+    f"{path}_{rnn}": shape
+    for path, rows, samples in (("serve", ROWS_PER_STEP, CHUNK),
+                                ("train", 2 * GRID_BATCH, GRID_CHUNK))
+    for rnn, shape in grid_rnn_shapes(rows, samples).items()}
+
 
 def log(*args):
     print(*args, flush=True)
@@ -133,21 +191,23 @@ def tolerance(ref):
     return 4 * 2.0 ** (math.floor(math.log2(amax)) - 7)  # 8-bit significand
 
 
-def bilstm_bound(t_len, batch, dtype):
+def bilstm_bound(t_len, batch, dtype, d=D, h=H, x_elems=None):
     """Least time of one BiLSTM layer on the card: the larger of its
     operations over the peak rate of its type and its bytes (x, weights
-    and biases read once, y written once) over the memory rate."""
+    and biases read once, y written once) over the memory rate. d is the
+    length of a step's input row, `x_elems` as in backward_bounds."""
     size = torch.tensor([], dtype=dtype).element_size()
-    flops = 2 * 2 * t_len * batch * (D + H) * 4 * H
-    nbytes = (batch * t_len * D * size + 2 * (D + H) * 4 * H * size
-              + 2 * 4 * H * 4 + batch * t_len * 2 * H * size)
+    flops = 2 * 2 * t_len * batch * (d + h) * 4 * h
+    x_elems = batch * t_len * d if x_elems is None else x_elems
+    nbytes = (x_elems * size + 2 * (d + h) * 4 * h * size
+              + 2 * 4 * h * 4 + batch * t_len * 2 * h * size)
     by_ops = flops / PEAK_FLOPS[dtype] * 1e3
     by_bytes = nbytes / PEAK_BYTES * 1e3
     return max(by_ops, by_bytes), ("operations" if by_ops >= by_bytes
                                    else "bytes")
 
 
-def check_kernel(name, t_len, batch, dtype):
+def check_kernel(name, t_len, batch, dtype, d=D, h=H):
     """Kernel vs plain version (and cuDNN) at one main-path shape."""
     from wesep_tpu_torch.ops.cuda_lstm import (
         bilstm_layer,
@@ -155,11 +215,11 @@ def check_kernel(name, t_len, batch, dtype):
     )
 
     torch.manual_seed(SEED)
-    lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True)
+    lstm = torch.nn.LSTM(d, h, batch_first=True, bidirectional=True)
     lstm = lstm.cuda().to(dtype)
     lstm.flatten_parameters()
     gen = torch.Generator().manual_seed(SEED)
-    x = (torch.randn(batch, t_len, D, generator=gen) * 0.2).cuda().to(dtype)
+    x = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda().to(dtype)
 
     def weights(sfx):
         p = {n: getattr(lstm, n + sfx).detach() for n in
@@ -181,10 +241,10 @@ def check_kernel(name, t_len, batch, dtype):
     plain_ms = time_ms(lambda: bilstm_layer_reference(*args), 1, 5)
     with torch.inference_mode():
         library_ms = time_ms(lambda: lstm(x))
-    bound_ms, bound_by = bilstm_bound(t_len, batch, dtype)
+    bound_ms, bound_by = bilstm_bound(t_len, batch, dtype, d, h)
     case = {
         "shape": name, "dtype": str(dtype).replace("torch.", ""),
-        "T": t_len, "B": batch, "D": D, "H": H,
+        "T": t_len, "B": batch, "D": d, "H": h,
         "max_abs_err": err, "tolerance": tol,
         "max_abs_err_vs_cudnn": err_lib,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -203,25 +263,30 @@ def _bound(flops, nbytes, dtype):
                                    else "bytes")
 
 
-def backward_bounds(t_len, batch, dtype):
+def backward_bounds(t_len, batch, dtype, d=D, h=H, x_elems=None):
     """Least times of the two backward kernels on the card, and of the
     forward kernel when it also writes the cell states. Operations per
     product 2 * T * B * K * 4H for each direction; bytes: every input read
     once, every output written once (the dg scratch is an output of the
-    serial kernel and an input of the weight-gradient kernel)."""
+    serial kernel and an input of the weight-gradient kernel). d is the
+    length of a step's input row; `x_elems`, where given, the elements of
+    the stream the rows are read from (the unfold-fused layer reads its
+    frames from a raw stream of B * L * C elements)."""
     size = torch.tensor([], dtype=dtype).element_size()
-    rows, h4 = t_len * batch, 4 * H
-    product = 2 * 2 * rows * (D + H) * h4  # both directions, one K = D + H
-    weights = 2 * (D + H) * h4 * size + 2 * h4 * 4
-    x_b, y_b, cs_b = rows * D * size, rows * 2 * H * size, rows * 2 * H * 4
+    rows, h4 = t_len * batch, 4 * h
+    product = 2 * 2 * rows * (d + h) * h4  # both directions, one K = d + h
+    weights = 2 * (d + h) * h4 * size + 2 * h4 * 4
+    x_b = (rows * d if x_elems is None else x_elems) * size
+    y_b, cs_b = rows * 2 * h * size, rows * 2 * h * 4
     dg_b = 2 * rows * h4 * size
     forward = _bound(product, x_b + weights + y_b + cs_b, dtype)
     # recompute of the gates, then dh and dx
     serial = _bound(2 * product, x_b + 2 * weights + y_b + cs_b + y_b
-                    + 2 * x_b + dg_b + (batch + 7) // 8 * 2 * h4 * 4, dtype)
+                    + 2 * rows * d * size + dg_b
+                    + (batch + 7) // 8 * 2 * h4 * 4, dtype)
     splits = max(1, min(8, -(-rows // 4096)))
     wgrad = _bound(product, x_b + y_b + dg_b
-                   + splits * 2 * (D + H) * h4 * 4, dtype)
+                   + splits * 2 * (d + h) * h4 * 4, dtype)
     return forward, serial, wgrad
 
 
@@ -231,7 +296,7 @@ def rel_err(got, ref):
     return (got.float() - ref.float()).abs().max().item() / scale
 
 
-def check_training_kernels(name, t_len, batch, dtype):
+def check_training_kernels(name, t_len, batch, dtype, d=D, h=H):
     """Forward with cell states and both backward kernels against their
     plain versions (and cuDNN's forward + backward) at one training shape.
 
@@ -244,12 +309,12 @@ def check_training_kernels(name, t_len, batch, dtype):
     from wesep_tpu_torch.ops import cuda_lstm as k
 
     torch.manual_seed(SEED)
-    lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=True)
+    lstm = torch.nn.LSTM(d, h, batch_first=True, bidirectional=True)
     lstm = lstm.cuda().to(dtype)
     lstm.flatten_parameters()
     gen = torch.Generator().manual_seed(SEED)
-    x = (torch.randn(batch, t_len, D, generator=gen) * 0.2).cuda().to(dtype)
-    dys = (torch.randn(batch, t_len, 2 * H, generator=gen) * 0.1).cuda() \
+    x = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda().to(dtype)
+    dys = (torch.randn(batch, t_len, 2 * h, generator=gen) * 0.1).cuda() \
         .to(dtype)
 
     def weights(sfx):
@@ -282,8 +347,8 @@ def check_training_kernels(name, t_len, batch, dtype):
                           torch.cat([ref[4], ref[6]])])
     ref_db = torch.stack([ref[2], ref[5]])
     errs = {"dx": rel_err(dx, ref[0]), "db": rel_err(db, ref_db),
-            "dwx": rel_err(dw[:, :D], ref_dw[:, :D]),
-            "dwh": rel_err(dw[:, D:], ref_dw[:, D:])}
+            "dwx": rel_err(dw[:, :d], ref_dw[:, :d]),
+            "dwh": rel_err(dw[:, d:], ref_dw[:, d:])}
     wgrad_ref = k.bilstm_layer_wgrad_reference(x, ref_ys, dg)
     err_wgrad = rel_err(dw, wgrad_ref)
     bwd_ms = time_ms(
@@ -314,15 +379,15 @@ def check_training_kernels(name, t_len, batch, dtype):
     with torch.inference_mode():
         lib_fwd_ms = time_ms(lambda: lstm(x), 1, 5)
     del lib_y, lib_grads
-    a_mat = torch.cat([x, ref_ys[..., :H]], dim=-1).reshape(-1, D + H)
-    dg0 = dg[0].reshape(-1, 4 * H)
+    a_mat = torch.cat([x, ref_ys[..., :h]], dim=-1).reshape(-1, d + h)
+    dg0 = dg[0].reshape(-1, 4 * h)
     lib_wgrad_ms = time_ms(lambda: torch.matmul(a_mat.t(), dg0), 1, 5) * 2
 
     (f_ms, f_by), (s_ms, s_by), (w_ms, w_by) = backward_bounds(
-        t_len, batch, dtype)
+        t_len, batch, dtype, d, h)
     case = {
         "shape": "train_" + name, "dtype": str(dtype).replace("torch.", ""),
-        "T": t_len, "B": batch, "D": D, "H": H, "rel_limit": limit,
+        "T": t_len, "B": batch, "D": d, "H": h, "rel_limit": limit,
         "forward": {"max_abs_err": err_y, "tolerance": tolerance(ref_ys),
                     "cs_rel_err": err_c, "ms": fwd_ms,
                     "plain_ms": fwd_plain_ms, "library_ms": lib_fwd_ms,
@@ -1224,6 +1289,533 @@ def train_spex(root):
     }
 
 
+def grid_weights(d, gen):
+    """Seeded f32 weights of one TF-GridNet BiLSTM layer in the kernels'
+    order (wx_f, b_f, wh_f, wx_b, b_b, wh_b), torch LSTM-scale."""
+    h, scale = GRID_H, 1.0 / math.sqrt(GRID_H)
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
+
+    return (u(d, 4 * h), u(4 * h), u(h, 4 * h),
+            u(d, 4 * h), u(4 * h), u(h, 4 * h))
+
+
+def cudnn_lstm(weights, dtype):
+    """cuDNN's bidirectional LSTM holding the kernels' weights (the time
+    yardstick; the port never calls it)."""
+    wx = weights[0]
+    lstm = torch.nn.LSTM(wx.shape[0], GRID_H, batch_first=True,
+                         bidirectional=True).cuda()
+    with torch.no_grad():
+        for sfx, (w_x, b, w_h) in (("", weights[:3]),
+                                   ("_reverse", weights[3:])):
+            getattr(lstm, "weight_ih_l0" + sfx).copy_(w_x.t())
+            getattr(lstm, "weight_hh_l0" + sfx).copy_(w_h.t())
+            getattr(lstm, "bias_ih_l0" + sfx).copy_(b)
+            getattr(lstm, "bias_hh_l0" + sfx).zero_()
+    lstm = lstm.to(dtype)
+    lstm.flatten_parameters()
+    return lstm
+
+
+def check_unfold_kernels(name, rows, length, dtype, ks=GRID_KS, hs=1):
+    """The unfold-fused BiLSTM layer (K3 forward, K3b's two backward
+    kernels) against its plain versions at one TF-GridNet shape: x [B', L,
+    48], H 192, unfold(ks, hs), f32 parameters.
+
+    Limits as for the plain layer: ys within 1e-4 (f32) or 4 bf16 units in
+    the last place; dx, dW and db within 1e-4 (f32) or 2e-2 (bf16) of the
+    plain version's largest magnitude (dgates and dh are rounded to bf16
+    every step and each direction's frame cotangent before the two are
+    added and folded, and a sum that differs in its last bit flips such a
+    rounding now and then); the weight-gradient kernel within 1e-4 of the
+    plain product on the same dgates. The weight and bias gradients must
+    repeat bit for bit. The yardstick is cuDNN's LSTM with the same
+    weights over the materialised frames (checked against the plain
+    version in f32)."""
+    from wesep_tpu_torch.ops import cuda_lstm_unfold as k
+
+    h, d = GRID_H, ks * GRID_C
+    frames = (length - ks) // hs + 1
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(rows, length, GRID_C, generator=gen).cuda().to(dtype)
+    weights = grid_weights(d, gen)
+    dys = (torch.randn(rows, frames, 2 * h, generator=gen) * 0.1).cuda() \
+        .to(dtype)
+    args = (x, *weights)
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+
+    # the serving forward (no cell states), then the training forward
+    y = k.bilstm_layer_unfold(*args, ks, hs)
+    ys, cs = k._forward_cuda(*args, ks, hs, with_cs=True)
+    torch.cuda.synchronize()
+    ref_ys, ref_cs = k.bilstm_layer_unfold_reference(*args, ks, hs,
+                                                     return_cs=True)
+    tol = tolerance(ref_ys)
+    err_y = (y.float() - ref_ys.float()).abs().max().item()
+    err_y_train = (ys.float() - ref_ys.float()).abs().max().item()
+    err_c = rel_err(cs, ref_cs)
+    lstm = cudnn_lstm(weights, dtype)
+    u = k.unfold_frames(x, ks, hs).contiguous()
+    with torch.inference_mode():
+        err_lib = rel_err(lstm(u)[0], ref_ys)
+    ms = time_ms(lambda: k.bilstm_layer_unfold(*args, ks, hs))
+    fwd_cs_ms = time_ms(lambda: k._forward_cuda(*args, ks, hs, with_cs=True),
+                        1, 5)
+    plain_ms = time_ms(lambda: k.bilstm_layer_unfold_reference(*args, ks, hs),
+                       1, 2)
+    with torch.inference_mode():
+        library_ms = time_ms(lambda: lstm(u), 1, 5)
+
+    # the backward kernels, from the plain forward's saved tensors so that
+    # only the adjoint differs
+    du, db, dg = k.bilstm_layer_unfold_backward(*args, ref_ys, ref_cs, dys,
+                                                ks, hs)
+    dw = k.bilstm_layer_unfold_wgrad(x, ref_ys, dg, ks, hs)
+    dx = k.fold_frames(du, ks, hs, length)
+    torch.cuda.synchronize()
+    ref = k.bilstm_layer_unfold_backward_reference(*args, ref_ys, ref_cs, dys,
+                                                   ks, hs)
+    ref_dw = torch.stack([torch.cat([ref[1], ref[3]]),
+                          torch.cat([ref[4], ref[6]])])
+    ref_db = torch.stack([ref[2], ref[5]])
+    errs = {"dx": rel_err(dx, ref[0]), "db": rel_err(db, ref_db),
+            "dwx": rel_err(dw[:, :d], ref_dw[:, :d]),
+            "dwh": rel_err(dw[:, d:], ref_dw[:, d:])}
+    err_wgrad = rel_err(dw, k.bilstm_layer_unfold_wgrad_reference(
+        x, ref_ys, dg, ks, hs))
+    du2, db2, dg2 = k.bilstm_layer_unfold_backward(*args, ref_ys, ref_cs,
+                                                   dys, ks, hs)
+    repeats = (torch.equal(du, du2) and torch.equal(db, db2)
+               and torch.equal(dw, k.bilstm_layer_unfold_wgrad(
+                   x, ref_ys, dg2, ks, hs)))
+    del du2, db2, dg2
+    bwd_ms = time_ms(lambda: k.bilstm_layer_unfold_backward(
+        *args, ref_ys, ref_cs, dys, ks, hs), 1, 5)
+    wgrad_ms = time_ms(lambda: k.bilstm_layer_unfold_wgrad(
+        x, ref_ys, dg, ks, hs), 1, 5)
+    bwd_plain_ms = time_ms(lambda: k.bilstm_layer_unfold_backward_reference(
+        *args, ref_ys, ref_cs, dys, ks, hs), 0, 1)
+    wgrad_plain_ms = time_ms(lambda: k.bilstm_layer_unfold_wgrad_reference(
+        x, ref_ys, dg, ks, hs), 1, 3)
+    # cuDNN's backward over the materialised frames: the backward call, and
+    # forward + backward
+    ug = u.clone().requires_grad_()
+    lib_params = list(lstm.parameters())
+    lib_y = lstm(ug)[0]
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lib_y, [ug] + lib_params, dys, retain_graph=True), 1, 5)
+    lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        lstm(ug)[0], [ug] + lib_params, dys), 1, 5)
+    del lib_y
+    # and one cuBLAS product per direction for dW over the materialised
+    # frames
+    a_mat = torch.cat([u, ref_ys[..., :h]], dim=-1).reshape(-1, d + h)
+    dg0 = dg[0].reshape(-1, 4 * h)
+    lib_wgrad_ms = time_ms(lambda: torch.matmul(a_mat.t(), dg0), 1, 5) * 2
+    del a_mat
+
+    x_elems = rows * length * GRID_C
+    bound = bilstm_bound(frames, rows, dtype, d, h, x_elems=x_elems)
+    (f_ms, f_by), (s_ms, s_by), (w_ms, w_by) = backward_bounds(
+        frames, rows, dtype, d, h, x_elems=x_elems)
+    case = {
+        "shape": name, "dtype": str(dtype).replace("torch.", ""),
+        "B": rows, "L": length, "C": GRID_C, "ks": ks, "hs": hs,
+        "T": frames, "H": h, "rel_limit": limit,
+        "forward": {"max_abs_err": err_y, "tolerance": tol,
+                    "max_abs_err_with_cs": err_y_train, "cs_rel_err": err_c,
+                    "rel_err_cudnn_vs_plain": err_lib, "ms": ms,
+                    "with_cs_ms": fwd_cs_ms, "plain_ms": plain_ms,
+                    "library_ms": library_ms, "bound_ms": bound[0],
+                    "bound_by": bound[1], "with_cs_bound_ms": f_ms},
+        "backward": {"rel_err": {n: errs[n] for n in ("dx", "db")},
+                     "max_abs_err": (dx.float() - ref[0].float()).abs()
+                     .max().item(),
+                     "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                     "library_ms": lib_bwd_ms,
+                     "library_fwd_bwd_ms": lib_fwd_bwd_ms,
+                     "bound_ms": s_ms, "bound_by": s_by,
+                     "repeats_bit_for_bit": repeats},
+        "wgrad": {"rel_err": {"dwx": errs["dwx"], "dwh": errs["dwh"],
+                              "vs_plain_product": err_wgrad},
+                  "max_abs_err": (dw - ref_dw).abs().max().item(),
+                  "ms": wgrad_ms, "plain_ms": wgrad_plain_ms,
+                  "library_ms": lib_wgrad_ms, "bound_ms": w_ms,
+                  "bound_by": w_by},
+    }
+    log("kernels unfold-fused", json.dumps(case))
+    cs_limit = limit if dtype == torch.float32 else 5e-2
+    ok = (err_y <= tol and err_y_train <= tol and err_c <= cs_limit
+          and all(e <= limit for e in errs.values()) and err_wgrad <= 1e-4
+          and repeats
+          and all(torch.isfinite(t).all() for t in (y, ys, cs, dx, db, dw)))
+    if dtype == torch.float32:
+        ok = ok and err_lib <= 1e-4
+    if not ok:
+        raise AssertionError(f"unfold-fused kernels disagree: {case}")
+    return case
+
+
+def grid_lstms(model):
+    from wesep_tpu_torch.models.common import LSTM
+
+    return [m for m in model.modules() if isinstance(m, LSTM)]
+
+
+def set_route(unfold):
+    """The JAX package's switch: WESEP_LSTM_UNFOLD=1 takes the unfold-fused
+    layer (K3/K3b), anything else unfold + the plain layer (K0/K0b)."""
+    if unfold:
+        os.environ["WESEP_LSTM_UNFOLD"] = "1"
+    else:
+        os.environ.pop("WESEP_LSTM_UNFOLD", None)
+
+
+def lstm_counters():
+    """Every BiLSTM wrapper's counter: K0, K0b x2, K3, K3b x2."""
+    from wesep_tpu_torch.ops import cuda_lstm as k0
+    from wesep_tpu_torch.ops import cuda_lstm_unfold as k3
+
+    return {"bilstm_layer": k0.bilstm_layer,
+            "bilstm_layer_backward": k0.bilstm_layer_backward,
+            "bilstm_layer_wgrad": k0.bilstm_layer_wgrad,
+            "bilstm_layer_unfold": k3.bilstm_layer_unfold,
+            "bilstm_layer_unfold_backward": k3.bilstm_layer_unfold_backward,
+            "bilstm_layer_unfold_wgrad": k3.bilstm_layer_unfold_wgrad}
+
+
+def zero_counts():
+    for fn in lstm_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {n: fn.launches for n, fn in lstm_counters().items()}
+
+
+def expect_counts(got, forward, backward, unfold, what):
+    """Launch counts of a run: `forward` forward launches and `backward`
+    launches of each backward kernel on the route taken, none on the
+    other."""
+    on, off = ("bilstm_layer_unfold", "bilstm_layer") if unfold \
+        else ("bilstm_layer", "bilstm_layer_unfold")
+    want = {on: forward, on + "_backward": backward, on + "_wgrad": backward,
+            off: 0, off + "_backward": 0, off + "_wgrad": 0}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+
+
+def serve_tfgridnet(root):
+    """Phase 8: TF-GridNet through bin/infer on the card, on both routes."""
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.data.wav_io import read_wav
+    from wesep_tpu_torch.models.tfgridnet import TFGridNet
+    from wesep_tpu_torch.train.checkpoint import save_checkpoint
+
+    rng = np.random.default_rng(SEED + 9)
+    paths, lengths = write_shard(root, rng, "gridtest", SHARD_SECONDS)
+    data = {f"test_{k}": v for k, v in paths.items() if k != "utt2spk"}
+    torch.manual_seed(SEED)
+    model = TFGridNet(**GRID_MODEL_ARGS)
+    ckpt = os.path.join(root, "grid_avg_model.pt")
+    save_checkpoint(ckpt, [model.state_dict()])
+    steps = forward_steps(lengths)
+    audio_s = 2 * sum(lengths) / 16000.0
+    gen = torch.Generator().manual_seed(SEED + 10)
+    mix = (torch.randn(ROWS_PER_STEP, CHUNK, generator=gen) * 0.1).cuda()
+    emb = torch.randn(ROWS_PER_STEP, 256, generator=gen).cuda()
+    cuda_model = TFGridNet(**GRID_MODEL_ARGS)
+    cuda_model.load_state_dict(model.state_dict())
+    cuda_model = cuda_model.cuda().eval()
+    lstms = grid_lstms(cuda_model)
+    routes = {}
+    try:
+        for unfold in (True, False):
+            route = "unfold" if unfold else "default"
+            set_route(unfold)
+            exp_dir = os.path.join(root, f"exp_grid_{route}")
+            config = {
+                "model": {"tse_model": "TFGridNet"},
+                "model_args": {"tse_model": dict(GRID_MODEL_ARGS)},
+                "data_type": "shard",
+                "dataset_args": {"resample_rate": 16000},
+                "exp_dir": exp_dir, "checkpoint": ckpt,
+                "length_bucket": BUCKET, "infer_batch_size": ROWS_PER_STEP,
+                "device": "cuda", **data,
+            }
+            zero_counts()
+            t0 = time.perf_counter()
+            avg_sisnr, avg_sisnri = infer(config)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            log(f"serve TF-GridNet ({route} route): {2 * len(lengths)} "
+                f"requests in {steps} forward steps, {wall:.3f} s wall, RTF "
+                f"{wall / audio_s:.5f}, avg SI-SNR {avg_sisnr:.3f} dB, avg "
+                f"SI-SNRi {avg_sisnri:.3f} dB (random weights: shows the "
+                f"chain ran, not quality); launches {launches}")
+            expect_counts(launches, GRID_RNNS * steps, 0, unfold,
+                          f"serve TF-GridNet ({route})")
+            if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
+                raise AssertionError("non-finite SI-SNR from infer")
+            audio = os.path.join(exp_dir, "audio")
+            wavs = sorted(n for n in os.listdir(audio) if n.endswith(".wav"))
+            if len(wavs) != 2 * len(lengths):
+                raise AssertionError(f"{len(wavs)} outputs for "
+                                     f"{2 * len(lengths)} requests")
+            for name, n in zip(wavs[::2], lengths):
+                wav, _ = read_wav(os.path.join(audio, name))
+                if wav.shape != (1, n) or not np.isfinite(wav).all():
+                    raise AssertionError(f"bad output {name}: {wav.shape}")
+
+            # kernel forward against the plain versions' forward, f32
+            with torch.inference_mode():
+                zero_counts()
+                est = cuda_model(mix, emb)[0]
+                per_forward = read_counts()
+                step_ms = time_ms(lambda: cuda_model(mix, emb), 1, 5)
+                set_plain(lstms, True)
+                try:
+                    est_plain = cuda_model(mix, emb)[0]
+                    plain_step_ms = time_ms(lambda: cuda_model(mix, emb), 0, 1)
+                finally:
+                    set_plain(lstms, False)
+            expect_counts(per_forward, GRID_RNNS, 0, unfold,
+                          f"one TF-GridNet forward ({route})")
+            if not torch.isfinite(est).all() or est.shape != mix.shape:
+                raise AssertionError("kernel forward is not finite / wrong "
+                                     "shape")
+            rel = rel_l2(est, est_plain)
+            log(f"serve TF-GridNet ({route} route): forward [2 x 3 s] "
+                f"{step_ms:.3f} ms/step with the kernels, "
+                f"{plain_step_ms:.3f} ms/step with the plain versions; "
+                f"{2 * 3.0 / (step_ms / 1e3):.1f} audio-s/s, RTF "
+                f"{step_ms / 1e3 / 6.0:.5f}; kernels vs plain rel L2 "
+                f"{rel:.3e} (limit 1e-3)")
+            if not rel <= 1e-3:
+                raise AssertionError(f"kernel forward differs from plain: "
+                                     f"{rel}")
+            routes[route] = {
+                "launches": launches, "wall_s": wall,
+                "rtf_wall": wall / audio_s, "step_ms": step_ms,
+                "plain_step_ms": plain_step_ms,
+                "audio_s_per_s": 2 * 3.0 / (step_ms / 1e3),
+                "rtf": step_ms / 1e3 / 6.0, "rel_l2_vs_plain": rel,
+                "avg_sisnri": avg_sisnri}
+    finally:
+        set_route(False)
+    return {"requests": 2 * len(lengths), "steps": steps, **routes}
+
+
+def train_tfgridnet(root):
+    """Phase 9: TF-GridNet through bin/train on the card, unfold-fused
+    route."""
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.bin.train import train
+    from wesep_tpu_torch.models.tfgridnet import TFGridNet
+    from wesep_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    rng = np.random.default_rng(SEED + 11)
+    tr, _ = write_shard(root, rng, "gridtrain", [2.0] * (2 * GRID_BATCH))
+    va, va_lengths = write_shard(root, rng, "griddev", [1.5] * GRID_BATCH)
+    torch.manual_seed(SEED)
+    init = TFGridNet(**GRID_MODEL_ARGS)
+    init_state = {n: v.clone() for n, v in init.state_dict().items()}
+    init_path = os.path.join(root, "grid_init.ckpt")
+    save_checkpoint(init_path, [init.state_dict()])
+    # the values of examples/librimix/tse/v1/confs/tfgridnet.yaml; one
+    # epoch of GRID_TRAIN_STEPS batches on the synthetic shards
+    config = {
+        "device": "cuda", "exp_dir": os.path.join(root, "exp_grid_train"),
+        "data_type": "shard",
+        "train_data": tr["data"], "train_spk_embeds": tr["spk_embeds"],
+        "train_utt2spk": tr["utt2spk"],
+        "val_data": va["data"], "val_spk_embeds": va["spk_embeds"],
+        "val_spk1_enroll": va["spk1_enroll"],
+        "val_spk2_enroll": va["spk2_enroll"],
+        "dataloader_args": {"batch_size": GRID_BATCH, "drop_last": True,
+                            "prefetch_factor": 4},
+        "dataset_args": {"resample_rate": 16000,
+                         "sample_num_per_epoch":
+                             GRID_TRAIN_STEPS * GRID_BATCH,
+                         "shuffle": True,
+                         "shuffle_args": {"shuffle_size": 2500},
+                         "chunk_len": GRID_CHUNK, "speaker_feat": False},
+        "compute_dtype": "bfloat16", "log_batch_interval": 1,
+        "loss": "SISDR", "loss_args": {},
+        "model": {"tse_model": "TFGridNet"},
+        "model_args": {"tse_model": dict(GRID_MODEL_ARGS)},
+        "model_init": {"tse_model": init_path},
+        "num_avg": 2, "num_epochs": 1,
+        "optimizer": {"tse_model": "Adam"},
+        "optimizer_args": {"tse_model": {"lr": 0.001, "weight_decay": 0.0001}},
+        "clip_grad": 5.0, "save_epoch_interval": 1,
+        "scheduler": {"tse_model": "ExponentialDecrease"},
+        "scheduler_args": {"tse_model": {
+            "final_lr": 2.5e-05, "initial_lr": 0.001,
+            "warm_from_zero": False, "warm_up_epoch": 0}},
+        "seed": 42,
+    }
+    val_steps = 1  # 8 validation enrollments / 2 / batch_size 4
+    try:
+        set_route(True)
+        zero_counts()
+        t0 = time.perf_counter()
+        state = train(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        log(f"train TF-GridNet: {GRID_TRAIN_STEPS} steps + {val_steps} "
+            f"validation step through bin/train in {wall:.3f} s wall; "
+            f"launches {launches}")
+        expect_counts(launches, GRID_RNNS * (GRID_TRAIN_STEPS + val_steps),
+                      GRID_RNNS * GRID_TRAIN_STEPS, True, "train TF-GridNet")
+        with open(os.path.join(config["exp_dir"], "train.log")) as f:
+            text = f.read()
+        losses = rows_loss(text)
+        epoch = re.findall(r"Epoch 1 train_loss (\S+) val_loss (\S+)", text)
+        log(f"train TF-GridNet: running mean loss per step {losses}, epoch "
+            f"{epoch}")
+        if len(losses) != GRID_TRAIN_STEPS or len(epoch) != 1 or not all(
+                math.isfinite(v)
+                for v in losses + [float(e) for e in epoch[0]]):
+            raise AssertionError("missing or non-finite training losses")
+        if state.step != GRID_TRAIN_STEPS:
+            raise AssertionError(f"{state.step} updates, expected "
+                                 f"{GRID_TRAIN_STEPS}")
+        moved = {n: (p.detach().cpu() - init_state[n]).abs().max().item()
+                 for n, p in state.model.named_parameters()}
+        still = [n for n, v in moved.items()
+                 if v == 0 and not n.endswith(GRID_NOISE_ONLY)]
+        if still:
+            raise AssertionError(f"parameters that did not change: {still}")
+        models = os.path.join(config["exp_dir"], "models")
+        ckpt = os.path.join(models, "checkpoint_1.ckpt")
+        bundle = load_checkpoint(ckpt)
+        if not (bundle["step"] == GRID_TRAIN_STEPS
+                and bundle["opt_states"][0]["count"] == GRID_TRAIN_STEPS
+                and set(bundle["opt_states"][0]["mu"]) == set(moved)):
+            raise AssertionError("checkpoint_1.ckpt lacks optimizer state or "
+                                 "step")
+        del state
+        # bin/infer decodes from the checkpoint bin/train wrote
+        sisnr, _ = infer({
+            "model": config["model"], "model_args": config["model_args"],
+            "data_type": "shard", "dataset_args": {"resample_rate": 16000},
+            "exp_dir": os.path.join(root, "exp_grid_ckpt"),
+            "checkpoint": ckpt, "save_wav": False, "device": "cuda",
+            "length_bucket": BUCKET,
+            "test_data": va["data"], "test_spk_embeds": va["spk_embeds"],
+            "test_spk1_enroll": va["spk1_enroll"],
+            "test_spk2_enroll": va["spk2_enroll"]})
+        if not math.isfinite(sisnr):
+            raise AssertionError("bin/infer from the trained checkpoint: "
+                                 "non-finite SI-SNR")
+        log(f"train TF-GridNet: bin/infer decoded {2 * len(va_lengths)} "
+            f"requests from checkpoint_1.ckpt, avg SI-SNR {sisnr:.3f} dB")
+
+        # gradients through the kernels against gradients through the
+        # plain versions: f32, 2 rows x 1 s, relative L2 per parameter
+        # (limit 5e-3, as for SpEx+: the sums run in another order, and an
+        # attention PReLU input within rounding of zero may take the other
+        # branch; the biases just before those PReLUs read 5e-4 to 1e-3
+        # from one machine to another); the GRID_NOISE_ONLY leaves, whose
+        # true gradient is zero, are held to 1e-5 of the whole gradient's
+        # norm instead
+        gen = torch.Generator().manual_seed(SEED + 12)
+        model = TFGridNet(**GRID_MODEL_ARGS)
+        model.load_state_dict(init_state)
+        model = model.cuda().train()
+        lstms = grid_lstms(model)
+        mix = (torch.randn(2, GRID_CHUNK, generator=gen) * 0.1).cuda()
+        target = (torch.randn(2, GRID_CHUNK, generator=gen) * 0.1).cuda()
+        emb = torch.randn(2, 256, generator=gen).cuda()
+        got = param_grads(model, mix, emb, target)
+        set_plain(lstms, True)
+        want = param_grads(model, mix, emb, target)
+        set_plain(lstms, False)
+        total = torch.cat([g.flatten() for g in want.values()]).norm().item()
+        rel = {n: rel_l2(got[n], want[n]) for n in want
+               if not n.endswith(GRID_NOISE_ONLY)}
+        noise = {n: (got[n] - want[n]).norm().item() / total for n in want
+                 if n.endswith(GRID_NOISE_ONLY)}
+        worst = max(rel, key=rel.get)
+        worst_noise = max(noise, key=noise.get)
+        log(f"train TF-GridNet: gradients of {len(rel)} parameters, kernels "
+            f"vs plain (f32): worst relative L2 {rel[worst]:.3e} at {worst} "
+            f"(limit 5e-3); {len(noise)} noise-only leaves: worst error "
+            f"{noise[worst_noise]:.3e} of the whole gradient's norm at "
+            f"{worst_noise} (limit 1e-5)")
+        if not (rel[worst] <= 5e-3 and noise[worst_noise] <= 1e-5):
+            raise AssertionError(f"gradients differ: {worst} {rel[worst]}, "
+                                 f"{worst_noise} {noise[worst_noise]}")
+        del got, want
+
+        # time and peak memory of one train step at the recipe's size, on
+        # each route, and with the plain versions
+        rows = 2 * GRID_BATCH
+        batch = {
+            "wav_mix": (torch.randn(rows, GRID_CHUNK, generator=gen) * 0.1)
+            .cuda(),
+            "wav_targets": (torch.randn(rows, GRID_CHUNK, generator=gen)
+                            * 0.1).cuda(),
+            "spk_embeds": torch.randn(rows, 256, generator=gen).cuda(),
+        }
+        opt = make_optimizer(model, exponential_decrease(
+            num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+            warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0)
+        tstate = TrainState(model=model, optimizer=opt)
+        step = make_train_step(parse_loss("SISDR"),
+                               compute_dtype=torch.bfloat16)
+        timed = {}
+        for unfold in (True, False):
+            route = "unfold" if unfold else "default"
+            set_route(unfold)
+            zero_counts()
+            step(tstate, batch)
+            torch.cuda.synchronize()
+            expect_counts(read_counts(), GRID_RNNS, GRID_RNNS, unfold,
+                          f"one TF-GridNet train step ({route})")
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step_ms = time_ms(lambda: step(tstate, batch), 1, 5)
+            timed[route] = {"step_ms": step_ms,
+                            "peak_memory_bytes":
+                                torch.cuda.max_memory_allocated()}
+        set_route(True)
+        set_plain(lstms, True)
+        plain_step_ms = time_ms(lambda: step(tstate, batch), 0, 1)
+        set_plain(lstms, False)
+    finally:
+        set_route(False)
+    audio = rows * GRID_CHUNK / 16000.0
+    for route, t in timed.items():
+        t["audio_s_per_s"] = audio / (t["step_ms"] / 1e3)
+        log(f"train TF-GridNet ({route} route): step [8 rows x 1 s, bf16] "
+            f"{t['step_ms']:.3f} ms, {t['audio_s_per_s']:.1f} audio-s/s, "
+            f"peak memory {t['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    log(f"train TF-GridNet: step with the plain versions (unfold route) "
+        f"{plain_step_ms:.3f} ms")
+    return launches, {
+        "steps": GRID_TRAIN_STEPS, "val_steps": val_steps, "wall_s": wall,
+        "running_mean_loss": losses, "plain_step_ms": plain_step_ms,
+        "grad_rel_l2_worst": rel[worst],
+        "noise_only_grad_err_worst": noise[worst_noise], **timed,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -1265,6 +1857,25 @@ def main() -> int:
                  for dilation in (1, 128)]
     fused_cases = [check_fused_tcn_block(dtype)
                    for dtype in (torch.float32, torch.bfloat16)]
+    # the unfold-fused layer at TF-GridNet's four shapes, and once at hs 2
+    unfold_cases = [check_unfold_kernels(name, rows, length, dtype)
+                    for name, (rows, length) in UNFOLD_SHAPES.items()
+                    for dtype in (torch.float32, torch.bfloat16)]
+    unfold_cases.append(check_unfold_kernels(
+        "train_intra_hs2", *UNFOLD_SHAPES["train_intra"], torch.float32,
+        hs=2))
+    # the plain layer at TF-GridNet's materialised shapes (D = H = 192),
+    # where the default route runs it: serving in f32, training in bf16
+    grid_d = GRID_KS * GRID_C
+    for name, (rows, length) in UNFOLD_SHAPES.items():
+        frames = length - GRID_KS + 1
+        if name.startswith("serve"):
+            cases.append(check_kernel("grid_" + name, frames, rows,
+                                      torch.float32, grid_d, GRID_H))
+        else:
+            train_cases.append(check_training_kernels(
+                "grid_" + name[len("train_"):], frames, rows,
+                torch.bfloat16, grid_d, GRID_H))
 
     # 4. serve
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -1286,6 +1897,16 @@ def main() -> int:
         spex_launches, spex_trained = train_spex(root)
     log("train SpEx+ summary", json.dumps(spex_trained))
 
+    # 8. serve TF-GridNet, on both routes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        grid_served = serve_tfgridnet(root)
+    log("serve TF-GridNet summary", json.dumps(grid_served))
+
+    # 9. train TF-GridNet, on the unfold-fused route
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        grid_launches, grid_trained = train_tfgridnet(root)
+    log("train TF-GridNet summary", json.dumps(grid_trained))
+
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
     # training bf16)
@@ -1295,44 +1916,88 @@ def main() -> int:
     # at dilation 1
     tcn_head = next(c for c in tcn_cases if c["shape"] == "spex_train"
                     and c["dtype"] == "bfloat16" and c["dilation"] == 1)
+    # and of the unfold-fused layer: the TF-GridNet training shape (bf16)
+    # whose kernels take longest
+    unfold_head = max(
+        (c for c in unfold_cases
+         if c["shape"].startswith("train") and c["dtype"] == "bfloat16"),
+        key=lambda c: c["forward"]["ms"] + c["backward"]["ms"]
+        + c["wgrad"]["ms"])
     sources = {"bilstm_layer": "wesep_tpu_torch/csrc/bilstm_layer.cu",
                "bilstm_layer_backward":
                    "wesep_tpu_torch/csrc/bilstm_layer_bwd.cu",
                "bilstm_layer_wgrad":
                    "wesep_tpu_torch/csrc/bilstm_layer_bwd.cu",
+               "bilstm_layer_unfold": "wesep_tpu_torch/csrc/bilstm_unfold.cu",
+               "bilstm_layer_unfold_backward":
+                   "wesep_tpu_torch/csrc/bilstm_unfold_bwd.cu",
+               "bilstm_layer_unfold_wgrad":
+                   "wesep_tpu_torch/csrc/bilstm_unfold_bwd.cu",
                "tcn_block_gln": "wesep_tpu_torch/csrc/tcn_block.cu",
                "tcn_block_gln_backward":
                    "wesep_tpu_torch/csrc/tcn_block_bwd.cu"}
     replaces = {"bilstm_layer": "wesep_tpu/ops/pallas_lstm.py:834",
                 "bilstm_layer_backward": "wesep_tpu/ops/pallas_lstm.py:932",
                 "bilstm_layer_wgrad": "wesep_tpu/ops/pallas_lstm.py:932",
+                "bilstm_layer_unfold": "wesep_tpu/ops/pallas_lstm.py:1236",
+                "bilstm_layer_unfold_backward":
+                    "wesep_tpu/ops/pallas_lstm.py:1353",
+                "bilstm_layer_unfold_wgrad":
+                    "wesep_tpu/ops/pallas_lstm.py:1353",
                 "tcn_block_gln": "wesep_tpu/ops/pallas_tcn.py:230",
                 "tcn_block_gln_backward": "wesep_tpu/ops/pallas_tcn.py:527"}
     headline = {"bilstm_layer": band,
                 "bilstm_layer_backward": train_band["backward"],
                 "bilstm_layer_wgrad": train_band["wgrad"],
+                "bilstm_layer_unfold": unfold_head["forward"],
+                "bilstm_layer_unfold_backward": unfold_head["backward"],
+                "bilstm_layer_unfold_wgrad": unfold_head["wgrad"],
                 "tcn_block_gln": tcn_head["forward"],
                 "tcn_block_gln_backward": tcn_head["backward"]}
-    train_launches.update(spex_launches)
+    # launches of each wrapper on each path that ran it: the main-path
+    # count of an entry is its training path's
+    by_path = {name: {} for name in headline}
+    by_path["bilstm_layer"].update(serve=serve_launches)
+    for name in ("bilstm_layer", "bilstm_layer_backward",
+                 "bilstm_layer_wgrad"):
+        by_path[name]["train"] = train_launches[name]
+    by_path["tcn_block_gln"].update(serve=spex_serve_launches)
+    for name in ("tcn_block_gln", "tcn_block_gln_backward"):
+        by_path[name]["train"] = spex_launches[name]
+    for route in ("unfold", "default"):
+        for name, n in grid_served[route]["launches"].items():
+            if n:
+                by_path[name][f"tfgridnet_serve_{route}"] = n
+    for name, n in grid_launches.items():
+        if n:
+            by_path[name]["tfgridnet_train"] = n
     kernels = []
     for name, head in headline.items():
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name],
-                 "launches": train_launches[name]}
+                 "launches": by_path[name]["train"
+                                           if "train" in by_path[name]
+                                           else "tfgridnet_train"],
+                 "launches_by_path": by_path[name]}
         entry.update({key: head[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")})
         if name == "bilstm_layer":
-            entry["launches_by_path"] = {"serve": serve_launches,
-                                         "train": train_launches[name]}
             entry["cases"] = cases + [
                 dict(c["forward"], shape=c["shape"], dtype=c["dtype"],
-                     T=c["T"], B=c["B"]) for c in train_cases]
+                     T=c["T"], B=c["B"], D=c["D"], H=c["H"])
+                for c in train_cases]
+        elif name.startswith("bilstm_layer_unfold"):
+            part = {"bilstm_layer_unfold": "forward",
+                    "bilstm_layer_unfold_backward": "backward",
+                    "bilstm_layer_unfold_wgrad": "wgrad"}[name]
+            entry["cases"] = [
+                dict(c[part], shape=c["shape"], dtype=c["dtype"], B=c["B"],
+                     L=c["L"], T=c["T"], ks=c["ks"], hs=c["hs"],
+                     rel_limit=c["rel_limit"]) for c in unfold_cases]
         elif name.startswith("tcn_block_gln"):
             part = "backward" if name.endswith("backward") else "forward"
             if part == "forward":
-                entry["launches_by_path"] = {"serve": spex_serve_launches,
-                                             "train": train_launches[name]}
                 entry["fused_block_cases"] = fused_cases
             entry["cases"] = [
                 dict(c[part], shape=c["shape"], dtype=c["dtype"], T=c["T"],
@@ -1341,7 +2006,7 @@ def main() -> int:
             part = "backward" if name == "bilstm_layer_backward" else "wgrad"
             entry["cases"] = [
                 dict(c[part], shape=c["shape"], dtype=c["dtype"], T=c["T"],
-                     B=c["B"], rel_limit=c["rel_limit"])
+                     B=c["B"], D=c["D"], H=c["H"], rel_limit=c["rel_limit"])
                 for c in train_cases]
         kernels.append(entry)
     log(card_line())

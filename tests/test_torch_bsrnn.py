@@ -22,6 +22,8 @@ from wesep_tpu_torch.utils.jax_params import (
     load_jax_params,
 )
 
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
 
 def _jax_params(kwargs, mix, emb, seed):
     """JAX init, every leaf perturbed with numpy noise so norms, FiLM and

@@ -25,6 +25,8 @@ from wesep_tpu_torch.utils.jax_params import (
     load_jax_params,
 )
 
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
 SPEX = dict(N=32, L=20, B=32, H=64, P=3, X=3, R=2, spk_emb_dim=16,
             norm="gLN", causal=False, skip_con=False,
             spk_fuse_type="concatConv", multi_fuse=True,

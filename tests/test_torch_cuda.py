@@ -12,7 +12,7 @@ import math
 import pytest
 import torch
 
-from wesep_tpu_torch.ops import _build, cuda_lstm, cuda_tcn
+from wesep_tpu_torch.ops import _build, cuda_lstm, cuda_lstm_unfold, cuda_tcn
 
 pytestmark = pytest.mark.cuda
 
@@ -162,6 +162,183 @@ def test_bilstm_layer_rejects_what_it_cannot_run(cuda):
         cuda_lstm.bilstm_layer(*_args(cuda, 2, 3, 8, 260, torch.float32))
     with pytest.raises(ValueError):  # a weight left on the host
         cuda_lstm.bilstm_layer(args[0], args[1].cpu(), *args[2:])
+
+
+# --- the unfold-fused BiLSTM layer -----------------------------------------
+
+UNFOLD_NAMES = ("dx", "dwx_f", "db_f", "dwh_f", "dwx_b", "db_b", "dwh_b")
+
+
+def _unfold_args(device, b, length, c, ks, h, dtype, seed=0):
+    """x [b, length, c] in `dtype`, f32 weights [ks * c, 4h] etc. at torch
+    LSTM scale (away from saturated gates)."""
+    gen = torch.Generator().manual_seed(seed)
+    scale = 1.0 / math.sqrt(h)
+    u = lambda *s: ((torch.rand(*s, generator=gen) * 2 - 1) * scale)  # noqa
+    d = ks * c
+    args = [torch.randn(b, length, c, generator=gen).to(dtype), u(d, 4 * h),
+            u(4 * h), u(h, 4 * h), u(d, 4 * h), u(4 * h), u(h, 4 * h)]
+    return [a.to(device) for a in args]
+
+
+# (B, L, C, ks, hs, H): small and ragged (tiles partly empty, hs > 1 with
+# rows of x in no frame, a tail past the last frame, one frame), then
+# TF-GridNet's inter RNN at training (8 rows x 1 s: B' 568, L 257)
+UNFOLD_SHAPES = [(5, 13, 8, 4, 1, 16), (3, 19, 16, 4, 2, 32),
+                 (9, 17, 12, 3, 3, 32), (11, 10, 8, 2, 1, 64),
+                 (2, 4, 4, 4, 1, 8), (568, 257, 48, 4, 1, 192)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,length,c,ks,hs,h", UNFOLD_SHAPES)
+def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
+    """Forward (with and without cell states) and both backward kernels
+    against their plain versions (unfold + the plain layer + the fold), each
+    from the same saved tensors. Limits as for the plain layer: ys 1e-4 or 4
+    bf16 units in the last place; gradients 1e-4 (f32) or 2e-2 (bf16) of
+    the plain version's largest magnitude; the weight-gradient kernel 1e-4
+    of the plain product on the kernel's own dgates."""
+    args = _unfold_args(cuda, b, length, c, ks, h, dtype)
+    k = cuda_lstm_unfold
+    frames = (length - ks) // hs + 1
+    counts = (k.bilstm_layer_unfold.launches,
+              k.bilstm_layer_unfold_backward.launches,
+              k.bilstm_layer_unfold_wgrad.launches)
+    y = k.bilstm_layer_unfold(*args, ks, hs)
+    ys, cs = k._forward_cuda(*args, ks, hs, with_cs=True)
+    torch.cuda.synchronize()
+    ref_ys, ref_cs = k.bilstm_layer_unfold_reference(*args, ks, hs,
+                                                     return_cs=True)
+    assert y.dtype == dtype and y.shape == (b, frames, 2 * h)
+    for got in (y, ys):
+        assert (got.float() - ref_ys.float()).abs().max().item() \
+            <= _tolerance(ref_ys)
+    assert (cs - ref_cs).abs().max().item() <= (
+        1e-4 if dtype == torch.float32 else 10 * _tolerance(ref_ys))
+    gen = torch.Generator().manual_seed(1)
+    dys = torch.randn(b, frames, 2 * h, generator=gen).to(cuda).to(dtype)
+    got = k._backward_cuda(*args, ref_ys, ref_cs, dys, ks, hs)
+    torch.cuda.synchronize()
+    assert (k.bilstm_layer_unfold.launches,
+            k.bilstm_layer_unfold_backward.launches,
+            k.bilstm_layer_unfold_wgrad.launches) == (
+                counts[0] + 2, counts[1] + 1, counts[2] + 1)
+    want = k.bilstm_layer_unfold_backward_reference(
+        *args, ref_ys, ref_cs, dys, ks, hs)
+    assert got[0].dtype == dtype and got[0].shape == (b, length, c)
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    for name, g, w, tol in zip(UNFOLD_NAMES, got, want,
+                               _grad_tolerances(want, dtype)):
+        assert g.shape == w.shape, name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    covered = torch.zeros(length, dtype=torch.bool)
+    for t in range(frames):
+        covered[t * hs:t * hs + ks] = True
+    assert (got[0][:, ~covered.to(cuda)] == 0).all()  # rows in no frame
+    _, _, dg = k.bilstm_layer_unfold_backward(*args, ref_ys, ref_cs, dys,
+                                              ks, hs)
+    dw = k.bilstm_layer_unfold_wgrad(args[0], ref_ys, dg, ks, hs)
+    dw_ref = k.bilstm_layer_unfold_wgrad_reference(args[0], ref_ys, dg, ks,
+                                                   hs)
+    assert (dw - dw_ref).abs().max().item() \
+        <= 1e-4 * max(dw_ref.abs().max().item(), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unfold_gradients_repeat_bit_for_bit(cuda, dtype):
+    """TF-GridNet's intra RNN at training (B' 2056, L 71): no atomics, the
+    weight-gradient slices and the bias tiles are added in a fixed order,
+    so every gradient is the same bits from run to run."""
+    args = _unfold_args(cuda, 2056, 71, 48, 4, 192, dtype, seed=2)
+    k = cuda_lstm_unfold
+    ys, cs = k._forward_cuda(*args, 4, 1, with_cs=True)
+    again_ys, again_cs = k._forward_cuda(*args, 4, 1, with_cs=True)
+    assert torch.equal(ys, again_ys) and torch.equal(cs, again_cs)
+    gen = torch.Generator().manual_seed(3)
+    dys = torch.randn(tuple(ys.shape), generator=gen).to(cuda).to(dtype)
+    first = k._backward_cuda(*args, ys, cs, dys, 4, 1)
+    for _ in range(2):
+        again = k._backward_cuda(*args, ys, cs, dys, 4, 1)
+        for name, a, b in zip(UNFOLD_NAMES, first, again):
+            assert torch.equal(a, b), name
+
+
+def test_unfold_function_routes_and_dtypes(cuda, monkeypatch):
+    """The Function on a bf16 stream with f32 parameters: dx in bf16,
+    weight gradients f32 and within the bf16 limits of the plain route's;
+    no gradient asked, no graph. Through models.common.LSTM, the switch
+    WESEP_LSTM_UNFOLD picks the unfold-fused kernel or the plain layer's,
+    which agree on the same module."""
+    from wesep_tpu_torch.models.common import LSTM
+
+    k = cuda_lstm_unfold
+    args = [a.requires_grad_() for a in
+            _unfold_args(cuda, 9, 23, 16, 4, 64, torch.bfloat16)]
+    k.bilstm_layer_unfold(*args, 4, 1).float().sum().backward()
+    assert args[0].grad.dtype == torch.bfloat16
+    assert all(a.grad.dtype == torch.float32 for a in args[1:])
+    plain = [a.detach().clone().requires_grad_() for a in args]
+    k.bilstm_layer_unfold(*plain, 4, 1, plain=True).float().sum().backward()
+    for a, p, tol in zip(args, plain, _grad_tolerances(
+            [p.grad for p in plain], torch.bfloat16)):
+        assert (a.grad.float() - p.grad.float()).abs().max().item() <= tol
+    with torch.no_grad():
+        assert k.bilstm_layer_unfold(*args, 4, 1).grad_fn is None
+
+    torch.manual_seed(0)
+    module = LSTM(16, 64, unfold_ks=4, unfold_hs=1).to(cuda)
+    x = args[0].detach().float()
+    outs = {}
+    for route in ("1", "0"):
+        monkeypatch.setenv("WESEP_LSTM_UNFOLD", route)
+        counts = (k.bilstm_layer_unfold.launches,
+                  cuda_lstm.bilstm_layer.launches)
+        outs[route] = module(x)
+        fused = route == "1"
+        assert (k.bilstm_layer_unfold.launches - counts[0],
+                cuda_lstm.bilstm_layer.launches - counts[1]) == (
+                    int(fused), int(not fused))
+    assert (outs["1"] - outs["0"]).abs().max().item() <= 1e-4
+
+
+def test_unfold_layer_rejects_what_it_cannot_run(cuda):
+    args = _unfold_args(cuda, 2, 9, 8, 4, 16, torch.float32)
+    k = cuda_lstm_unfold
+    with pytest.raises(TypeError):
+        k.bilstm_layer_unfold(args[0].half(), *args[1:], 4, 1)
+    with pytest.raises(ValueError):  # fewer rows than one frame
+        k.bilstm_layer_unfold(args[0][:, :3], *args[1:], 4, 1)
+    with pytest.raises(ValueError):  # ks * C not a multiple of 4
+        k.bilstm_layer_unfold(*_unfold_args(cuda, 2, 9, 3, 3, 16,
+                                            torch.float32), 3, 1)
+    with pytest.raises(ValueError):  # a weight left on the host
+        k.bilstm_layer_unfold(args[0], args[1].cpu(), *args[2:], 4, 1)
+
+
+def test_unfold_failed_build_raises_and_nothing_falls_back(cuda, monkeypatch,
+                                                           tmp_path):
+    """A CUDA tensor meets a build that fails: the unfold-fused wrapper
+    raises the compiler's error; it does not run the plain version."""
+    args = _unfold_args(cuda, 2, 9, 8, 4, 16, torch.float32)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found (test)")
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(cuda_lstm_unfold, "bilstm_layer_unfold_reference",
+                        None)
+    cuda_lstm._entry.cache_clear()
+    _build.load_library.cache_clear()
+    try:
+        before = cuda_lstm_unfold.bilstm_layer_unfold.launches
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            cuda_lstm_unfold.bilstm_layer_unfold(*args, 4, 1)
+        assert cuda_lstm_unfold.bilstm_layer_unfold.launches == before
+    finally:
+        cuda_lstm._entry.cache_clear()
+        _build.load_library.cache_clear()
 
 
 # --- the fused gLN TCN block ----------------------------------------------

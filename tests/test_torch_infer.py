@@ -28,6 +28,8 @@ from wesep_tpu_torch.train.checkpoint import save_checkpoint
 from wesep_tpu_torch.utils.file_utils import write_vec_ark_scp
 from wesep_tpu_torch.utils.jax_params import bsrnn_state_dict_from_jax
 
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
 MODEL_ARGS = dict(sr=16000, win=512, stride=128, feature_dim=16,
                   num_repeat=2, spk_fuse_type="multiply",
                   use_spk_transform=False, multi_fuse=False,

@@ -12,6 +12,8 @@ from wesep_tpu.train import schedulers as jax_sched
 from wesep_tpu_torch.ops.stft import hann_window, stft
 from wesep_tpu_torch.train import losses, schedulers
 
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
 
 def _pair(shape, seed=0):
     rng = np.random.default_rng(seed)

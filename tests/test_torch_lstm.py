@@ -18,6 +18,8 @@ from wesep_tpu.ops.pallas_lstm import bilstm_layer as jax_bilstm_layer
 from wesep_tpu_torch.models.common import LSTM
 from wesep_tpu_torch.ops import cuda_lstm, rnn
 
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
 
 def _inputs(seed, b, t, d=64, h=128):
     """(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b) in the kernel's order."""

@@ -48,6 +48,8 @@ from wesep_tpu_torch.utils.jax_params import (
     load_jax_params,
 )
 
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
 SPEAKERS = {"spkA": 110.0, "spkB": 170.0, "spkC": 230.0}
 ENROLL_LEN = 4000
 MODEL_ARGS = dict(N=16, L=20, B=16, H=32, P=3, X=2, R=1, spk_emb_dim=8,

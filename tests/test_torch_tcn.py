@@ -21,6 +21,8 @@ import torch
 from wesep_tpu.ops.pallas_tcn import tcn_block_gln as jax_tcn_block_gln
 from wesep_tpu_torch.ops import cuda_tcn
 
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
 NAMES = "x b1e w1 p0 kd bd g0w g0b p1 w2 b2 g1w g1b".split()
 EPS = 1e-5
 C, H, K = 32, 64, 3

@@ -46,6 +46,8 @@ from wesep_tpu_torch.utils.file_utils import (
     write_vec_ark_scp,
 )
 
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
 EMB = 16
 SPEAKERS = {"spkA": 110.0, "spkB": 170.0, "spkC": 230.0}
 MODEL_ARGS = dict(sr=16000, win=512, stride=128, feature_dim=16,

@@ -23,6 +23,8 @@ from wesep_tpu_torch.utils.jax_params import (
     optimizer_state_from_jax,
 )
 
+torch.set_num_threads(1)  # one intra-op thread per test worker
+
 SCHED = dict(num_epochs=3, epoch_iter=4, initial_lr=1e-3, final_lr=2.5e-5,
              warm_up_epoch=0)
 MODEL_ARGS = dict(sr=16000, win=512, stride=128, feature_dim=16,

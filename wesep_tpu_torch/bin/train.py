@@ -160,8 +160,8 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     if joint_training and not model_name.startswith("ConvTasNet"):
         raise NotImplementedError(
             f"joint_training of {model_name} (an external speaker encoder "
-            "on fbank features) is not ported yet; see ROADMAP.md queue A, "
-            "the joint v2 BSRNN")
+            "on fbank features) is not ported yet; see ROADMAP.md queue A "
+            "item 4 (the joint v2 BSRNN and TF-GridNet)")
 
     (tr_spk2embed_dict, dict_spk, n_train_utts, val_spk2embed_dict,
      val_spk1_embed, val_spk2_embed) = load_enroll_maps(

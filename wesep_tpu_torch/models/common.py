@@ -1,12 +1,14 @@
-"""Shared building blocks: Dense, Conv1d, norms, PReLU, FiLM, speaker
-transform/fusion, LSTM.
+"""Shared building blocks: Dense, Conv1d, Conv2d, ConvTranspose, norms,
+PReLU, FiLM, speaker transform/fusion, LSTM.
 
-Counterpart of wesep_tpu/models/common.py. Layouts are channels-last as in
-the JAX package, and every parameter keeps the JAX name and shape (Dense
-`kernel` is [in, out], Conv1d `kernel` is [k, in / groups, out]), so a JAX
-param tree flattens onto the state_dict (utils/jax_params.py). Parameters
-are f32; each module computes in its input's dtype, so f32 parameters never
-promote a bf16 stream.
+Counterpart of wesep_tpu/models/common.py and of the flax layers the JAX
+models use directly (nn.Conv, nn.ConvTranspose, nn.LayerNorm). Layouts are
+channels-last as in the JAX package, and every parameter keeps the JAX name
+and shape (Dense `kernel` is [in, out], Conv1d `kernel` is [k, in / groups,
+out], Conv2d `kernel` is HWIO [kh, kw, in, out]), so a JAX param tree
+flattens onto the state_dict (utils/jax_params.py). Parameters are f32;
+each module computes in its input's dtype, so f32 parameters never promote
+a bf16 stream.
 """
 
 import math
@@ -15,11 +17,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from wesep_tpu_torch.ops.rnn import bilstm, lstm
+from wesep_tpu_torch.ops.rnn import bilstm, bilstm_unfold, lstm
 
-__all__ = ["Dense", "Conv1d", "GlobalLayerNorm", "ChannelLayerNorm",
-           "BatchNorm", "BatchNorm1d", "PReLU", "get_norm", "norm_auto_name",
-           "FiLM", "SpeakerTransform", "SpeakerFuse", "LSTM", "uniform_param"]
+__all__ = ["Dense", "Conv1d", "Conv2d", "ConvTranspose", "GlobalLayerNorm",
+           "ChannelLayerNorm", "LayerNorm", "BatchNorm", "BatchNorm1d",
+           "PReLU", "get_norm", "norm_auto_name", "FiLM", "SpeakerTransform",
+           "SpeakerFuse", "LSTM", "uniform_param"]
 
 
 def uniform_param(*shape, fan_in: int) -> nn.Parameter:
@@ -102,6 +105,53 @@ class Conv1d(nn.Module):
         return y if bias is None else y + bias
 
 
+class Conv2d(nn.Module):
+    """2-D convolution on [B, H, W, C] with flax nn.Conv's HWIO `kernel`
+    [kh, kw, in, out] and `bias` [out], torch-default init; `padding` is
+    ((top, bottom), (left, right))."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size=(3, 3),
+                 padding=((1, 1), (1, 1))):
+        super().__init__()
+        fan_in = in_channels * kernel_size[0] * kernel_size[1]
+        self.kernel = uniform_param(*kernel_size, in_channels, features,
+                                    fan_in=fan_in)
+        self.bias = uniform_param(features, fan_in=fan_in)
+        (self.top, self.bottom), (self.left, self.right) = padding
+
+    def forward(self, x):
+        x = F.pad(x.permute(0, 3, 1, 2),
+                  (self.left, self.right, self.top, self.bottom))
+        y = F.conv2d(x, self.kernel.to(x.dtype).permute(3, 2, 0, 1),
+                     self.bias.to(x.dtype))
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """Transposed convolution (1-D or 2-D) on channels-last input without
+    padding, the output (in - 1) * stride + k long on each axis. `kernel`
+    is stored as flax nn.ConvTranspose(transpose_kernel=True) stores it,
+    [*k, out, in]: torch's ConvTranspose weight [in, out, *k] with its axes
+    reversed, not spatially flipped. torch-default init (fan_in out * k)."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size,
+                 stride):
+        super().__init__()
+        self.stride = tuple(stride)
+        fan_in = features * math.prod(kernel_size)
+        self.kernel = uniform_param(*kernel_size, features, in_channels,
+                                    fan_in=fan_in)
+        self.bias = uniform_param(features, fan_in=fan_in)
+
+    def forward(self, x):
+        nd = len(self.stride)
+        weight = self.kernel.to(x.dtype).permute(nd + 1, nd, *range(nd))
+        conv = F.conv_transpose1d if nd == 1 else F.conv_transpose2d
+        y = conv(x.movedim(-1, 1), weight, self.bias.to(x.dtype),
+                 stride=self.stride)
+        return y.movedim(1, -1)
+
+
 class GlobalLayerNorm(nn.Module):
     """gLN: normalise over all but the batch axis, per-channel affine.
     Single-pass statistics (E[x^2] - E[x]^2, clamped at 0) summed in f32
@@ -144,6 +194,26 @@ class ChannelLayerNorm(nn.Module):
         y = F.layer_norm(x.float(), x.shape[-1:], self.LayerNorm_0.scale,
                          self.LayerNorm_0.bias, self.eps)
         return y.to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax nn.LayerNorm over the last axis: `scale`, `bias`; statistics in
+    f32 in one pass (E[x^2] - E[x]^2, clamped at 0), the result returned in
+    the input's dtype."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x):
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = (x32.square().mean(dim=-1, keepdim=True)
+               - mean.square()).clamp_min(0.0)
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.scale)
+        return (y + self.bias).to(x.dtype)
 
 
 class BatchNorm(nn.Module):
@@ -293,32 +363,39 @@ class LSTM(nn.Module):
     """LSTM over [B, T, D]; bidirectional concatenates -> [B, T, 2H].
 
     Weights wx_* [D, 4H], wh_* [H, 4H], b_* [4H] (one summed bias), gate
-    order i, f, g, o, torch LSTM init. Setting `plain = True` runs the
+    order i, f, g, o, torch LSTM init. With `unfold_ks` > 0 the input is a
+    raw [B, L, C] stream and the module computes unfold(unfold_ks,
+    unfold_hs) -> BiLSTM -> [B, T', 2H] with the same parameters as the
+    layer over the unfolded stream (wx_* [unfold_ks * C, 4H], channel-major
+    rows), through `ops.rnn.bilstm_unfold`. Setting `plain = True` runs the
     kernels' plain versions (forward and backward) on any device; it exists
     so a check on the card can hold the kernel path against it, and nothing
     on the serving or training path sets it.
     """
 
     def __init__(self, input_dim: int, hidden: int,
-                 bidirectional: bool = True, unfold_ks: int = 0):
+                 bidirectional: bool = True, unfold_ks: int = 0,
+                 unfold_hs: int = 1):
         super().__init__()
-        if unfold_ks:
-            raise NotImplementedError(
-                "unfold_ks (TF-GridNet's fused unfold + BiLSTM, pallas_lstm "
-                "bilstm_layer_unfold) is not ported yet"
-            )
+        if unfold_ks and not bidirectional:
+            raise NotImplementedError("unfold_ks requires bidirectional=True")
         self.bidirectional = bidirectional
+        self.unfold_ks, self.unfold_hs = unfold_ks, unfold_hs
         self.plain = False
         h4 = 4 * hidden
+        d = input_dim * unfold_ks if unfold_ks else input_dim
         dirs = ("f", "b") if bidirectional else ("f",)
         for tag in dirs:
-            setattr(self, f"wx_{tag}",
-                    uniform_param(input_dim, h4, fan_in=hidden))
+            setattr(self, f"wx_{tag}", uniform_param(d, h4, fan_in=hidden))
             setattr(self, f"wh_{tag}", uniform_param(hidden, h4, fan_in=hidden))
             setattr(self, f"b_{tag}", uniform_param(h4, fan_in=hidden))
 
     def forward(self, x):
         if not self.bidirectional:
             return lstm(x, self.wx_f, self.wh_f, self.b_f)
-        return bilstm(x, self.wx_f, self.wh_f, self.b_f,
-                      self.wx_b, self.wh_b, self.b_b, plain=self.plain)
+        weights = (self.wx_f, self.wh_f, self.b_f,
+                   self.wx_b, self.wh_b, self.b_b)
+        if self.unfold_ks:
+            return bilstm_unfold(x, *weights, self.unfold_ks, self.unfold_hs,
+                                 plain=self.plain)
+        return bilstm(x, *weights, plain=self.plain)

@@ -30,7 +30,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-SOURCES = ("bilstm_layer", "bilstm_layer_bwd", "tcn_block",
+SOURCES = ("bilstm_layer", "bilstm_layer_bwd", "bilstm_unfold",
+           "bilstm_unfold_bwd", "tcn_block",
            "tcn_block_bwd")  # every csrc/<name>.cu
 
 

@@ -197,15 +197,16 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} is on {t.device}, x is on {device}")
 
 
-def _kernel_args(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b):
+def _kernel_args(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, d=None):
     """Check what the kernels take and return (x, wx_f, b_f, wh_f, wx_b,
     b_b, wh_b) as they take it: weights in the stream's dtype (f32 params
-    must not promote a bf16 stream), biases f32, all contiguous."""
+    must not promote a bf16 stream), biases f32, all contiguous. `d` is the
+    length of a step's input row (x's last axis unless given)."""
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"bilstm_layer takes float32 or bfloat16, not {x.dtype}")
-    d = x.shape[2]
+    d = x.shape[2] if d is None else d
     hidden = wh_f.shape[0]
     if d % 4 or hidden % 4 or hidden > _MAX_HIDDEN:
         raise ValueError(

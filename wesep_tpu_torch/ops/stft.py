@@ -3,7 +3,7 @@
 Counterpart of wesep_tpu/ops/stft.py. The JAX package writes the (i)STFT as
 framed matmuls against a windowed Fourier basis, outside any Pallas kernel;
 here torch.stft / torch.istft compute the same transform (center=True,
-reflect padding, periodic Hann window). Spectrograms keep the JAX layout:
+reflect padding, periodic Hann or Hamming window). Spectrograms keep the JAX layout:
 a (real, imag) pair of [B, T_frames, F] tensors, frequency last.
 """
 
@@ -11,13 +11,19 @@ import math
 
 import torch
 
-__all__ = ["hann_window", "stft", "istft"]
+__all__ = ["hann_window", "hamming_window", "stft", "istft"]
 
 
 def hann_window(n: int, dtype=torch.float32, device=None):
     """Periodic Hann window (torch.hann_window(n) semantics)."""
     k = torch.arange(n, dtype=torch.float64, device=device)
     return (0.5 - 0.5 * torch.cos(2.0 * math.pi * k / n)).to(dtype)
+
+
+def hamming_window(n: int, dtype=torch.float32, device=None):
+    """Periodic Hamming window (torch.hamming_window(n) semantics)."""
+    k = torch.arange(n, dtype=torch.float64, device=device)
+    return (0.54 - 0.46 * torch.cos(2.0 * math.pi * k / n)).to(dtype)
 
 
 def stft(x, n_fft: int, hop_length: int, window=None):

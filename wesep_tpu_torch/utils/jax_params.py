@@ -20,6 +20,12 @@ additions: the BatchNorm statistics, which flax keeps in a second tree
 on the buffers of the same names, and the `CheckpointTCNBlock_{i}` names
 that `remat=True` gives the TCN blocks become `TCNBlock_{i}`.
 
+TF-GridNet crosses as a flatten too (flax nn.Conv's HWIO `conv.kernel`,
+the `kernel` [*k, out, in] of its transposed convolutions `deconv` and
+`{intra,inter}_linear`, LayerNorm `scale`/`bias`), and a `scan_layers` tree
+is unstacked: its leaves under `blocks.block` carry a leading [n_layers]
+axis, and layer i becomes `block_{i}` of the unrolled tree.
+
 The params are plain nested dicts of arrays (numpy, or anything
 `np.asarray` takes), as `model.init(...)["params"]` or a msgpack bundle's
 `models[0]` gives them; nothing of JAX is imported here.
@@ -37,7 +43,8 @@ import numpy as np
 import torch
 
 __all__ = ["bsrnn_state_dict_from_jax", "convtasnet_state_dict_from_jax",
-           "load_jax_params", "optimizer_state_from_jax"]
+           "tfgridnet_state_dict_from_jax", "load_jax_params",
+           "optimizer_state_from_jax"]
 
 
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
@@ -73,12 +80,32 @@ def convtasnet_state_dict_from_jax(params,
     }
 
 
+def _unstack_scan_layers(state) -> Dict[str, torch.Tensor]:
+    """Leaves under `blocks.block.` ([n_layers, ...]) -> `block_{i}.`."""
+    out = {}
+    for name, value in state.items():
+        if name.startswith("blocks.block."):
+            rest = name[len("blocks.block."):]
+            for i, layer in enumerate(value.unbind(0)):
+                out[f"block_{i}.{rest}"] = layer.clone()
+        else:
+            out[name] = value
+    return out
+
+
+def tfgridnet_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX TFGridNet params (nested dict; unrolled `block_{i}` or the
+    `scan_layers` tree's stacked `blocks.block`) -> port TFGridNet
+    state_dict (f32)."""
+    return _unstack_scan_layers(convtasnet_state_dict_from_jax(params))
+
+
 def load_jax_params(model: torch.nn.Module, params,
                     batch_stats=None) -> torch.nn.Module:
     """Load JAX params (and BatchNorm statistics) into a port model in
     place (strict: every name and shape must match)."""
-    model.load_state_dict(
-        convtasnet_state_dict_from_jax(params, batch_stats), strict=True)
+    model.load_state_dict(_unstack_scan_layers(
+        convtasnet_state_dict_from_jax(params, batch_stats)), strict=True)
     return model
 
 
