@@ -64,7 +64,25 @@ pass):
    parameters that moved, a checkpoint that bin/infer decodes from,
    whole-model gradients through the kernels against those through the
    plain versions, and the time and peak memory of a train step on both
-   routes.
+   routes;
+10. serve DPCCN: the full-width model of
+   examples/librimix/tse/v1/confs/dpccn.yaml (random weights from a seed)
+   decodes a small shard through bin/infer on conv_impl "pallas" (exactly
+   7 launches of the fused Conv2dBlock kernel per forward) and on the
+   default "xla" route (none); the two routes' estimates against each
+   other, the kernels' forward against the plain versions', the step time;
+11. train DPCCN: the same model trains through bin/train on conv_impl
+   "pallas", bf16, batch_size 4 (8 rows x 3 s), a few steps and one
+   validation step: 7 forward and 7 backward launches per train step, 7
+   forward per validation step; finite losses, parameters that moved, a
+   checkpoint that bin/infer decodes from, whole-model gradients through
+   the kernels against those through the plain versions, and the time and
+   peak memory of a train step on both routes.
+
+Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
+its plain versions at the six distinct shapes DPCCN gives it (T 376), at
+serving (2 rows, f32) and training (8 rows, bf16) size, with cuDNN's conv
+alone timed beside it as a note.
 
 The last lines are the card line of nvidia-smi, one JSON object describing
 the kernels, and {"ok": true, "device": {...}}.
@@ -132,6 +150,31 @@ GRID_TRAIN_STEPS = 4
 # the periodic Hann window is 0
 GRID_NOISE_ONLY = ("attn_norm_K_bias", "deconv.bias")
 
+# DPCCN (examples/librimix/tse/v1/confs/dpccn.yaml) at full width
+DPCCN_MODEL_ARGS = dict(win=512, stride=128, sr=16000, spk_emb_dim=256,
+                        spk_fuse_type="multiply", tcn_dims=384,
+                        tcn_blocks=10, tcn_layers=2, use_spk_transform=False,
+                        joint_training=False)
+DPCCN_FUSED = 7        # Conv2dBlocks per forward on conv_impl "pallas"
+DPCCN_BATCH = 4        # the conf's batch_size: 8 rows of 3 s per step
+DPCCN_TRAIN_STEPS = 4
+DPCCN_CLIP = 3.0       # the conf's clip_grad
+CONV_T = 376           # frames of a 3 s chunk
+# the fused block's shapes on DPCCN's path, (module, F, Ci, Co); dec7.conv1
+# has enc0.conv2's
+CONV_SHAPES = [("enc0.conv1", 257, 16, 16), ("enc0.conv2", 257, 32, 16),
+               ("enc1_dense.conv1", 129, 32, 32),
+               ("enc2_dense.conv1", 65, 32, 32),
+               ("enc3_dense.conv1", 33, 32, 32),
+               ("enc4_dense.conv1", 17, 32, 32)]
+# parameters with a rounding-noise gradient: a TCN block's depthwise bias
+# feeds an instance norm directly; the real part of the output deconv's
+# bias is a constant spectrum (Hann window 0 at a frame's first sample);
+# and near-cancelling ones: every conv block's bias feeds ELU -> instance
+# norm, where only the ELU's negative branch keeps its gradient
+DPCCN_NOISE_ONLY = ("dconv1.bias", "deconv2d.bias")
+DPCCN_NEAR_CANCELLING = ("conv.bias",)
+
 
 def grid_rnn_shapes(rows, samples):
     """(B', L) of the intra (frequency) and inter (time) RNNs of a
@@ -177,6 +220,19 @@ def time_ms(fn, warmup=2, runs=10):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def host_ms(fn, runs=5):
+    """Median host time to return from fn() on an idle card: the time to
+    enqueue its work. Near the device time, the host paces the card."""
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
     return statistics.median(times)
 
 
@@ -1816,6 +1872,448 @@ def train_tfgridnet(root):
     }
 
 
+CONV_GRADS = ("dx", "dK", "db")
+
+
+def conv_bounds(batch, f, ci, co, dtype):
+    """Least times of the fused Conv2dBlock on the card, forward and
+    backward: the conv's 2 * 9 * Ci * Co operations per output (the
+    backward's two products, dx and dK, twice that; the recompute of e is
+    not needed work) and the bytes of every input read once and every
+    output written once (x, K, the bias, y, the statistics; x, dy, K, the
+    bias, the statistics, dx and the f32 dK and db)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    pos = batch * CONV_T * f
+    ops = 2 * 9 * ci * co * pos
+    small = 9 * ci * co * size + co * 4 + batch * 2 * co * 4
+    forward = _bound(ops, pos * (ci + co) * size + small, dtype)
+    backward = _bound(2 * ops, pos * (2 * ci + co) * size + small
+                      + (9 * ci * co + co) * 4, dtype)
+    return forward, backward
+
+
+def conv_limits(dtype):
+    """Limits of the fused block against its plain version. y: f32 1e-4 of
+    the largest magnitude (the conv and the statistics sum in another
+    order); bf16 4 units in the last place at the largest magnitude (y is
+    rounded once from an f32 value that may differ in its last bits).
+    Gradients, by relative L2: f32 1e-3; bf16 2e-2 (dout is rounded to
+    bf16, and a sum that differs in its last bit flips such a rounding now
+    and then); largest error 5e-2 of the largest magnitude."""
+    if dtype == torch.float32:
+        return {"y": 1e-4, "grad_l2": 1e-3, "grad_max": 5e-2}
+    return {"y": None, "grad_l2": 2e-2, "grad_max": 5e-2}
+
+
+def check_conv2d(name, f, ci, co, batch, dtype):
+    """K5 and K5b against their plain versions at one DPCCN shape."""
+    from torch.nn import functional as F
+
+    from wesep_tpu_torch.ops import cuda_conv2d as k
+
+    gen = torch.Generator().manual_seed(SEED)
+    r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    x = (r(batch, CONV_T, f, ci) * 0.5).cuda().to(dtype)
+    w = (r(3, 3, ci, co) * 0.1).cuda()
+    b = (r(co) * 0.1).cuda()
+    dy = (r(batch, CONV_T, f, co) * 0.1).cuda().to(dtype)
+    limits = conv_limits(dtype)
+    y, stats = k._forward_cuda(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    ref_y, ref_stats = k.conv2d_block_in_reference(x, w, b,
+                                                   return_stats=True)
+    err_y = (y.float() - ref_y.float()).abs().max().item()
+    tol_y = tolerance(ref_y) if limits["y"] is None else \
+        limits["y"] * ref_y.float().abs().max().item()
+    err_stats = rel_err(stats, ref_stats)
+    # the backward from the plain forward's statistics, so that only the
+    # adjoint differs
+    grads = k.conv2d_block_in_backward(x, w, b, ref_stats, dy)
+    torch.cuda.synchronize()
+    again = k.conv2d_block_in_backward(x, w, b, ref_stats, dy)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, c) for a, c in zip(grads, again))
+    ref = k.conv2d_block_in_backward_reference(x, w, b, ref_stats, dy)
+    l2 = {n: rel_l2(g, want) for n, g, want in zip(CONV_GRADS, grads, ref)}
+    mx = {n: rel_err(g, want) for n, g, want in zip(CONV_GRADS, grads, ref)}
+    err_dx = (grads[0].float() - ref[0].float()).abs().max().item()
+    del again, ref
+
+    fwd_ms = time_ms(lambda: k._forward_cuda(x, w, b, 1e-5), 2, 10)
+    bwd_ms = time_ms(
+        lambda: k.conv2d_block_in_backward(x, w, b, ref_stats, dy), 2, 10)
+    fwd_host_ms = host_ms(lambda: k._forward_cuda(x, w, b, 1e-5))
+    bwd_host_ms = host_ms(
+        lambda: k.conv2d_block_in_backward(x, w, b, ref_stats, dy))
+    fwd_plain_ms = time_ms(lambda: k.conv2d_block_in_reference(x, w, b), 1, 5)
+    bwd_plain_ms = time_ms(lambda: k.conv2d_block_in_backward_reference(
+        x, w, b, ref_stats, dy), 1, 5)
+    # a note, not a yardstick: no single PyTorch call computes conv -> ELU
+    # -> instance norm; this is cuDNN's conv alone on the same input
+    xn, wn = x.permute(0, 3, 1, 2), w.to(dtype).permute(3, 2, 0, 1)
+    cudnn_conv_ms = time_ms(lambda: F.conv2d(xn, wn, b.to(dtype), padding=1))
+    (f_ms, f_by), (b_ms, b_by) = conv_bounds(batch, f, ci, co, dtype)
+    case = {
+        "shape": name, "dtype": str(dtype).replace("torch.", ""),
+        "B": batch, "T": CONV_T, "F": f, "Ci": ci, "Co": co,
+        "limits": limits,
+        "forward": {"max_abs_err": err_y, "tolerance": tol_y,
+                    "stats_rel_err": err_stats, "ms": fwd_ms,
+                    "plain_ms": fwd_plain_ms, "library_ms": None,
+                    "cudnn_conv_only_ms": cudnn_conv_ms,
+                    "host_ms": fwd_host_ms,
+                    "bound_ms": f_ms, "bound_by": f_by},
+        "backward": {"max_abs_err": err_dx, "rel_l2": l2, "rel_max": mx,
+                     "same_bits_twice": same_bits, "ms": bwd_ms,
+                     "host_ms": bwd_host_ms,
+                     "plain_ms": bwd_plain_ms, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": b_by},
+    }
+    log("kernel conv2d_block_in", json.dumps(case))
+    ok = (err_y <= tol_y and err_stats <= 1e-4 and same_bits
+          and all(v <= limits["grad_l2"] for v in l2.values())
+          and all(v <= limits["grad_max"] for v in mx.values())
+          and all(torch.isfinite(t).all() for t in (y, *grads)))
+    if not ok:
+        raise AssertionError(f"conv2d_block_in disagrees at {case}")
+    return case
+
+
+def conv_counters():
+    from wesep_tpu_torch.ops import cuda_conv2d as k
+
+    return {"conv2d_block_in": k.conv2d_block_in,
+            "conv2d_block_in_backward": k.conv2d_block_in_backward}
+
+
+def zero_conv_counts():
+    for fn in conv_counters().values():
+        fn.launches = 0
+
+
+def read_conv_counts():
+    return {n: fn.launches for n, fn in conv_counters().items()}
+
+
+def conv_blocks(model):
+    from wesep_tpu_torch.models.dpccn import Conv2dBlock
+
+    return [m for m in model.modules() if isinstance(m, Conv2dBlock)]
+
+
+def dpccn_model(conv_impl, state):
+    from wesep_tpu_torch.models.dpccn import DPCCN
+
+    model = DPCCN(**DPCCN_MODEL_ARGS, conv_impl=conv_impl)
+    model.load_state_dict(state)
+    return model.cuda()
+
+
+def serve_dpccn(root):
+    """Phase 10: DPCCN through bin/infer on the card, on both routes."""
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.data.wav_io import read_wav
+    from wesep_tpu_torch.models.dpccn import DPCCN
+    from wesep_tpu_torch.train.checkpoint import save_checkpoint
+
+    rng = np.random.default_rng(SEED + 13)
+    paths, lengths = write_shard(root, rng, "dpccntest", SHARD_SECONDS)
+    data = {f"test_{k}": v for k, v in paths.items() if k != "utt2spk"}
+    torch.manual_seed(SEED)
+    state = DPCCN(**DPCCN_MODEL_ARGS).state_dict()
+    ckpt = os.path.join(root, "dpccn_avg_model.pt")
+    save_checkpoint(ckpt, [state])
+    steps = forward_steps(lengths)
+    audio_s = 2 * sum(lengths) / 16000.0
+    gen = torch.Generator().manual_seed(SEED + 14)
+    mix = (torch.randn(ROWS_PER_STEP, CHUNK, generator=gen) * 0.1).cuda()
+    emb = torch.randn(ROWS_PER_STEP, 256, generator=gen).cuda()
+    routes, ests = {}, {}
+    for route in ("pallas", "xla"):
+        exp_dir = os.path.join(root, f"exp_dpccn_{route}")
+        config = {
+            "model": {"tse_model": "DPCCN"},
+            "model_args": {"tse_model": dict(DPCCN_MODEL_ARGS,
+                                             conv_impl=route)},
+            "data_type": "shard",
+            "dataset_args": {"resample_rate": 16000},
+            "exp_dir": exp_dir, "checkpoint": ckpt,
+            "length_bucket": BUCKET, "infer_batch_size": ROWS_PER_STEP,
+            "device": "cuda", **data,
+        }
+        fused = DPCCN_FUSED if route == "pallas" else 0
+        zero_conv_counts()
+        t0 = time.perf_counter()
+        avg_sisnr, avg_sisnri = infer(config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_conv_counts()
+        log(f"serve DPCCN ({route} route): {2 * len(lengths)} requests in "
+            f"{steps} forward steps, {wall:.3f} s wall, RTF "
+            f"{wall / audio_s:.5f}, avg SI-SNR {avg_sisnr:.3f} dB, avg "
+            f"SI-SNRi {avg_sisnri:.3f} dB (random weights: shows the chain "
+            f"ran, not quality); launches {launches}")
+        want = {"conv2d_block_in": fused * steps,
+                "conv2d_block_in_backward": 0}
+        if launches != want:
+            raise AssertionError(f"serve DPCCN ({route}): launches "
+                                 f"{launches}, expected {want}")
+        if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
+            raise AssertionError("non-finite SI-SNR from infer")
+        audio = os.path.join(exp_dir, "audio")
+        wavs = sorted(n for n in os.listdir(audio) if n.endswith(".wav"))
+        if len(wavs) != 2 * len(lengths):
+            raise AssertionError(f"{len(wavs)} outputs for "
+                                 f"{2 * len(lengths)} requests")
+        for name, n in zip(wavs[::2], lengths):
+            wav, _ = read_wav(os.path.join(audio, name))
+            if wav.shape != (1, n) or not np.isfinite(wav).all():
+                raise AssertionError(f"bad output {name}: {wav.shape}")
+
+        # one forward of the model on this route, f32
+        model = dpccn_model(route, state).eval()
+        with torch.inference_mode():
+            zero_conv_counts()
+            est = model(mix, emb)[0]
+            per_forward = read_conv_counts()["conv2d_block_in"]
+            step_ms = time_ms(lambda: model(mix, emb), 1, 5)
+            enqueue_ms = host_ms(lambda: model(mix, emb), 3)
+        if per_forward != fused:
+            raise AssertionError(f"{per_forward} launches in one DPCCN "
+                                 f"forward ({route}), expected {fused}")
+        if not torch.isfinite(est).all() or est.shape != mix.shape:
+            raise AssertionError("DPCCN forward is not finite / wrong shape")
+        ests[route] = est
+        routes[route] = {
+            "launches": launches, "wall_s": wall, "rtf_wall": wall / audio_s,
+            "step_ms": step_ms, "enqueue_ms": enqueue_ms,
+            "audio_s_per_s": 2 * 3.0 / (step_ms / 1e3),
+            "rtf": step_ms / 1e3 / 6.0, "avg_sisnri": avg_sisnri}
+        if route == "pallas":
+            # the kernels against their plain versions in the same model
+            set_plain(conv_blocks(model), True)
+            with torch.inference_mode():
+                est_plain = model(mix, emb)[0]
+                plain_step_ms = time_ms(lambda: model(mix, emb), 0, 2)
+            set_plain(conv_blocks(model), False)
+            routes[route].update(plain_step_ms=plain_step_ms,
+                                 rel_l2_vs_plain=rel_l2(est, est_plain))
+        del model
+    rel = rel_l2(ests["pallas"], ests["xla"])
+    for route, t in routes.items():
+        log(f"serve DPCCN ({route} route): forward [2 x 3 s] "
+            f"{t['step_ms']:.3f} ms/step ({t['enqueue_ms']:.3f} ms to "
+            f"enqueue on the host), {t['audio_s_per_s']:.1f} audio-s/s, RTF "
+            f"{t['rtf']:.5f}")
+    log(f"serve DPCCN: plain versions {routes['pallas']['plain_step_ms']:.3f} "
+        f"ms/step; kernels vs plain rel L2 "
+        f"{routes['pallas']['rel_l2_vs_plain']:.3e}, pallas vs xla route rel "
+        f"L2 {rel:.3e} (limits 1e-3: the same f32 arithmetic in another "
+        "order, ELU through exp - 1 against expm1)")
+    if not (routes["pallas"]["rel_l2_vs_plain"] <= 1e-3 and rel <= 1e-3):
+        raise AssertionError(f"DPCCN routes differ: {routes}, {rel}")
+    return {"requests": 2 * len(lengths), "steps": steps,
+            "rel_l2_pallas_vs_xla": rel, **routes}
+
+
+def train_dpccn(root):
+    """Phase 11: DPCCN through bin/train on the card, conv_impl "pallas"."""
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.bin.train import train
+    from wesep_tpu_torch.models.dpccn import DPCCN
+    from wesep_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    rng = np.random.default_rng(SEED + 15)
+    tr, _ = write_shard(root, rng, "dpccntrain", [4.0] * (2 * DPCCN_BATCH))
+    va, va_lengths = write_shard(root, rng, "dpccndev", [3.5] * DPCCN_BATCH)
+    torch.manual_seed(SEED)
+    init_state = {n: v.clone()
+                  for n, v in DPCCN(**DPCCN_MODEL_ARGS).state_dict().items()}
+    init_path = os.path.join(root, "dpccn_init.ckpt")
+    save_checkpoint(init_path, [init_state])
+    model_args = dict(DPCCN_MODEL_ARGS, conv_impl="pallas")
+    # the values of examples/librimix/tse/v1/confs/dpccn.yaml; one epoch of
+    # DPCCN_TRAIN_STEPS batches on the synthetic shards
+    config = {
+        "device": "cuda", "exp_dir": os.path.join(root, "exp_dpccn_train"),
+        "data_type": "shard",
+        "train_data": tr["data"], "train_spk_embeds": tr["spk_embeds"],
+        "train_utt2spk": tr["utt2spk"],
+        "val_data": va["data"], "val_spk_embeds": va["spk_embeds"],
+        "val_spk1_enroll": va["spk1_enroll"],
+        "val_spk2_enroll": va["spk2_enroll"],
+        "dataloader_args": {"batch_size": DPCCN_BATCH, "drop_last": True,
+                            "prefetch_factor": 4},
+        "dataset_args": {"resample_rate": 16000,
+                         "sample_num_per_epoch":
+                             DPCCN_TRAIN_STEPS * DPCCN_BATCH,
+                         "shuffle": True,
+                         "shuffle_args": {"shuffle_size": 2500},
+                         "chunk_len": CHUNK, "speaker_feat": False},
+        "compute_dtype": "bfloat16", "log_batch_interval": 1,
+        "loss": "SISDR", "loss_args": {},
+        "model": {"tse_model": "DPCCN"},
+        "model_args": {"tse_model": model_args},
+        "model_init": {"tse_model": init_path},
+        "num_avg": 5, "num_epochs": 1,
+        "optimizer": {"tse_model": "Adam"},
+        "optimizer_args": {"tse_model": {"lr": 0.001, "weight_decay": 0.0001}},
+        "clip_grad": DPCCN_CLIP, "save_epoch_interval": 1,
+        "scheduler": {"tse_model": "ExponentialDecrease"},
+        "scheduler_args": {"tse_model": {
+            "final_lr": 2.5e-05, "initial_lr": 0.001,
+            "warm_from_zero": False, "warm_up_epoch": 0}},
+        "seed": 42,
+    }
+    val_steps = 1  # 8 validation enrollments / 2 / batch_size 4
+    zero_conv_counts()
+    t0 = time.perf_counter()
+    state = train(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_conv_counts()
+    want = {"conv2d_block_in": DPCCN_FUSED * (DPCCN_TRAIN_STEPS + val_steps),
+            "conv2d_block_in_backward": DPCCN_FUSED * DPCCN_TRAIN_STEPS}
+    log(f"train DPCCN: {DPCCN_TRAIN_STEPS} steps + {val_steps} validation "
+        f"step through bin/train in {wall:.3f} s wall; launches {launches} "
+        f"(expected {want})")
+    if launches != want:
+        raise AssertionError(f"train DPCCN: launches {launches}, expected "
+                             f"{want}")
+    with open(os.path.join(config["exp_dir"], "train.log")) as f:
+        text = f.read()
+    losses = rows_loss(text)
+    epoch = re.findall(r"Epoch 1 train_loss (\S+) val_loss (\S+)", text)
+    log(f"train DPCCN: running mean loss per step {losses}, epoch {epoch}")
+    if len(losses) != DPCCN_TRAIN_STEPS or len(epoch) != 1 or not all(
+            math.isfinite(v) for v in losses + [float(e) for e in epoch[0]]):
+        raise AssertionError("missing or non-finite training losses")
+    if state.step != DPCCN_TRAIN_STEPS:
+        raise AssertionError(f"{state.step} updates, expected "
+                             f"{DPCCN_TRAIN_STEPS}")
+    moved = {n: (p.detach().cpu() - init_state[n]).abs().max().item()
+             for n, p in state.model.named_parameters()}
+    still = [n for n, v in moved.items()
+             if v == 0 and not n.endswith(DPCCN_NOISE_ONLY)]
+    if still:
+        raise AssertionError(f"parameters that did not change: {still}")
+    ckpt = os.path.join(config["exp_dir"], "models", "checkpoint_1.ckpt")
+    bundle = load_checkpoint(ckpt)
+    if not (bundle["step"] == DPCCN_TRAIN_STEPS
+            and bundle["opt_states"][0]["count"] == DPCCN_TRAIN_STEPS
+            and set(bundle["opt_states"][0]["mu"]) == set(moved)):
+        raise AssertionError("checkpoint_1.ckpt lacks optimizer state or "
+                             "step")
+    del state
+    # bin/infer decodes from the checkpoint bin/train wrote
+    sisnr, _ = infer({
+        "model": config["model"], "model_args": config["model_args"],
+        "data_type": "shard", "dataset_args": {"resample_rate": 16000},
+        "exp_dir": os.path.join(root, "exp_dpccn_ckpt"),
+        "checkpoint": ckpt, "save_wav": False, "device": "cuda",
+        "length_bucket": BUCKET,
+        "test_data": va["data"], "test_spk_embeds": va["spk_embeds"],
+        "test_spk1_enroll": va["spk1_enroll"],
+        "test_spk2_enroll": va["spk2_enroll"]})
+    if not math.isfinite(sisnr):
+        raise AssertionError("bin/infer from the trained checkpoint: "
+                             "non-finite SI-SNR")
+    log(f"train DPCCN: bin/infer decoded {2 * len(va_lengths)} requests "
+        f"from checkpoint_1.ckpt, avg SI-SNR {sisnr:.3f} dB")
+
+    # gradients through the kernels against gradients through the plain
+    # versions: f32, 2 rows x 3 s, relative L2 per parameter (limit 1e-3:
+    # only the sum order differs, and ELU' is continuous at 0, so no branch
+    # flip moves an element); the noise-only and near-cancelling leaves
+    # (DPCCN_NOISE_ONLY, DPCCN_NEAR_CANCELLING) are held to 1e-5 of the
+    # whole gradient's norm instead
+    gen = torch.Generator().manual_seed(SEED + 16)
+    model = dpccn_model("pallas", init_state).train()
+    blocks = conv_blocks(model)
+    mix = (torch.randn(2, CHUNK, generator=gen) * 0.1).cuda()
+    target = (torch.randn(2, CHUNK, generator=gen) * 0.1).cuda()
+    emb = torch.randn(2, 256, generator=gen).cuda()
+    got = param_grads(model, mix, emb, target)
+    set_plain(blocks, True)
+    want = param_grads(model, mix, emb, target)
+    set_plain(blocks, False)
+    total = torch.cat([g.flatten() for g in want.values()]).norm().item()
+    weak = DPCCN_NOISE_ONLY + DPCCN_NEAR_CANCELLING
+    rel = {n: rel_l2(got[n], want[n]) for n in want if not n.endswith(weak)}
+    noise = {n: (got[n] - want[n]).norm().item() / total for n in want
+             if n.endswith(weak)}
+    worst = max(rel, key=rel.get)
+    worst_noise = max(noise, key=noise.get)
+    log(f"train DPCCN: gradients of {len(rel)} parameters, kernels vs plain "
+        f"(f32): worst relative L2 {rel[worst]:.3e} at {worst} (limit "
+        f"1e-3); {len(noise)} noise-only and near-cancelling leaves: worst "
+        f"error {noise[worst_noise]:.3e} of the whole gradient's norm at "
+        f"{worst_noise} (limit 1e-5)")
+    if not (rel[worst] <= 1e-3 and noise[worst_noise] <= 1e-5):
+        raise AssertionError(f"gradients differ: {worst} {rel[worst]}, "
+                             f"{worst_noise} {noise[worst_noise]}")
+    del got, want
+
+    # time and peak memory of one train step at the recipe's size, on each
+    # route, and with the plain versions
+    rows = 2 * DPCCN_BATCH
+    batch = {
+        "wav_mix": (torch.randn(rows, CHUNK, generator=gen) * 0.1).cuda(),
+        "wav_targets": (torch.randn(rows, CHUNK, generator=gen) * 0.1).cuda(),
+        "spk_embeds": torch.randn(rows, 256, generator=gen).cuda(),
+    }
+    step = make_train_step(parse_loss("SISDR"), compute_dtype=torch.bfloat16)
+    timed = {}
+    for route in ("pallas", "xla"):
+        model = dpccn_model(route, init_state).train()
+        opt = make_optimizer(model, exponential_decrease(
+            num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+            warm_up_epoch=0), weight_decay=1e-4, clip_grad=DPCCN_CLIP)
+        tstate = TrainState(model=model, optimizer=opt)
+        zero_conv_counts()
+        step(tstate, batch)
+        torch.cuda.synchronize()
+        fused = DPCCN_FUSED if route == "pallas" else 0
+        if read_conv_counts() != {"conv2d_block_in": fused,
+                                  "conv2d_block_in_backward": fused}:
+            raise AssertionError(f"one DPCCN train step ({route}): "
+                                 f"launches {read_conv_counts()}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: step(tstate, batch), 1, 5)
+        timed[route] = {"step_ms": step_ms,
+                        "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        if route == "pallas":
+            set_plain(conv_blocks(model), True)
+            plain_step_ms = time_ms(lambda: step(tstate, batch), 0, 2)
+            set_plain(conv_blocks(model), False)
+        del model, opt, tstate
+    audio = rows * CHUNK / 16000.0
+    for route, t in timed.items():
+        t["audio_s_per_s"] = audio / (t["step_ms"] / 1e3)
+        log(f"train DPCCN ({route} route): step [8 rows x 3 s, bf16] "
+            f"{t['step_ms']:.3f} ms, {t['audio_s_per_s']:.1f} audio-s/s, "
+            f"peak memory {t['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
+    log(f"train DPCCN: step with the plain versions (pallas route) "
+        f"{plain_step_ms:.3f} ms")
+    return launches, {
+        "steps": DPCCN_TRAIN_STEPS, "val_steps": val_steps, "wall_s": wall,
+        "running_mean_loss": losses, "plain_step_ms": plain_step_ms,
+        "grad_rel_l2_worst": rel[worst],
+        "noise_only_grad_err_worst": noise[worst_noise], **timed,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -1877,6 +2375,13 @@ def main() -> int:
                 "grid_" + name[len("train_"):], frames, rows,
                 torch.bfloat16, grid_d, GRID_H))
 
+    # the fused Conv2dBlock at DPCCN's six shapes: serving in f32 (2 rows),
+    # training in bf16 (8 rows)
+    conv_cases = [check_conv2d(name, f, ci, co, batch, dtype)
+                  for batch, dtype in ((ROWS_PER_STEP, torch.float32),
+                                       (2 * DPCCN_BATCH, torch.bfloat16))
+                  for name, f, ci, co in CONV_SHAPES]
+
     # 4. serve
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         serve_launches, served = serve(root)
@@ -1907,6 +2412,16 @@ def main() -> int:
         grid_launches, grid_trained = train_tfgridnet(root)
     log("train TF-GridNet summary", json.dumps(grid_trained))
 
+    # 10. serve DPCCN, on both routes
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        dpccn_served = serve_dpccn(root)
+    log("serve DPCCN summary", json.dumps(dpccn_served))
+
+    # 11. train DPCCN, on the fused-block route
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        dpccn_launches, dpccn_trained = train_dpccn(root)
+    log("train DPCCN summary", json.dumps(dpccn_trained))
+
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
     # training bf16)
@@ -1923,6 +2438,10 @@ def main() -> int:
          if c["shape"].startswith("train") and c["dtype"] == "bfloat16"),
         key=lambda c: c["forward"]["ms"] + c["backward"]["ms"]
         + c["wgrad"]["ms"])
+    # and of the fused Conv2dBlock: the DPCCN training shape (bf16) whose
+    # kernels take longest
+    conv_head = max((c for c in conv_cases if c["dtype"] == "bfloat16"),
+                    key=lambda c: c["forward"]["ms"] + c["backward"]["ms"])
     sources = {"bilstm_layer": "wesep_tpu_torch/csrc/bilstm_layer.cu",
                "bilstm_layer_backward":
                    "wesep_tpu_torch/csrc/bilstm_layer_bwd.cu",
@@ -1935,7 +2454,10 @@ def main() -> int:
                    "wesep_tpu_torch/csrc/bilstm_unfold_bwd.cu",
                "tcn_block_gln": "wesep_tpu_torch/csrc/tcn_block.cu",
                "tcn_block_gln_backward":
-                   "wesep_tpu_torch/csrc/tcn_block_bwd.cu"}
+                   "wesep_tpu_torch/csrc/tcn_block_bwd.cu",
+               "conv2d_block_in": "wesep_tpu_torch/csrc/conv2d_block.cu",
+               "conv2d_block_in_backward":
+                   "wesep_tpu_torch/csrc/conv2d_block_bwd.cu"}
     replaces = {"bilstm_layer": "wesep_tpu/ops/pallas_lstm.py:834",
                 "bilstm_layer_backward": "wesep_tpu/ops/pallas_lstm.py:932",
                 "bilstm_layer_wgrad": "wesep_tpu/ops/pallas_lstm.py:932",
@@ -1945,7 +2467,10 @@ def main() -> int:
                 "bilstm_layer_unfold_wgrad":
                     "wesep_tpu/ops/pallas_lstm.py:1353",
                 "tcn_block_gln": "wesep_tpu/ops/pallas_tcn.py:230",
-                "tcn_block_gln_backward": "wesep_tpu/ops/pallas_tcn.py:527"}
+                "tcn_block_gln_backward": "wesep_tpu/ops/pallas_tcn.py:527",
+                "conv2d_block_in": "wesep_tpu/ops/pallas_conv2d.py:201",
+                "conv2d_block_in_backward":
+                    "wesep_tpu/ops/pallas_conv2d.py:415"}
     headline = {"bilstm_layer": band,
                 "bilstm_layer_backward": train_band["backward"],
                 "bilstm_layer_wgrad": train_band["wgrad"],
@@ -1953,7 +2478,9 @@ def main() -> int:
                 "bilstm_layer_unfold_backward": unfold_head["backward"],
                 "bilstm_layer_unfold_wgrad": unfold_head["wgrad"],
                 "tcn_block_gln": tcn_head["forward"],
-                "tcn_block_gln_backward": tcn_head["backward"]}
+                "tcn_block_gln_backward": tcn_head["backward"],
+                "conv2d_block_in": conv_head["forward"],
+                "conv2d_block_in_backward": conv_head["backward"]}
     # launches of each wrapper on each path that ran it: the main-path
     # count of an entry is its training path's
     by_path = {name: {} for name in headline}
@@ -1971,13 +2498,18 @@ def main() -> int:
     for name, n in grid_launches.items():
         if n:
             by_path[name]["tfgridnet_train"] = n
+    for route in ("pallas", "xla"):
+        n = dpccn_served[route]["launches"]["conv2d_block_in"]
+        by_path["conv2d_block_in"][f"dpccn_serve_{route}"] = n
+    for name, n in dpccn_launches.items():
+        by_path[name]["dpccn_train"] = n
     kernels = []
     for name, head in headline.items():
+        main_path = next(p for p in ("train", "tfgridnet_train",
+                                     "dpccn_train") if p in by_path[name])
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name],
-                 "launches": by_path[name]["train"
-                                           if "train" in by_path[name]
-                                           else "tfgridnet_train"],
+                 "launches": by_path[name][main_path],
                  "launches_by_path": by_path[name]}
         entry.update({key: head[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1995,6 +2527,12 @@ def main() -> int:
                 dict(c[part], shape=c["shape"], dtype=c["dtype"], B=c["B"],
                      L=c["L"], T=c["T"], ks=c["ks"], hs=c["hs"],
                      rel_limit=c["rel_limit"]) for c in unfold_cases]
+        elif name.startswith("conv2d_block_in"):
+            part = "backward" if name.endswith("backward") else "forward"
+            entry["cases"] = [
+                dict(c[part], shape=c["shape"], dtype=c["dtype"], B=c["B"],
+                     T=c["T"], F=c["F"], Ci=c["Ci"], Co=c["Co"])
+                for c in conv_cases]
         elif name.startswith("tcn_block_gln"):
             part = "backward" if name.endswith("backward") else "forward"
             if part == "forward":

@@ -89,7 +89,7 @@ def test_bsrnn_state_dict_names_match_jax_tree():
 def test_get_model_and_unported_options_raise():
     assert get_model("BSRNN") is BSRNN
     with pytest.raises(NotImplementedError):
-        get_model("DPCCN")
+        get_model("BSRNN_Multi")
     with pytest.raises(NotImplementedError):
         BSRNN(joint_training=True)
     with pytest.raises(TypeError):

@@ -12,7 +12,13 @@ import math
 import pytest
 import torch
 
-from wesep_tpu_torch.ops import _build, cuda_lstm, cuda_lstm_unfold, cuda_tcn
+from wesep_tpu_torch.ops import (
+    _build,
+    cuda_conv2d,
+    cuda_lstm,
+    cuda_lstm_unfold,
+    cuda_tcn,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -484,3 +490,107 @@ def test_failed_build_raises_and_nothing_falls_back(cuda, monkeypatch,
     finally:
         cuda_tcn._library.cache_clear()
         _build.load_library.cache_clear()
+
+
+# --- the fused DPCCN Conv2dBlock (conv3x3 -> ELU -> InstanceNorm) ---------
+
+CONV_GRADS = ("dx", "dK", "db")
+# ragged tiles (odd F, T not a tile multiple), several input-channel
+# chunks, 64 and 48 output channels, then DPCCN's widest gated shape
+CONV_SHAPES = [(2, 50, 37, 8, 16), (3, 130, 65, 48, 32),
+               (1, 33, 17, 96, 32), (2, 40, 33, 16, 64),
+               (2, 23, 11, 16, 48), (2, 376, 257, 32, 16)]
+
+
+def _conv_args(device, b, t, f, ci, co, dtype, seed=0):
+    """x in `dtype`, f32 kernel and bias, and a cotangent."""
+    gen = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen)  # noqa: E731
+    args = [(r(b, t, f, ci) * 0.5).to(dtype), r(3, 3, ci, co) * 0.1,
+            r(co) * 0.1]
+    return [a.to(device) for a in args], \
+        (r(b, t, f, co) * 0.1).to(dtype).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,f,ci,co", CONV_SHAPES)
+def test_conv2d_block_matches_plain(cuda, dtype, b, t, f, ci, co):
+    """K5 and K5b against their plain versions. y: 1e-4 of the largest
+    magnitude in f32, 4 bf16 units in the last place in bf16; stats 1e-4.
+    Gradients (the backward from the plain forward's statistics): relative
+    L2 1e-3 (f32) or 2e-2 (bf16: dout is rounded, and an f32 sum that
+    differs in its last bit flips such a rounding now and then), largest
+    error 5e-2 of the largest magnitude."""
+    args, dy = _conv_args(cuda, b, t, f, ci, co, dtype)
+    counts = (cuda_conv2d.conv2d_block_in.launches,
+              cuda_conv2d.conv2d_block_in_backward.launches)
+    y, stats = cuda_conv2d._forward_cuda(*args, 1e-5)
+    torch.cuda.synchronize()
+    ref_y, ref_stats = cuda_conv2d.conv2d_block_in_reference(
+        *args, return_stats=True)
+    assert y.dtype == dtype and y.shape == (b, t, f, co)
+    tol = 1e-4 * ref_y.abs().max().item() if dtype == torch.float32 \
+        else _tolerance(ref_y)
+    assert (y.float() - ref_y.float()).abs().max().item() <= tol
+    assert (stats - ref_stats).abs().max().item() \
+        <= 1e-4 * ref_stats.abs().max().item()
+    got = cuda_conv2d.conv2d_block_in_backward(*args, ref_stats, dy)
+    torch.cuda.synchronize()
+    assert (cuda_conv2d.conv2d_block_in.launches,
+            cuda_conv2d.conv2d_block_in_backward.launches) == tuple(
+                n + 1 for n in counts)
+    want = cuda_conv2d.conv2d_block_in_backward_reference(
+        *args, ref_stats, dy)
+    assert got[0].dtype == dtype
+    assert all(g.dtype == torch.float32 for g in got[1:])
+    l2_limit = 1e-3 if dtype == torch.float32 else 2e-2
+    for name, g, w in zip(CONV_GRADS, got, want):
+        assert g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= l2_limit, (name, _rel_l2(g, w))
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= 5e-2 * max(w.float().abs().max().item(), 1e-6), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_block_repeats_bit_for_bit(cuda, dtype):
+    """No atomics: every sum over blocks is added in a fixed order."""
+    args, dy = _conv_args(cuda, 4, 200, 129, 32, 32, dtype, seed=1)
+    y1, stats = cuda_conv2d._forward_cuda(*args, 1e-5)
+    y2, stats2 = cuda_conv2d._forward_cuda(*args, 1e-5)
+    assert torch.equal(y1, y2) and torch.equal(stats, stats2)
+    first = cuda_conv2d.conv2d_block_in_backward(*args, stats, dy)
+    for _ in range(3):
+        again = cuda_conv2d.conv2d_block_in_backward(*args, stats, dy)
+        for name, a, b in zip(CONV_GRADS, first, again):
+            assert torch.equal(a, b), name
+
+
+def test_conv2d_function_bf16_returns_f32_parameter_gradients(cuda):
+    """The Function on a bf16 stream with f32 parameters: dx in bf16, dK
+    and db f32 in their parameters' shapes, near the plain versions'; no
+    gradient asked, no graph."""
+    args, dy = _conv_args(cuda, 2, 64, 65, 16, 32, torch.bfloat16)
+    leaves = [a.requires_grad_() for a in args]
+    cuda_conv2d.conv2d_block_in(*leaves).backward(dy)
+    assert leaves[0].grad.dtype == torch.bfloat16
+    for leaf in leaves[1:]:
+        assert leaf.grad.dtype == torch.float32
+        assert leaf.grad.shape == leaf.shape
+    plain = [a.detach().clone().requires_grad_() for a in args]
+    cuda_conv2d.conv2d_block_in(*plain, plain=True).backward(dy)
+    for name, a, p in zip(CONV_GRADS, leaves, plain):
+        assert _rel_l2(a.grad, p.grad) <= 2e-2, name
+    with torch.no_grad():
+        assert cuda_conv2d.conv2d_block_in(*args).grad_fn is None
+
+
+def test_conv2d_block_rejects_what_it_cannot_run(cuda):
+    args, _ = _conv_args(cuda, 2, 10, 9, 16, 16, torch.float32)
+    with pytest.raises(TypeError):
+        cuda_conv2d.conv2d_block_in(args[0].half(), *args[1:])
+    bad, _ = _conv_args(cuda, 2, 10, 9, 12, 16, torch.float32)
+    with pytest.raises(ValueError):  # Ci not a multiple of 8
+        cuda_conv2d.conv2d_block_in(*bad)
+    with pytest.raises(ValueError):  # a parameter left on the host
+        cuda_conv2d.conv2d_block_in(args[0], args[1].cpu(), args[2])

@@ -5,7 +5,7 @@ __all__ = ["get_model"]
 
 def get_model(model_name: str):
     """Model class by name (prefix dispatch, as wesep_tpu.models.get_model):
-    BSRNN, ConvTasNet (SpEx+) and TFGridNet are ported."""
+    BSRNN, ConvTasNet (SpEx+), TFGridNet and DPCCN are ported."""
     if model_name.startswith("ConvTasNet"):
         from wesep_tpu_torch.models.convtasnet import ConvTasNet
 
@@ -14,6 +14,10 @@ def get_model(model_name: str):
         from wesep_tpu_torch.models.bsrnn import BSRNN
 
         return BSRNN
+    if model_name.startswith("DPCCN"):
+        from wesep_tpu_torch.models.dpccn import DPCCN
+
+        return DPCCN
     if model_name.startswith("TFGridNet"):
         from wesep_tpu_torch.models.tfgridnet import TFGridNet
 

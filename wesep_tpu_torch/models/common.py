@@ -108,22 +108,23 @@ class Conv1d(nn.Module):
 class Conv2d(nn.Module):
     """2-D convolution on [B, H, W, C] with flax nn.Conv's HWIO `kernel`
     [kh, kw, in, out] and `bias` [out], torch-default init; `padding` is
-    ((top, bottom), (left, right))."""
+    ((top, bottom), (left, right)), `stride` (along H, along W)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size=(3, 3),
-                 padding=((1, 1), (1, 1))):
+                 padding=((1, 1), (1, 1)), stride=(1, 1)):
         super().__init__()
         fan_in = in_channels * kernel_size[0] * kernel_size[1]
         self.kernel = uniform_param(*kernel_size, in_channels, features,
                                     fan_in=fan_in)
         self.bias = uniform_param(features, fan_in=fan_in)
         (self.top, self.bottom), (self.left, self.right) = padding
+        self.stride = tuple(stride)
 
     def forward(self, x):
         x = F.pad(x.permute(0, 3, 1, 2),
                   (self.left, self.right, self.top, self.bottom))
         y = F.conv2d(x, self.kernel.to(x.dtype).permute(3, 2, 0, 1),
-                     self.bias.to(x.dtype))
+                     self.bias.to(x.dtype), stride=self.stride)
         return y.permute(0, 2, 3, 1)
 
 

@@ -165,14 +165,15 @@ def bilstm_layer_wgrad_reference(x, ys, dg):
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(library: str, name: str, n_pointers: int, n_ints: int):
-    """A kernel's C entry point (pointers, ints, stream), built and loaded
-    at first use."""
+def _entry(library: str, name: str, n_pointers: int, n_ints: int,
+           n_floats: int = 0):
+    """A kernel's C entry point (pointers, ints, floats, stream), built and
+    loaded at first use."""
     from wesep_tpu_torch.ops._build import load_library
 
     fn = getattr(load_library(library), name)
     fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * n_ints \
-        + [ctypes.c_void_p]
+        + [ctypes.c_float] * n_floats + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 

@@ -26,6 +26,12 @@ the `kernel` [*k, out, in] of its transposed convolutions `deconv` and
 is unstacked: its leaves under `blocks.block` carry a leading [n_layers]
 axis, and layer i becomes `block_{i}` of the unrolled tree.
 
+DPCCN crosses as a flatten: every conv block keeps its flax `conv.kernel`
+(HWIO, or [*k, out, in] for the transposed ones) and `conv.bias`, the TCN
+blocks their depthwise `dconv1.kernel` [3, 1, C] and `dconv2` Dense. The
+tree is the same on every `conv_impl` (the Pallas route binds an `nn.Conv`
+named `conv` too).
+
 The params are plain nested dicts of arrays (numpy, or anything
 `np.asarray` takes), as `model.init(...)["params"]` or a msgpack bundle's
 `models[0]` gives them; nothing of JAX is imported here.
@@ -43,7 +49,8 @@ import numpy as np
 import torch
 
 __all__ = ["bsrnn_state_dict_from_jax", "convtasnet_state_dict_from_jax",
-           "tfgridnet_state_dict_from_jax", "load_jax_params",
+           "tfgridnet_state_dict_from_jax", "dpccn_state_dict_from_jax",
+           "load_jax_params",
            "optimizer_state_from_jax"]
 
 
@@ -98,6 +105,11 @@ def tfgridnet_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     `scan_layers` tree's stacked `blocks.block`) -> port TFGridNet
     state_dict (f32)."""
     return _unstack_scan_layers(convtasnet_state_dict_from_jax(params))
+
+
+def dpccn_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """JAX DPCCN params (nested dict) -> port DPCCN state_dict (f32)."""
+    return convtasnet_state_dict_from_jax(params)
 
 
 def load_jax_params(model: torch.nn.Module, params,
