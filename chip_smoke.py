@@ -79,10 +79,25 @@ pass):
    the kernels against those through the plain versions, and the time and
    peak memory of a train step on both routes.
 
+12. the pBSRNN on WESEP_LSTM_LAYER=0: phases 4 and 5 again with every
+   BiLSTM on the two-kernel layer (the projection a cuBLAS product, the
+   recurrence K2, its adjoint and dWh K2b): 12 K2 launches per forward and
+   none of the fused layer's, 12 of each K2b kernel per train step; the
+   forward and a train step also timed on the default route in the same
+   process, in turns;
+13. the unidirectional pBSRNN (`--set
+   model_args.tse_model.use_bidirectional=false`): phases 4 and 5 again
+   with 12 K1 launches per forward and 12 of each K1b kernel per train
+   step.
+
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
 serving (2 rows, f32) and training (8 rows, bf16) size, with cuDNN's conv
-alone timed beside it as a note.
+alone timed beside it as a note; and the two-kernel layers, both
+directions (K2, K2b) and one (K1, K1b), at the pBSRNN's band and comm
+shapes: the forward at the serving size in f32, the forward, serial
+adjoint and weight gradients at the training size in bf16, with cuDNN's
+LSTM and a cuBLAS product as yardsticks.
 
 The last lines are the card line of nvidia-smi, one JSON object describing
 the kernels, and {"ok": true, "device": {...}}.
@@ -221,6 +236,19 @@ def time_ms(fn, warmup=2, runs=10):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def library_wgrad_ms(a_mats, dg):
+    """The cuBLAS yardsticks of a weight-gradient kernel, a_mats one [rows,
+    K] per direction and dg [dirs, ..., 4H], each timed whole: (one batched
+    product a^T @ dg over every direction's operands, the one PyTorch call
+    for the function; one product per direction, back to back)."""
+    a = torch.stack(a_mats)
+    g = dg.reshape(a.shape[0], a.shape[1], -1)
+    batched = time_ms(lambda: torch.bmm(a.transpose(1, 2), g), 1, 5)
+    apart = time_ms(lambda: [torch.matmul(a_d.t(), g_d)
+                             for a_d, g_d in zip(a, g)], 1, 5)
+    return batched, apart
 
 
 def host_ms(fn, runs=5):
@@ -417,7 +445,8 @@ def check_training_kernels(name, t_len, batch, dtype, d=D, h=H):
         lambda: k.bilstm_layer_wgrad_reference(x, ref_ys, dg), 1, 3)
 
     # library yardsticks, never called by the port: cuDNN's LSTM forward
-    # and backward with the same weights, and one cuBLAS product for dW
+    # and backward with the same weights, and one batched cuBLAS product
+    # over both directions for dW
     xg = x.clone().requires_grad_()
     lib_y = lstm(xg)[0]
     lib_params = list(lstm.parameters())
@@ -435,9 +464,9 @@ def check_training_kernels(name, t_len, batch, dtype, d=D, h=H):
     with torch.inference_mode():
         lib_fwd_ms = time_ms(lambda: lstm(x), 1, 5)
     del lib_y, lib_grads
-    a_mat = torch.cat([x, ref_ys[..., :h]], dim=-1).reshape(-1, d + h)
-    dg0 = dg[0].reshape(-1, 4 * h)
-    lib_wgrad_ms = time_ms(lambda: torch.matmul(a_mat.t(), dg0), 1, 5) * 2
+    lib_wgrad_ms, lib_apart_ms = library_wgrad_ms(
+        [torch.cat([x, ref_ys[..., i * h:(i + 1) * h]], dim=-1)
+         .reshape(-1, d + h) for i in (0, 1)], dg)
 
     (f_ms, f_by), (s_ms, s_by), (w_ms, w_by) = backward_bounds(
         t_len, batch, dtype, d, h)
@@ -463,6 +492,7 @@ def check_training_kernels(name, t_len, batch, dtype, d=D, h=H):
                   "max_abs_err": (dw - wgrad_ref).abs().max().item(),
                   "ms": wgrad_ms, "plain_ms": wgrad_plain_ms,
                   "library_ms": lib_wgrad_ms,
+                  "library_per_direction_ms": lib_apart_ms,
                   "bound_ms": w_ms, "bound_by": w_by},
     }
     log("kernels at training shape", json.dumps(case))
@@ -476,6 +506,164 @@ def check_training_kernels(name, t_len, batch, dtype, d=D, h=H):
     if dtype == torch.float32 and not (err_lib_dx <= 1e-3
                                        and err_lib_dwx <= 1e-3):
         raise AssertionError(f"plain backward disagrees with cuDNN: {case}")
+    return case
+
+
+def fused_bounds(t_len, batch, dtype, dirs, h=H):
+    """Least times of the two-kernel layer's kernels on the card: the
+    forward without and with the cell states, the serial adjoint and the
+    weight gradients. Operations: 2 * T * B * H * 4H per direction and
+    product (the forward's h @ Wh; the adjoint's recompute of it and its
+    dh); bytes: every input read once, every output written once, the
+    4H-wide xw and dxw streams included (dxw is an output of the adjoint
+    and an input of the weight gradients)."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    rows, h4 = t_len * batch, 4 * h
+    product = 2 * dirs * rows * h * h4
+    xw_b, wh_b = dirs * rows * h4 * size, dirs * h * h4 * size
+    y_b, cs_b = rows * dirs * h * size, rows * dirs * h * 4
+    serve = _bound(product, xw_b + wh_b + y_b, dtype)
+    forward = _bound(product, xw_b + wh_b + y_b + cs_b, dtype)
+    serial = _bound(2 * product, xw_b + 2 * wh_b + y_b + cs_b + y_b + xw_b
+                    + (batch + 7) // 8 * dirs * h4 * 4, dtype)
+    splits = max(1, min(8, -(-rows // 4096)))
+    wgrad = _bound(product, y_b + xw_b + splits * dirs * h * h4 * 4, dtype)
+    return serve, forward, serial, wgrad
+
+
+def fused_names(dirs):
+    return LSTM_ROUTES["two_kernel" if dirs == 2 else "unidirectional"]
+
+
+def check_fused_kernels(name, t_len, batch, dtype, dirs, train):
+    """The two-kernel layer's kernels against their plain versions at one
+    pBSRNN shape: K2 (dirs 2, `bilstm_fused`) or K1 (dirs 1, `lstm_fused`,
+    the forward walk of the unidirectional model). The forward at a serving
+    shape; at a training shape the forward with the cell states, the serial
+    adjoint (on the plain forward's saved tensors, so only the adjoint
+    differs) and the weight gradients (on the adjoint's own dxw). xw is
+    projected as the layer projects it, from torch LSTM weights. Yardsticks,
+    never called by the port: cuDNN's LSTM (bidirectional or not) forward
+    and backward, and one batched cuBLAS product h_prev^T @ dxw over every
+    direction.
+
+    Limits: the forward's rule for y (1e-4 in f32, 4 bf16 units in the last
+    place at the largest |y| in bf16) and rel. L2 <= 1e-4 (f32) / 2e-2
+    (bf16) for y and every gradient, with each gradient's max abs error
+    within the same fraction of its largest magnitude."""
+    from wesep_tpu_torch.ops import cuda_lstm_fused as k
+
+    torch.manual_seed(SEED)
+    lstm = torch.nn.LSTM(D, H, batch_first=True, bidirectional=dirs == 2)
+    lstm = lstm.cuda().to(dtype)
+    lstm.flatten_parameters()
+    gen = torch.Generator().manual_seed(SEED)
+    x = (torch.randn(batch, t_len, D, generator=gen) * 0.2).cuda().to(dtype)
+    sfx = ("", "_reverse")[:dirs]
+    p = {n + s: getattr(lstm, n + s).detach().float() for s in sfx
+         for n in ("weight_ih_l0", "weight_hh_l0", "bias_ih_l0",
+                   "bias_hh_l0")}
+    xw = torch.stack([k.project(x, p["weight_ih_l0" + s].t(),
+                                p["bias_ih_l0" + s] + p["bias_hh_l0" + s])
+                      for s in sfx])
+    whs = [p["weight_hh_l0" + s].t().contiguous() for s in sfx]
+    # the wrappers of both layers take (xw, *whs, ...)
+    fwd, bwd, wgrad, ref_fwd, ref_bwd = (
+        (k.bilstm_fused_forward, k.bilstm_fused_backward,
+         k.bilstm_fused_wgrad, k.bilstm_fused_reference,
+         k.bilstm_fused_backward_reference) if dirs == 2 else
+        (k.lstm_fused_forward, k.lstm_fused_backward, k.lstm_fused_wgrad,
+         k.lstm_fused_reference, k.lstm_fused_backward_reference))
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    serve_b, fwd_b, serial_b, wgrad_b = fused_bounds(t_len, batch, dtype,
+                                                     dirs)
+    names = fused_names(dirs)
+    case = {"shape": ("train_" if train else "") + name,
+            "dtype": str(dtype).replace("torch.", ""), "dirs": dirs,
+            "T": t_len, "B": batch, "H": H, "rel_limit": limit}
+
+    ys, cs = fwd(xw, *whs, with_cs=train)
+    torch.cuda.synchronize()
+    ref = ref_fwd(xw, *whs, return_cs=train)
+    ref_ys, ref_cs = ref if train else (ref, None)
+    err_y = (ys.float() - ref_ys.float()).abs().max().item()
+    rel_y = rel_l2(ys, ref_ys)
+    with torch.inference_mode():
+        lib = lstm(x)[0]
+    bound_ms, bound_by = fwd_b if train else serve_b
+    case["forward"] = {
+        "name": names[0], "max_abs_err": err_y,
+        "tolerance": tolerance(ref_ys), "rel_l2_err": rel_y,
+        "max_abs_err_vs_cudnn": (ys.float() - lib.float()).abs().max()
+        .item(),
+        "ms": time_ms(lambda: fwd(xw, *whs, with_cs=train), 1, 5),
+        "plain_ms": time_ms(lambda: ref_fwd(xw, *whs, return_cs=train), 0,
+                            2),
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    with torch.inference_mode():
+        case["forward"]["library_ms"] = time_ms(lambda: lstm(x), 1, 5)
+    del lib
+    ok = (err_y <= tolerance(ref_ys) and rel_y <= limit
+          and torch.isfinite(ys).all())
+    if train:
+        err_c = rel_err(cs, ref_cs)
+        case["forward"]["cs_rel_err"] = err_c
+        ok = ok and err_c <= (limit if dtype == torch.float32 else 5e-2)
+        dys = (torch.randn(batch, t_len, dirs * H, generator=gen) * 0.1) \
+            .cuda().to(dtype)
+        dxw, db = bwd(xw, *whs, ref_ys, ref_cs, dys)
+        dwh = wgrad(ref_ys, dxw)
+        torch.cuda.synchronize()
+        want_dxw, want_dwh, want_db = ref_bwd(xw, *whs, ref_ys, ref_cs, dys)
+        got = {"dxw": dxw, "db": db, "dwh": dwh}
+        want = {"dxw": want_dxw, "db": want_db, "dwh": want_dwh}
+        rel = {n: rel_l2(got[n], want[n]) for n in got}
+        peak = {n: rel_err(got[n], want[n]) for n in got}
+        dwh_ref = k.lstm_fused_wgrad_reference(ref_ys, dxw)
+        err_wgrad = rel_err(dwh, dwh_ref)
+        ok = ok and all(v <= limit for v in list(rel.values())
+                        + list(peak.values())) and err_wgrad <= 1e-4 \
+            and all(torch.isfinite(t).all() for t in got.values())
+        # yardsticks: cuDNN's backward on its own forward, and cuBLAS's
+        # h_prev^T @ dxw over every direction in one batched product
+        xg = x.clone().requires_grad_()
+        lib_y = lstm(xg)[0]
+        lib_params = list(lstm.parameters())
+        lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            lib_y, [xg] + lib_params, dys, retain_graph=True), 1, 5)
+        del lib_y
+        zero = ref_ys.new_zeros(batch, 1, H)
+        h_prev = [torch.cat([zero, ref_ys[:, :-1, :H]], dim=1)]
+        if dirs == 2:
+            h_prev.append(torch.cat([ref_ys[:, 1:, H:], zero], dim=1))
+        lib_wgrad_ms, lib_apart_ms = library_wgrad_ms(
+            [h.reshape(-1, H) for h in h_prev], dxw)
+        del h_prev
+        case["backward"] = {
+            "name": names[1], "rel_l2_err": {n: rel[n] for n in ("dxw",
+                                                                 "db")},
+            "max_abs_err": (dxw.float() - want_dxw.float()).abs().max()
+            .item(),
+            "rel_err": {n: peak[n] for n in ("dxw", "db")},
+            "ms": time_ms(lambda: bwd(xw, *whs, ref_ys, ref_cs, dys), 1, 5),
+            "plain_ms": time_ms(
+                lambda: ref_bwd(xw, *whs, ref_ys, ref_cs, dys), 0, 2),
+            "library_ms": lib_bwd_ms, "bound_ms": serial_b[0],
+            "bound_by": serial_b[1],
+            "dxw_bytes": dxw.numel() * dxw.element_size()}
+        case["wgrad"] = {
+            "name": names[2], "rel_l2_err": rel["dwh"],
+            "rel_err": peak["dwh"], "vs_plain_product": err_wgrad,
+            "max_abs_err": (dwh - want_dwh).abs().max().item(),
+            "ms": time_ms(lambda: wgrad(ref_ys, dxw), 1, 5),
+            "plain_ms": time_ms(
+                lambda: k.lstm_fused_wgrad_reference(ref_ys, dxw), 1, 3),
+            "library_ms": lib_wgrad_ms,
+            "library_per_direction_ms": lib_apart_ms, "bound_ms": wgrad_b[0],
+            "bound_by": wgrad_b[1]}
+    log(f"kernels {names[0][:-len('_forward')]}", json.dumps(case))
+    if not ok:
+        raise AssertionError(f"{names[0]} kernels disagree: {case}")
     return case
 
 
@@ -537,20 +725,53 @@ def forward_steps(lengths):
     return sum(math.ceil(r / ROWS_PER_STEP) for r in rows.values())
 
 
-def serve(root):
-    """Phase 4: the v1 pBSRNN through bin/infer on the card."""
+# The pBSRNN's LSTM routes: the environment and the overrides (as the
+# entry points' `--set` takes them) that choose each; the wrappers each
+# launches are LSTM_ROUTES[route]
+BSRNN_ROUTES = {
+    "layer": ({}, []),
+    "two_kernel": ({"WESEP_LSTM_LAYER": "0"}, []),
+    "unidirectional": ({}, ["model_args.tse_model.use_bidirectional=false"]),
+}
+
+
+def bsrnn_route(route):
+    """(environment, overrides, model arguments) of a pBSRNN route."""
+    from wesep_tpu_torch.utils.config import parse_override_args
+
+    env, overrides = BSRNN_ROUTES[route]
+    tse = parse_override_args(overrides).get("model_args", {}) \
+        .get("tse_model", {})
+    return env, overrides, dict(V1_MODEL_ARGS, **tse)
+
+
+def set_env(env):
+    """Set the variables of `env` (None removes one); return the old
+    values, for set_env again."""
+    old = {key: os.environ.get(key) for key in env}
+    for key, value in env.items():
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
+    return old
+
+
+def serve(root, route="layer"):
+    """Phase 4 (and 12, 13 on the other routes): the v1 pBSRNN through
+    bin/infer on the card."""
     from wesep_tpu_torch.bin.infer import infer
     from wesep_tpu_torch.data.wav_io import read_wav
     from wesep_tpu_torch.models.bsrnn import BSRNN
     from wesep_tpu_torch.models.common import LSTM
-    from wesep_tpu_torch.ops.cuda_lstm import bilstm_layer
     from wesep_tpu_torch.train.checkpoint import save_checkpoint
 
+    env, overrides, model_args = bsrnn_route(route)
     rng = np.random.default_rng(SEED)
     paths, lengths = write_shard(root, rng, "test", SHARD_SECONDS)
     data = {f"test_{k}": v for k, v in paths.items() if k != "utt2spk"}
     torch.manual_seed(SEED)
-    model = BSRNN(**V1_MODEL_ARGS)
+    model = BSRNN(**model_args)
     ckpt = os.path.join(root, "avg_model.pt")
     save_checkpoint(ckpt, [model.state_dict()])
     config = {
@@ -565,70 +786,90 @@ def serve(root):
         "device": "cuda",
         **data,
     }
+    tag = f"serve ({route} route)"
+    old_env = set_env(env)
+    try:
+        steps = forward_steps(lengths)
+        zero_counts()
+        t0 = time.perf_counter()
+        avg_sisnr, avg_sisnri = infer(config, overrides=overrides)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        launches = counts[LSTM_ROUTES[route][0]]
+        audio_s = 2 * sum(lengths) / 16000.0
+        log(f"{tag}: {2 * len(lengths)} requests (mixture x target) in "
+            f"{steps} forward steps, {wall:.3f} s wall, RTF "
+            f"{wall / audio_s:.5f}, avg SI-SNR {avg_sisnr:.3f} dB, avg "
+            f"SI-SNRi {avg_sisnri:.3f} dB (random weights: shows the chain "
+            "ran, not quality)")
+        per_forward = 2 * V1_MODEL_ARGS["num_repeat"]  # band + comm per BSNet
+        log(f"{tag}: {LSTM_ROUTES[route][0]} launches {launches} (expected "
+            f"{per_forward} x {steps}, no other LSTM kernel)")
+        expect_counts(counts, per_forward * steps, 0, route, tag)
+        if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
+            raise AssertionError("non-finite SI-SNR from infer")
+        audio = os.path.join(root, "exp", "audio")
+        wavs = sorted(n for n in os.listdir(audio) if n.endswith(".wav"))
+        if len(wavs) != 2 * len(lengths):
+            raise AssertionError(f"{len(wavs)} outputs for "
+                                 f"{2 * len(lengths)} requests")
+        for name, n in zip(wavs[::2], lengths):
+            wav, _ = read_wav(os.path.join(audio, name))
+            if wav.shape != (1, n) or not np.isfinite(wav).all():
+                raise AssertionError(f"bad output {name}: {wav.shape}")
 
-    steps = forward_steps(lengths)
-    bilstm_layer.launches = 0
-    t0 = time.perf_counter()
-    avg_sisnr, avg_sisnri = infer(config)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = bilstm_layer.launches
-    audio_s = 2 * sum(lengths) / 16000.0
-    log(f"serve: {2 * len(lengths)} requests (mixture x target) in {steps} "
-        f"forward steps, {wall:.3f} s wall, RTF {wall / audio_s:.5f}, "
-        f"avg SI-SNR {avg_sisnr:.3f} dB, avg SI-SNRi {avg_sisnri:.3f} dB "
-        "(random weights: shows the chain ran, not quality)")
-    per_forward = 2 * V1_MODEL_ARGS["num_repeat"]  # band + comm per BSNet
-    log(f"serve: bilstm_layer launches {launches} (expected {per_forward} "
-        f"x {steps})")
-    if launches != per_forward * steps:
-        raise AssertionError(f"{launches} kernel launches, expected "
-                             f"{per_forward * steps}")
-    if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
-        raise AssertionError("non-finite SI-SNR from infer")
-    audio = os.path.join(root, "exp", "audio")
-    wavs = sorted(n for n in os.listdir(audio) if n.endswith(".wav"))
-    if len(wavs) != 2 * len(lengths):
-        raise AssertionError(f"{len(wavs)} outputs for {2 * len(lengths)} "
-                             "requests")
-    for name, n in zip(wavs[::2], lengths):
-        wav, _ = read_wav(os.path.join(audio, name))
-        if wav.shape != (1, n) or not np.isfinite(wav).all():
-            raise AssertionError(f"bad output {name}: {wav.shape}")
-
-    # kernel forward vs plain-LSTM forward of the same model, f32
-    model = model.cuda().eval()
-    gen = torch.Generator().manual_seed(SEED + 1)
-    mix = (torch.randn(ROWS_PER_STEP, 48000, generator=gen) * 0.1).cuda()
-    emb = torch.randn(ROWS_PER_STEP, 256, generator=gen).cuda()
-    lstms = [m for m in model.modules() if isinstance(m, LSTM)]
-    with torch.inference_mode():
-        est = model(mix, emb)[0]
-        step_ms = time_ms(lambda: model(mix, emb), warmup=1, runs=5)
-        for m in lstms:
-            m.plain = True
-        try:
-            est_plain = model(mix, emb)[0]
-            plain_step_ms = time_ms(lambda: model(mix, emb), 1, 3)
-        finally:
+        # kernel forward vs plain-LSTM forward of the same model, f32
+        model = model.cuda().eval()
+        gen = torch.Generator().manual_seed(SEED + 1)
+        mix = (torch.randn(ROWS_PER_STEP, 48000, generator=gen) * 0.1).cuda()
+        emb = torch.randn(ROWS_PER_STEP, 256, generator=gen).cuda()
+        lstms = [m for m in model.modules() if isinstance(m, LSTM)]
+        with torch.inference_mode():
+            zero_counts()
+            est = model(mix, emb)[0]
+            expect_counts(read_counts(), per_forward, 0, route,
+                          f"one forward ({route} route)")
+            step_ms = time_ms(lambda: model(mix, emb), warmup=1, runs=5)
             for m in lstms:
-                m.plain = False
+                m.plain = True
+            try:
+                est_plain = model(mix, emb)[0]
+                plain_step_ms = time_ms(lambda: model(mix, emb), 1, 3)
+            finally:
+                for m in lstms:
+                    m.plain = False
+            if route == "two_kernel":
+                # the default route's kernels on the same model, in turns
+                set_env({"WESEP_LSTM_LAYER": None})
+                layer_step_ms = time_ms(lambda: model(mix, emb), 1, 5)
+                set_env(env)
+                again_ms = time_ms(lambda: model(mix, emb), 1, 5)
+    finally:
+        set_env(old_env)
     if not torch.isfinite(est).all() or est.shape != mix.shape:
         raise AssertionError("kernel forward is not finite / wrong shape")
     rel = ((est - est_plain).norm() / est_plain.norm()).item()
-    log(f"serve: forward [2 x 3 s] {step_ms:.3f} ms/step with the kernel, "
+    log(f"{tag}: forward [2 x 3 s] {step_ms:.3f} ms/step with the kernel, "
         f"{plain_step_ms:.3f} ms/step with the plain LSTM; "
         f"{2 * 3.0 / (step_ms / 1e3):.1f} audio-s/s, RTF "
         f"{step_ms / 1e3 / 6.0:.5f}; kernel vs plain rel L2 {rel:.3e} "
         "(limit 1e-3)")
     if not rel <= 1e-3:
         raise AssertionError(f"kernel forward differs from plain: {rel}")
-    return launches, {
-        "requests": 2 * len(lengths), "steps": steps, "wall_s": wall,
-        "rtf_wall": wall / audio_s, "step_ms": step_ms,
+    summary = {
+        "route": route, "requests": 2 * len(lengths), "steps": steps,
+        "wall_s": wall, "rtf_wall": wall / audio_s, "step_ms": step_ms,
         "plain_step_ms": plain_step_ms, "rel_l2_vs_plain": rel,
         "avg_sisnri": avg_sisnri,
     }
+    if route == "two_kernel":
+        summary.update(step_ms_again=again_ms,
+                       layer_route_step_ms=layer_step_ms)
+        log(f"{tag}: forward in turns, two-kernel route {step_ms:.3f} ms, "
+            f"default (fused layer) route {layer_step_ms:.3f} ms, two-kernel "
+            f"route {again_ms:.3f} ms")
+    return launches, summary
 
 
 def rows_loss(text):
@@ -646,29 +887,19 @@ def param_grads(model, mix, emb, target):
     return dict(zip(names, torch.autograd.grad(loss, params)))
 
 
-def train_phase(root):
-    """Phase 5: the v1 pBSRNN through bin/train on the card."""
-    from wesep_tpu_torch.bin.train import train
+def train_phase(root, route="layer"):
+    """Phase 5 (and 12, 13 on the other routes): the v1 pBSRNN through
+    bin/train on the card."""
     from wesep_tpu_torch.models.bsrnn import BSRNN
-    from wesep_tpu_torch.models.common import LSTM
-    from wesep_tpu_torch.ops import cuda_lstm as k
-    from wesep_tpu_torch.train.checkpoint import (
-        load_checkpoint,
-        save_checkpoint,
-    )
-    from wesep_tpu_torch.train.losses import parse_loss
-    from wesep_tpu_torch.train.schedulers import exponential_decrease
-    from wesep_tpu_torch.train.trainer import (
-        TrainState,
-        make_optimizer,
-        make_train_step,
-    )
+    from wesep_tpu_torch.train.checkpoint import save_checkpoint
 
+    env, overrides, model_args = bsrnn_route(route)
+    tag = f"train ({route} route)"
     rng = np.random.default_rng(SEED + 2)
     tr, _ = write_shard(root, rng, "train", [4.0] * (2 * TRAIN_BATCH))
     va, _ = write_shard(root, rng, "dev", [3.5] * TRAIN_BATCH)
     torch.manual_seed(SEED)
-    init = BSRNN(**V1_MODEL_ARGS)
+    init = BSRNN(**model_args)
     init_path = os.path.join(root, "init.ckpt")
     save_checkpoint(init_path, [init.state_dict()])
     # the values of examples/librimix/tse/v1/confs/bsrnn.yaml; one epoch of
@@ -703,28 +934,51 @@ def train_phase(root):
             "warm_from_zero": False, "warm_up_epoch": 0}},
         "seed": 42,
     }
-    counters = (k.bilstm_layer, k.bilstm_layer_backward, k.bilstm_layer_wgrad)
-    for c in counters:
-        c.launches = 0
+    old_env = set_env(env)
+    try:
+        return _train_route(route, tag, config, overrides, model_args, init,
+                            env)
+    finally:
+        set_env(old_env)
+
+
+def _train_route(route, tag, config, overrides, model_args, init, env):
+    """train_phase with the route's environment set: bin/train, its
+    checkpoint, whole-model gradients against the plain LSTM's, the time
+    and peak memory of a train step."""
+    from wesep_tpu_torch.bin.train import train
+    from wesep_tpu_torch.models.bsrnn import BSRNN
+    from wesep_tpu_torch.models.common import LSTM
+    from wesep_tpu_torch.train.checkpoint import load_checkpoint
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    names = LSTM_ROUTES[route]
+    zero_counts()
     t0 = time.perf_counter()
-    state = train(config)
+    state = train(config, overrides=overrides)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = [c.launches for c in counters]
+    counts = read_counts()
+    launches = [counts[n] for n in names]
     per_pass = 2 * V1_MODEL_ARGS["num_repeat"]  # band + comm per BSNet
     val_steps = 1  # 16 validation enrollments / 2 / batch_size 8
     expected = [per_pass * (TRAIN_STEPS + val_steps), per_pass * TRAIN_STEPS,
                 per_pass * TRAIN_STEPS]
-    log(f"train: {TRAIN_STEPS} steps + {val_steps} validation step through "
-        f"bin/train in {wall:.3f} s wall; launches forward / backward / "
-        f"wgrad {launches} (expected {expected})")
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches}, expected {expected}")
+    log(f"{tag}: {TRAIN_STEPS} steps + {val_steps} validation step through "
+        f"bin/train in {wall:.3f} s wall; launches {' / '.join(names)} "
+        f"{launches} (expected {expected}, no other LSTM kernel)")
+    expect_counts(counts, expected[0], expected[1], route, tag)
     with open(os.path.join(config["exp_dir"], "train.log")) as f:
         text = f.read()
     losses = rows_loss(text)
     epoch = re.findall(r"Epoch 1 train_loss (\S+) val_loss (\S+)", text)
-    log(f"train: running mean loss per step {losses}, epoch {epoch}")
+    log(f"{tag}: running mean loss per step {losses}, epoch {epoch}")
     if len(losses) != TRAIN_STEPS or len(epoch) != 1 or not all(
             math.isfinite(v) for v in losses + [float(e) for e in epoch[0]]):
         raise AssertionError("missing or non-finite training losses")
@@ -742,7 +996,7 @@ def train_phase(root):
             and set(bundle["opt_states"][0]["mu"]) == set(moved)
             and os.path.islink(os.path.join(models, "final_checkpoint.ckpt"))):
         raise AssertionError("checkpoint_1.ckpt lacks optimizer state or step")
-    served = BSRNN(**V1_MODEL_ARGS)  # as bin/infer loads it
+    served = BSRNN(**model_args)  # as bin/infer loads it
     served.load_state_dict(bundle["models"][0])
     for n, p in served.named_parameters():
         if not torch.equal(p.detach(), state.model.state_dict()[n].cpu()):
@@ -753,7 +1007,7 @@ def train_phase(root):
     # LSTM: f32, 2 rows x 3 s, relative L2 per parameter (limit 1e-3: the
     # two paths differ only in the order of f32 sums)
     gen = torch.Generator().manual_seed(SEED + 3)
-    model = BSRNN(**V1_MODEL_ARGS)
+    model = BSRNN(**model_args)
     model.load_state_dict(init.state_dict())
     model = model.cuda().train()
     mix = (torch.randn(2, CHUNK, generator=gen) * 0.1).cuda()
@@ -769,7 +1023,7 @@ def train_phase(root):
     rel = {n: ((got[n] - want[n]).norm() / want[n].norm().clamp_min(1e-20))
            .item() for n in want}
     worst = max(rel, key=rel.get)
-    log(f"train: gradients of {len(rel)} parameters, kernels vs plain LSTM "
+    log(f"{tag}: gradients of {len(rel)} parameters, kernels vs plain LSTM "
         f"(f32): worst relative L2 {rel[worst]:.3e} at {worst} (limit 1e-3)")
     if not rel[worst] <= 1e-3:
         raise AssertionError(f"gradients differ: {worst} {rel[worst]}")
@@ -790,26 +1044,47 @@ def train_phase(root):
                            compute_dtype=torch.bfloat16)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step(tstate, batch)
+    expect_counts(read_counts(), per_pass, per_pass, route,
+                  f"one train step ({route} route)")
     step_ms = time_ms(lambda: step(tstate, batch), warmup=1, runs=5)
     peak = torch.cuda.max_memory_allocated()
-    for m in lstms:
-        m.plain = True
-    plain_step_ms = time_ms(lambda: step(tstate, batch), warmup=0, runs=1)
-    for m in lstms:
-        m.plain = False
     audio = rows * CHUNK / 16000.0
-    log(f"train: step [16 rows x 3 s, bf16] {step_ms:.3f} ms with the "
-        f"kernels, {plain_step_ms:.3f} ms with the plain LSTM; "
-        f"{audio / (step_ms / 1e3):.1f} audio-s/s; peak memory "
-        f"{peak / 2 ** 30:.2f} GiB")
-    return dict(zip(("bilstm_layer", "bilstm_layer_backward",
-                     "bilstm_layer_wgrad"), launches)), {
-        "steps": TRAIN_STEPS, "val_steps": val_steps, "wall_s": wall,
-        "running_mean_loss": losses, "step_ms": step_ms,
-        "plain_step_ms": plain_step_ms,
+    summary = {
+        "route": route, "steps": TRAIN_STEPS, "val_steps": val_steps,
+        "wall_s": wall, "running_mean_loss": losses, "step_ms": step_ms,
         "audio_s_per_s": audio / (step_ms / 1e3),
         "peak_memory_bytes": peak, "grad_rel_l2_worst": rel[worst],
     }
+    if route == "layer":
+        for m in lstms:
+            m.plain = True
+        summary["plain_step_ms"] = time_ms(lambda: step(tstate, batch),
+                                           warmup=0, runs=1)
+        for m in lstms:
+            m.plain = False
+        other = ""
+    elif route == "two_kernel":
+        # the default route's kernels on the same model and batch, in turns:
+        # two-kernel, fused layer, fused layer, two-kernel
+        set_env({"WESEP_LSTM_LAYER": None})
+        layer_ms = [time_ms(lambda: step(tstate, batch), 1, 5)
+                    for _ in range(2)]
+        set_env(env)
+        summary["step_ms_again"] = time_ms(lambda: step(tstate, batch), 1, 5)
+        summary["layer_route_step_ms"] = layer_ms
+        other = (f"; default (fused layer) route {layer_ms[0]:.3f} / "
+                 f"{layer_ms[1]:.3f} ms, this route again "
+                 f"{summary['step_ms_again']:.3f} ms")
+    else:
+        other = ""
+    if "plain_step_ms" in summary:
+        other += f", {summary['plain_step_ms']:.3f} ms with the plain LSTM"
+    log(f"{tag}: step [16 rows x 3 s, bf16] {step_ms:.3f} ms with the "
+        f"kernels{other}; {audio / (step_ms / 1e3):.1f} audio-s/s; peak "
+        f"memory {peak / 2 ** 30:.2f} GiB")
+    return dict(zip(names, launches)), summary
 
 
 TCN_GRADS = ("dx", "db1_eff", "dw1", "dp0", "dkd", "dbd", "dg0w", "dg0b",
@@ -1465,12 +1740,11 @@ def check_unfold_kernels(name, rows, length, dtype, ks=GRID_KS, hs=1):
     lib_fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
         lstm(ug)[0], [ug] + lib_params, dys), 1, 5)
     del lib_y
-    # and one cuBLAS product per direction for dW over the materialised
-    # frames
-    a_mat = torch.cat([u, ref_ys[..., :h]], dim=-1).reshape(-1, d + h)
-    dg0 = dg[0].reshape(-1, 4 * h)
-    lib_wgrad_ms = time_ms(lambda: torch.matmul(a_mat.t(), dg0), 1, 5) * 2
-    del a_mat
+    # and one batched cuBLAS product over both directions for dW over the
+    # materialised frames
+    lib_wgrad_ms, lib_apart_ms = library_wgrad_ms(
+        [torch.cat([u, ref_ys[..., i * h:(i + 1) * h]], dim=-1)
+         .reshape(-1, d + h) for i in (0, 1)], dg)
 
     x_elems = rows * length * GRID_C
     bound = bilstm_bound(frames, rows, dtype, d, h, x_elems=x_elems)
@@ -1498,7 +1772,8 @@ def check_unfold_kernels(name, rows, length, dtype, ks=GRID_KS, hs=1):
                               "vs_plain_product": err_wgrad},
                   "max_abs_err": (dw - ref_dw).abs().max().item(),
                   "ms": wgrad_ms, "plain_ms": wgrad_plain_ms,
-                  "library_ms": lib_wgrad_ms, "bound_ms": w_ms,
+                  "library_ms": lib_wgrad_ms,
+                  "library_per_direction_ms": lib_apart_ms, "bound_ms": w_ms,
                   "bound_by": w_by},
     }
     log("kernels unfold-fused", json.dumps(case))
@@ -1529,17 +1804,29 @@ def set_route(unfold):
         os.environ.pop("WESEP_LSTM_UNFOLD", None)
 
 
+# every LSTM route's wrappers: forward, serial adjoint, weight gradients
+LSTM_ROUTES = {
+    "layer": ("bilstm_layer", "bilstm_layer_backward", "bilstm_layer_wgrad"),
+    "unfold": ("bilstm_layer_unfold", "bilstm_layer_unfold_backward",
+               "bilstm_layer_unfold_wgrad"),
+    "two_kernel": ("bilstm_fused_forward", "bilstm_fused_backward",
+                   "bilstm_fused_wgrad"),
+    "unidirectional": ("lstm_fused_forward", "lstm_fused_backward",
+                       "lstm_fused_wgrad"),
+}
+
+
 def lstm_counters():
-    """Every BiLSTM wrapper's counter: K0, K0b x2, K3, K3b x2."""
+    """Every LSTM wrapper's counter: K0, K0b x2, K3, K3b x2, K2, K2b x2,
+    K1, K1b x2."""
     from wesep_tpu_torch.ops import cuda_lstm as k0
+    from wesep_tpu_torch.ops import cuda_lstm_fused as k12
     from wesep_tpu_torch.ops import cuda_lstm_unfold as k3
 
-    return {"bilstm_layer": k0.bilstm_layer,
-            "bilstm_layer_backward": k0.bilstm_layer_backward,
-            "bilstm_layer_wgrad": k0.bilstm_layer_wgrad,
-            "bilstm_layer_unfold": k3.bilstm_layer_unfold,
-            "bilstm_layer_unfold_backward": k3.bilstm_layer_unfold_backward,
-            "bilstm_layer_unfold_wgrad": k3.bilstm_layer_unfold_wgrad}
+    return {name: getattr(module, name)
+            for module, route in ((k0, "layer"), (k3, "unfold"),
+                                  (k12, "two_kernel"), (k12, "unidirectional"))
+            for name in LSTM_ROUTES[route]}
 
 
 def zero_counts():
@@ -1551,14 +1838,13 @@ def read_counts():
     return {n: fn.launches for n, fn in lstm_counters().items()}
 
 
-def expect_counts(got, forward, backward, unfold, what):
+def expect_counts(got, forward, backward, route, what):
     """Launch counts of a run: `forward` forward launches and `backward`
-    launches of each backward kernel on the route taken, none on the
-    other."""
-    on, off = ("bilstm_layer_unfold", "bilstm_layer") if unfold \
-        else ("bilstm_layer", "bilstm_layer_unfold")
-    want = {on: forward, on + "_backward": backward, on + "_wgrad": backward,
-            off: 0, off + "_backward": 0, off + "_wgrad": 0}
+    launches of each backward kernel on the LSTM route taken, none of any
+    other LSTM wrapper."""
+    want = dict.fromkeys(got, 0)
+    name, adjoint, wgrad = LSTM_ROUTES[route]
+    want.update({name: forward, adjoint: backward, wgrad: backward})
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
@@ -1612,7 +1898,8 @@ def serve_tfgridnet(root):
                 f"{wall / audio_s:.5f}, avg SI-SNR {avg_sisnr:.3f} dB, avg "
                 f"SI-SNRi {avg_sisnri:.3f} dB (random weights: shows the "
                 f"chain ran, not quality); launches {launches}")
-            expect_counts(launches, GRID_RNNS * steps, 0, unfold,
+            expect_counts(launches, GRID_RNNS * steps, 0,
+                          "unfold" if unfold else "layer",
                           f"serve TF-GridNet ({route})")
             if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
                 raise AssertionError("non-finite SI-SNR from infer")
@@ -1638,7 +1925,8 @@ def serve_tfgridnet(root):
                     plain_step_ms = time_ms(lambda: cuda_model(mix, emb), 0, 1)
                 finally:
                     set_plain(lstms, False)
-            expect_counts(per_forward, GRID_RNNS, 0, unfold,
+            expect_counts(per_forward, GRID_RNNS, 0,
+                          "unfold" if unfold else "layer",
                           f"one TF-GridNet forward ({route})")
             if not torch.isfinite(est).all() or est.shape != mix.shape:
                 raise AssertionError("kernel forward is not finite / wrong "
@@ -1737,7 +2025,8 @@ def train_tfgridnet(root):
             f"validation step through bin/train in {wall:.3f} s wall; "
             f"launches {launches}")
         expect_counts(launches, GRID_RNNS * (GRID_TRAIN_STEPS + val_steps),
-                      GRID_RNNS * GRID_TRAIN_STEPS, True, "train TF-GridNet")
+                      GRID_RNNS * GRID_TRAIN_STEPS, "unfold",
+                      "train TF-GridNet")
         with open(os.path.join(config["exp_dir"], "train.log")) as f:
             text = f.read()
         losses = rows_loss(text)
@@ -1842,7 +2131,8 @@ def train_tfgridnet(root):
             zero_counts()
             step(tstate, batch)
             torch.cuda.synchronize()
-            expect_counts(read_counts(), GRID_RNNS, GRID_RNNS, unfold,
+            expect_counts(read_counts(), GRID_RNNS, GRID_RNNS,
+                          "unfold" if unfold else "layer",
                           f"one TF-GridNet train step ({route})")
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2375,6 +2665,15 @@ def main() -> int:
                 "grid_" + name[len("train_"):], frames, rows,
                 torch.bfloat16, grid_d, GRID_H))
 
+    # the two-kernel layers at the pBSRNN's shapes, both directions (K2)
+    # and one (K1): the forward at the serving shapes in f32, the forward,
+    # serial adjoint and weight gradients at the training shapes in bf16
+    two_kernel_cases = [
+        check_fused_kernels(name, t_len, batch, dtype, dirs, train)
+        for shapes, dtype, train in ((MAIN_SHAPES, torch.float32, False),
+                                     (TRAIN_SHAPES, torch.bfloat16, True))
+        for name, (t_len, batch) in shapes.items() for dirs in (2, 1)]
+
     # the fused Conv2dBlock at DPCCN's six shapes: serving in f32 (2 rows),
     # training in bf16 (8 rows)
     conv_cases = [check_conv2d(name, f, ci, co, batch, dtype)
@@ -2422,6 +2721,21 @@ def main() -> int:
         dpccn_launches, dpccn_trained = train_dpccn(root)
     log("train DPCCN summary", json.dumps(dpccn_trained))
 
+    # 12, 13. the pBSRNN on its two other LSTM routes: serve and train
+    # through the two-kernel bidirectional layer (WESEP_LSTM_LAYER=0), then
+    # the unidirectional model (use_bidirectional: false)
+    route_launches, route_summaries = {}, {}
+    for route in ("two_kernel", "unidirectional"):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            n_serve, served_route = serve(root, route)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            n_train, trained_route = train_phase(root, route)
+        route_launches[route] = (n_serve, n_train)
+        route_summaries[route] = {"serve": served_route,
+                                  "train": trained_route}
+        log(f"pBSRNN {route} route summary",
+            json.dumps(route_summaries[route]))
+
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
     # training bf16)
@@ -2458,6 +2772,11 @@ def main() -> int:
                "conv2d_block_in": "wesep_tpu_torch/csrc/conv2d_block.cu",
                "conv2d_block_in_backward":
                    "wesep_tpu_torch/csrc/conv2d_block_bwd.cu"}
+    for route in ("two_kernel", "unidirectional"):
+        fwd, adjoint, wgrad = LSTM_ROUTES[route]
+        sources[fwd] = "wesep_tpu_torch/csrc/lstm_fused.cu"
+        sources[adjoint] = sources[wgrad] = \
+            "wesep_tpu_torch/csrc/lstm_fused_bwd.cu"
     replaces = {"bilstm_layer": "wesep_tpu/ops/pallas_lstm.py:834",
                 "bilstm_layer_backward": "wesep_tpu/ops/pallas_lstm.py:932",
                 "bilstm_layer_wgrad": "wesep_tpu/ops/pallas_lstm.py:932",
@@ -2470,7 +2789,13 @@ def main() -> int:
                 "tcn_block_gln_backward": "wesep_tpu/ops/pallas_tcn.py:527",
                 "conv2d_block_in": "wesep_tpu/ops/pallas_conv2d.py:201",
                 "conv2d_block_in_backward":
-                    "wesep_tpu/ops/pallas_conv2d.py:415"}
+                    "wesep_tpu/ops/pallas_conv2d.py:415",
+                "bilstm_fused_forward": "wesep_tpu/ops/pallas_lstm.py:460",
+                "bilstm_fused_backward": "wesep_tpu/ops/pallas_lstm.py:546",
+                "bilstm_fused_wgrad": "wesep_tpu/ops/pallas_lstm.py:546",
+                "lstm_fused_forward": "wesep_tpu/ops/pallas_lstm.py:157",
+                "lstm_fused_backward": "wesep_tpu/ops/pallas_lstm.py:230",
+                "lstm_fused_wgrad": "wesep_tpu/ops/pallas_lstm.py:230"}
     headline = {"bilstm_layer": band,
                 "bilstm_layer_backward": train_band["backward"],
                 "bilstm_layer_wgrad": train_band["wgrad"],
@@ -2481,6 +2806,16 @@ def main() -> int:
                 "tcn_block_gln_backward": tcn_head["backward"],
                 "conv2d_block_in": conv_head["forward"],
                 "conv2d_block_in_backward": conv_head["backward"]}
+    # and of the two-kernel layers: as the plain layer's, the serving band
+    # (f32) for the forward and the training band (bf16) for the backward
+    for dirs in (2, 1):
+        fwd, adjoint, wgrad = fused_names(dirs)
+        serve_band, train_band_case = (
+            next(c for c in two_kernel_cases if c["dirs"] == dirs
+                 and c["shape"] == shape) for shape in ("band", "train_band"))
+        headline[fwd] = serve_band["forward"]
+        headline[adjoint] = train_band_case["backward"]
+        headline[wgrad] = train_band_case["wgrad"]
     # launches of each wrapper on each path that ran it: the main-path
     # count of an entry is its training path's
     by_path = {name: {} for name in headline}
@@ -2503,10 +2838,16 @@ def main() -> int:
         by_path["conv2d_block_in"][f"dpccn_serve_{route}"] = n
     for name, n in dpccn_launches.items():
         by_path[name]["dpccn_train"] = n
+    for route, (n_serve, n_train) in route_launches.items():
+        by_path[LSTM_ROUTES[route][0]][f"serve_{route}"] = n_serve
+        for name, n in n_train.items():
+            by_path[name][f"train_{route}"] = n
     kernels = []
     for name, head in headline.items():
         main_path = next(p for p in ("train", "tfgridnet_train",
-                                     "dpccn_train") if p in by_path[name])
+                                     "dpccn_train", "train_two_kernel",
+                                     "train_unidirectional")
+                         if p in by_path[name])
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name],
                  "launches": by_path[name][main_path],
@@ -2533,6 +2874,16 @@ def main() -> int:
                 dict(c[part], shape=c["shape"], dtype=c["dtype"], B=c["B"],
                      T=c["T"], F=c["F"], Ci=c["Ci"], Co=c["Co"])
                 for c in conv_cases]
+        elif name in fused_names(2) + fused_names(1):
+            part = ("forward", "backward", "wgrad")[
+                fused_names(2 if name.startswith("bilstm") else 1)
+                .index(name)]
+            entry["cases"] = [
+                dict(c[part], shape=c["shape"], dtype=c["dtype"], T=c["T"],
+                     B=c["B"], H=c["H"], rel_limit=c["rel_limit"])
+                for c in two_kernel_cases
+                if part in c and c["dirs"] == (2 if name.startswith("bilstm")
+                                               else 1)]
         elif name.startswith("tcn_block_gln"):
             part = "backward" if name.endswith("backward") else "forward"
             if part == "forward":

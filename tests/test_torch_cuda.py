@@ -16,6 +16,7 @@ from wesep_tpu_torch.ops import (
     _build,
     cuda_conv2d,
     cuda_lstm,
+    cuda_lstm_fused,
     cuda_lstm_unfold,
     cuda_tcn,
 )
@@ -168,6 +169,165 @@ def test_bilstm_layer_rejects_what_it_cannot_run(cuda):
         cuda_lstm.bilstm_layer(*_args(cuda, 2, 3, 8, 260, torch.float32))
     with pytest.raises(ValueError):  # a weight left on the host
         cuda_lstm.bilstm_layer(args[0], args[1].cpu(), *args[2:])
+
+
+# --- the two-kernel LSTM layers (K2/K2b both directions, K1/K1b one) -------
+
+FUSED_ROUTES = [(2, False), (1, False), (1, True)]  # (dirs, reverse)
+
+
+def _fused_inputs(device, dirs, b, t, h, dtype, seed=0):
+    """xw [dirs, b, t, 4h] in `dtype` at the scale of a projected input,
+    and dirs f32 recurrent weights [h, 4h]."""
+    gen = torch.Generator().manual_seed(seed)
+    xw = (torch.randn(dirs, b, t, 4 * h, generator=gen) * 0.5).to(device)
+    whs = [(torch.randn(h, 4 * h, generator=gen) * 0.2).to(device)
+           for _ in range(dirs)]
+    return xw.to(dtype), whs
+
+
+def _fused_counts():
+    k = cuda_lstm_fused
+    return tuple(f.launches for f in (
+        k.bilstm_fused_forward, k.bilstm_fused_backward, k.bilstm_fused_wgrad,
+        k.lstm_fused_forward, k.lstm_fused_backward, k.lstm_fused_wgrad))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dirs,reverse", FUSED_ROUTES)
+@pytest.mark.parametrize("b,t,h", [(8, 10, 64), (13, 7, 256), (1100, 2, 32),
+                                   (1, 1, 4), (5, 9, 32)])
+def test_fused_layer_matches_plain(cuda, dtype, dirs, reverse, b, t, h):
+    """The forward with cell states, the serial adjoint (on the plain
+    forward's saved tensors, so only the adjoint differs) and the
+    weight-gradient kernel (on the adjoint's own dxw), each against its
+    plain version; each wrapper counts one launch."""
+    k = cuda_lstm_fused
+    xw, whs = _fused_inputs(cuda, dirs, b, t, h, dtype)
+    before = _fused_counts()
+    ys, cs = k._forward_cuda(
+        k.bilstm_fused_forward if dirs == 2 else k.lstm_fused_forward, xw,
+        whs, reverse, True)
+    ref_ys, ref_cs = k._recurrence_reference(xw, whs, reverse, True)
+    assert ys.dtype == dtype and ys.shape == (b, t, dirs * h)
+    assert cs.dtype == torch.float32 and cs.shape == ys.shape
+    assert (ys.float() - ref_ys.float()).abs().max().item() \
+        <= _tolerance(ref_ys)
+    assert (cs - ref_cs).abs().max().item() <= (
+        1e-4 if dtype == torch.float32 else 10 * _tolerance(ref_ys))
+    gen = torch.Generator().manual_seed(1)
+    dys = torch.randn(b, t, dirs * h, generator=gen).to(cuda).to(dtype)
+    if dirs == 2:
+        dxw, db = k.bilstm_fused_backward(xw, *whs, ref_ys, ref_cs, dys)
+        dwh = k.bilstm_fused_wgrad(ref_ys, dxw)
+    else:
+        dxw, db = k.lstm_fused_backward(xw, *whs, ref_ys, ref_cs, dys,
+                                        reverse=reverse)
+        dwh = k.lstm_fused_wgrad(ref_ys, dxw, reverse=reverse)
+    torch.cuda.synchronize()
+    step = (1, 1, 1, 0, 0, 0) if dirs == 2 else (0, 0, 0, 1, 1, 1)
+    assert _fused_counts() == tuple(c + s for c, s in zip(before, step))
+    want_dxw, want_dwh, want_db = k._adjoint_reference(
+        xw, whs, reverse, ref_ys, ref_cs, dys)
+    assert dxw.dtype == dtype and db.dtype == dwh.dtype == torch.float32
+    for name, g, w, tol in zip(
+            ("dxw", "db", "dwh"), (dxw, db, dwh), (want_dxw, want_db,
+                                                   want_dwh),
+            _grad_tolerances((want_dxw, want_db, want_dwh), dtype)):
+        assert g.shape == w.shape, name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+    dwh_ref = k.lstm_fused_wgrad_reference(ref_ys, dxw, reverse)
+    assert (dwh - dwh_ref).abs().max().item() \
+        <= 1e-4 * max(dwh_ref.abs().max().item(), 1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dirs,reverse", [(2, False), (1, True)])
+def test_fused_kernels_repeat_bit_for_bit(cuda, dtype, dirs, reverse):
+    """The pBSRNN's comm RNN at 4 rows x 3 s (B' 1504, T 32, H 256): no
+    atomics, the bias tiles and the weight-gradient slices are added in a
+    fixed order, so every result is the same bits from run to run."""
+    k = cuda_lstm_fused
+    xw, whs = _fused_inputs(cuda, dirs, 1504, 32, 256, dtype, seed=2)
+    route = (k.bilstm_fused_forward, k.bilstm_fused_backward,
+             k.bilstm_fused_wgrad) if dirs == 2 else (
+                 k.lstm_fused_forward, k.lstm_fused_backward,
+                 k.lstm_fused_wgrad)
+    ys, cs = k._forward_cuda(route[0], xw, whs, reverse, True)
+    again = k._forward_cuda(route[0], xw, whs, reverse, True)
+    assert torch.equal(ys, again[0]) and torch.equal(cs, again[1])
+    gen = torch.Generator().manual_seed(3)
+    dys = torch.randn(tuple(ys.shape), generator=gen).to(cuda).to(dtype)
+
+    def backward():
+        dxw, db = k._backward_cuda(route[1], xw, whs, reverse, ys, cs, dys)
+        return dxw, db, k._wgrad_cuda(route[2], ys, dxw, reverse)
+
+    first = backward()
+    for _ in range(2):
+        for name, a, b in zip(("dxw", "db", "dwh"), first, backward()):
+            assert torch.equal(a, b), name
+
+
+def test_fused_functions_route_and_return_f32_weight_gradients(
+        cuda, monkeypatch):
+    """Through models.common.LSTM on a bf16 stream with f32 parameters:
+    WESEP_LSTM_LAYER=0 sends the bidirectional layer to K2/K2b and none to
+    K0; the unidirectional one goes to K1/K1b. dx comes back in bf16,
+    weight gradients in f32 within the bf16 limits of the plain versions';
+    no gradient asked, no graph."""
+    from wesep_tpu_torch.models.common import LSTM
+
+    monkeypatch.setenv("WESEP_LSTM_LAYER", "0")
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn(9, 6, 64, generator=gen).to(cuda).bfloat16()
+    for bidirectional in (True, False):
+        torch.manual_seed(0)
+        module = LSTM(64, 128, bidirectional=bidirectional).to(cuda)
+        before, k0 = _fused_counts(), cuda_lstm.bilstm_layer.launches
+        xg = x.clone().requires_grad_()
+        module(xg).float().square().sum().backward()
+        step = (1, 1, 1, 0, 0, 0) if bidirectional else (0, 0, 0, 1, 1, 1)
+        assert _fused_counts() == tuple(c + s for c, s in zip(before, step))
+        assert cuda_lstm.bilstm_layer.launches == k0
+        assert xg.grad.dtype == torch.bfloat16
+        got = [xg.grad] + [p.grad.clone() for p in module.parameters()]
+        assert all(g.dtype == torch.float32 for g in got[1:])
+        module.zero_grad()
+        module.plain = True
+        xp = x.clone().requires_grad_()
+        module(xp).float().square().sum().backward()
+        want = [xp.grad] + [p.grad for p in module.parameters()]
+        assert _fused_counts() == tuple(c + s for c, s in zip(before, step))
+        for g, w, tol in zip(got, want, _grad_tolerances(want,
+                                                         torch.bfloat16)):
+            assert (g.float() - w.float()).abs().max().item() <= tol
+        module.plain = False
+        with torch.no_grad():
+            assert module(x).grad_fn is None
+
+
+def test_fused_layer_rejects_what_it_cannot_run(cuda):
+    """The wrappers raise on what the kernels do not take; ops/rnn sends
+    such a layer to the scan before any launch."""
+    from wesep_tpu_torch.ops import rnn
+
+    k = cuda_lstm_fused
+    xw, whs = _fused_inputs(cuda, 1, 2, 3, 8, torch.float32)
+    with pytest.raises(TypeError):
+        k.lstm_fused_forward(xw.half(), whs[0])
+    xw, whs = _fused_inputs(cuda, 2, 2, 3, 260, torch.float32)
+    with pytest.raises(ValueError):  # H above one thread per unit
+        k.bilstm_fused_forward(xw, *whs)
+    with pytest.raises(ValueError):  # a weight left on the host
+        k.lstm_fused_forward(xw[:1], whs[0].cpu())
+    x = torch.randn(2, 3, 8, device=cuda)
+    wx, b = torch.randn(8, 4 * 260, device=cuda), torch.zeros(
+        4 * 260, device=cuda)
+    before = _fused_counts()
+    y = rnn.lstm(x, wx, whs[0], b)
+    assert y.shape == (2, 3, 260) and _fused_counts() == before
 
 
 # --- the unfold-fused BiLSTM layer -----------------------------------------

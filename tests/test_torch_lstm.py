@@ -80,11 +80,14 @@ def test_wrapper_uses_plain_version_on_cpu_and_raises_elsewhere():
 
 
 def test_unidirectional_lstm_cpu_only():
+    """rnn.lstm runs the two-kernel layer's plain version on the CPU (the
+    layer launches its kernels on CUDA tensors); a device that is neither
+    CPU nor CUDA still raises."""
     x, wx, b, wh = map(torch.from_numpy, _inputs(seed=6, b=2, t=4)[:4])
     module = LSTM(64, 128, bidirectional=False)
     assert module(x).shape == (2, 4, 128)
     ys = rnn.lstm(x, wx, wh, b)
     bi = cuda_lstm.bilstm_layer_reference(x, wx, b, wh, wx, b, wh)
     torch.testing.assert_close(ys, bi[..., :128])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="cuda or cpu"):
         rnn.lstm(x.to("meta"), wx, wh, b)

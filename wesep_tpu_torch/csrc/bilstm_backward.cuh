@@ -1,9 +1,11 @@
-// The backward kernels of the fused BiLSTM layers: the serial adjoint and
-// the weight-gradient product, shared by the plain layer
-// (bilstm_layer_bwd.cu, whose header describes their design) and the
-// unfold-fused layer (bilstm_unfold_bwd.cu). Both read a step's input row
-// from x only through a source (bilstm_common.cuh): `RowSource` for the
-// plain layer, `UnfoldSource` for the unfold-fused one.
+// The backward kernels of the LSTM layers: the serial adjoint and the
+// weight-gradient product, shared by the plain layer (bilstm_layer_bwd.cu,
+// whose header describes their design), the unfold-fused layer
+// (bilstm_unfold_bwd.cu) and the two-kernel layers (lstm_fused_bwd.cu).
+// Both read a step's input from x only through a source
+// (bilstm_common.cuh): `RowSource` for the plain layer, `UnfoldSource` for
+// the unfold-fused one, `XwSource` (the gate pre-activation itself, no
+// input row: no dx and no dWx) for the two-kernel ones.
 
 #pragma once
 
@@ -42,8 +44,11 @@ __device__ __forceinline__ void accumulate_t(float (&out)[BT],
 }
 
 // The serial adjoint. D = src.width() is the input row's length; dx2
-// [2, B, T, D] receives each direction's cotangent of the input rows.
-template <typename T, int BT, typename XS>
+// [kDirs, B, T, D] receives each direction's cotangent of the input rows
+// (nothing when the source does not project). y, cs and dy rows hold
+// kDirs * H values; `walks_back` says which direction walked time
+// backwards, as in the forward kernel.
+template <typename T, int BT, typename XS, int kDirs, bool kReverse>
 __global__ void __launch_bounds__(kMaxThreads, 2)
     bilstm_bwd_kernel(const T* __restrict__ x, XS src,
                       const T* __restrict__ wx_f,
@@ -68,6 +73,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   float* dxp = dgs + BT * h4;                   // [2][BT][D] halves of dx_t
 
   const int dir = blockIdx.y;
+  const int width = kDirs * H;  // of a row of y, cs and dy
+  const bool backwards = walks_back<kDirs, kReverse>(dir);
   const T* __restrict__ wx = dir ? wx_b : wx_f;
   const T* __restrict__ wh = dir ? wh_b : wh_f;
   const T* __restrict__ wxt = dir ? wxt_b : wxt_f;  // [4H][D]
@@ -83,7 +90,7 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   float dc[BT];
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
-    bj[g] = active ? bias[g * H + j] : 0.0f;
+    bj[g] = (XS::kProjects && active) ? bias[g * H + j] : 0.0f;
     db[g] = 0.0f;
   }
 #pragma unroll
@@ -93,34 +100,49 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   }
 
   for (int s = 0; s < T_len; ++s) {
-    // the adjoint walks the forward's steps backwards: the forward
-    // direction from T-1 down, the backward direction from 0 up
-    const int t = dir ? s : T_len - 1 - s;
-    const int tp = dir ? t + 1 : t - 1;  // the forward's previous step
+    // the adjoint walks the forward's steps backwards: a direction that
+    // ran forwards from T-1 down, one that ran backwards from 0 up
+    const int t = backwards ? s : T_len - 1 - s;
+    const int tp = backwards ? t + 1 : t - 1;  // the forward's previous step
     const bool has_prev = tp >= 0 && tp < T_len;
-    stage_x<BT>(xs, x, src, b0, B, t);
-    stage_rows<T, BT>(hs, y, H, 2 * H, dir * H, b0, B, T_len,
+    float acc[BT][4];
+    if constexpr (XS::kProjects) {
+      stage_x<BT>(xs, x, src, b0, B, t);
+    } else {
+      // the gates start from xw, whose loads need not wait for the barrier
+#pragma unroll
+      for (int r = 0; r < BT; ++r) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          acc[r][g] = (active && b0 + r < B)
+                          ? src.gate(x, dir, b0 + r, t, g * H + j)
+                          : 0.0f;
+        }
+      }
+    }
+    stage_rows<T, BT>(hs, y, H, width, dir * H, b0, B, T_len,
                       has_prev ? tp : t, has_prev);
     __syncthreads();  // (1) x_t and h_{t-1} staged
 
     if (active) {
-      float acc[BT][4];
+      if constexpr (XS::kProjects) {
 #pragma unroll
-      for (int r = 0; r < BT; ++r) {
+        for (int r = 0; r < BT; ++r) {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) acc[r][g] = bj[g];
+          for (int g = 0; g < 4; ++g) acc[r][g] = bj[g];
+        }
+        accumulate<T, BT>(acc, xs, wx, D, H, j);
       }
-      accumulate<T, BT>(acc, xs, wx, D, H, j);
       accumulate<T, BT>(acc, hs, wh, H, H, j);
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
         const int b = b0 + r;
         const bool valid = b < B;
         const size_t row = static_cast<size_t>(valid ? b : 0) * T_len;
-        const size_t at = (row + t) * (2 * H) + dir * H + j;
+        const size_t at = (row + t) * width + dir * H + j;
         const float c_t = valid ? cs[at] : 0.0f;
         const float c_prev =
-            (valid && has_prev) ? cs[(row + tp) * (2 * H) + dir * H + j]
+            (valid && has_prev) ? cs[(row + tp) * width + dir * H + j]
                                 : 0.0f;
         const float dy_t = valid ? to_f32(dy[at]) : 0.0f;
         const float ig = sigmoidf(acc[r][0]);
@@ -156,28 +178,30 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
       for (int r = 0; r < BT; ++r) dh[r] = 0.0f;
       accumulate_t<T, BT>(dh, dgs, h4, wht, H, j, 0, h4);
     }
-    // dx_t = dg @ Wx^T: item w sums half w / D of the 4H axis for column
-    // w % D; the two halves meet in shared memory
-    for (int w = threadIdx.x; w < 2 * D; w += blockDim.x) {
-      const int half = w / D;
-      const int col = w - half * D;
-      float part[BT];
+    if constexpr (XS::kProjects) {
+      // dx_t = dg @ Wx^T: item w sums half w / D of the 4H axis for column
+      // w % D; the two halves meet in shared memory
+      for (int w = threadIdx.x; w < 2 * D; w += blockDim.x) {
+        const int half = w / D;
+        const int col = w - half * D;
+        float part[BT];
 #pragma unroll
-      for (int r = 0; r < BT; ++r) part[r] = 0.0f;
-      accumulate_t<T, BT>(part, dgs, h4, wxt, D, col, half * 2 * H,
-                          (half + 1) * 2 * H);
+        for (int r = 0; r < BT; ++r) part[r] = 0.0f;
+        accumulate_t<T, BT>(part, dgs, h4, wxt, D, col, half * 2 * H,
+                            (half + 1) * 2 * H);
 #pragma unroll
-      for (int r = 0; r < BT; ++r) dxp[(half * BT + r) * D + col] = part[r];
-    }
-    __syncthreads();  // (3) both halves of dx_t are in shared memory
+        for (int r = 0; r < BT; ++r) dxp[(half * BT + r) * D + col] = part[r];
+      }
+      __syncthreads();  // (3) both halves of dx_t are in shared memory
 
-    for (int i = threadIdx.x; i < BT * D; i += blockDim.x) {
-      const int r = i / D;
-      const int k = i - r * D;
-      const int b = b0 + r;
-      if (b < B) {
-        dx2[((static_cast<size_t>(dir) * B + b) * T_len + t) * D + k] =
-            from_f32<T>(dxp[i] + dxp[BT * D + i]);
+      for (int i = threadIdx.x; i < BT * D; i += blockDim.x) {
+        const int r = i / D;
+        const int k = i - r * D;
+        const int b = b0 + r;
+        if (b < B) {
+          dx2[((static_cast<size_t>(dir) * B + b) * T_len + t) * D + k] =
+              from_f32<T>(dxp[i] + dxp[BT * D + i]);
+        }
       }
     }
   }
@@ -185,8 +209,8 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
   if (active) {
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      db_part[(static_cast<size_t>(blockIdx.x) * 2 + dir) * h4 + g * H + j] =
-          db[g];
+      db_part[(static_cast<size_t>(blockIdx.x) * kDirs + dir) * h4 + g * H +
+              j] = db[g];
     }
   }
 }
@@ -197,8 +221,11 @@ constexpr int kWgK = 16;    // (batch, time) rows staged per iteration
 constexpr int kWgThreads = 256;
 
 // The weight gradients: dW[dir] = A^T @ dg[dir] over the N = B * T rows,
-// A[n] = [input row n ; h_{t-1}], one slice of the N axis per block.z / 2.
-template <typename T, typename XS>
+// A[n] = [input row n ; h_{t-1}] (h_{t-1} alone when the source gives no
+// input row), one slice of the N axis per block.z / kDirs; y rows hold
+// kDirs * H values and `walks_back` says where h_{t-1} lies, as in the
+// serial kernels.
+template <typename T, typename XS, int kDirs, bool kReverse>
 __global__ void __launch_bounds__(kWgThreads)
     bilstm_wgrad_kernel(const T* __restrict__ x, XS src,
                         const T* __restrict__ y,
@@ -213,8 +240,8 @@ __global__ void __launch_bounds__(kWgThreads)
   const long long rows = static_cast<long long>(B) * T_len;
   const int m0 = blockIdx.x * kWgM;
   const int c0 = blockIdx.y * kWgN;
-  const int dir = blockIdx.z & 1;
-  const int split = blockIdx.z >> 1;
+  const int dir = blockIdx.z % kDirs;
+  const int split = blockIdx.z / kDirs;
   const long long n_begin = static_cast<long long>(split) * rows_per_split;
   const long long n_end =
       n_begin + rows_per_split < rows ? n_begin + rows_per_split : rows;
@@ -222,7 +249,8 @@ __global__ void __launch_bounds__(kWgThreads)
   const int ty = tid / 16;  // rows m0 + 4 ty .. + 3
   const int tx = tid % 16;  // columns c0 + 4 tx .. + 3 and c0 + 64 + 4 tx ..
   const T* __restrict__ dg_dir = dg + static_cast<size_t>(dir) * rows * h4;
-  const int step = dir ? 1 : -1;  // where h_{t-1} lies, in rows of y
+  // where h_{t-1} lies, in rows of y
+  const int step = walks_back<kDirs, kReverse>(dir) ? 1 : -1;
 
   float acc[4][8];
 #pragma unroll
@@ -245,7 +273,7 @@ __global__ void __launch_bounds__(kWgThreads)
         } else {
           const int tp = static_cast<int>(n % T_len) + step;
           if (tp >= 0 && tp < T_len) {
-            v = to_f32(y[(n + step) * (2 * H) + dir * H + (m - D)]);
+            v = to_f32(y[(n + step) * (kDirs * H) + dir * H + (m - D)]);
           }
         }
       }
@@ -280,7 +308,7 @@ __global__ void __launch_bounds__(kWgThreads)
     __syncthreads();
   }
 
-  float* out = dw_part + (static_cast<size_t>(split) * 2 + dir) * M * h4;
+  float* out = dw_part + (static_cast<size_t>(split) * kDirs + dir) * M * h4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int m = m0 + 4 * ty + i;
@@ -294,11 +322,12 @@ __global__ void __launch_bounds__(kWgThreads)
 }
 
 // p: x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, wxt_f, wht_f, wxt_b, wht_b, y,
-// cs, dy, dx2, dg, db_part (the serial adjoint's operands).
-template <typename T, typename XS>
+// cs, dy, dx2, dg, db_part (the serial adjoint's operands; those of x's
+// half, and of the _b direction when kDirs is 1, may be null where unread).
+template <typename T, typename XS, int kDirs = 2, bool kReverse = false>
 cudaError_t launch_backward(const XS& src, const void* const* p, int B,
                             int T_len, int H, cudaStream_t stream) {
-  auto kernel = bilstm_bwd_kernel<T, kTile, XS>;
+  auto kernel = bilstm_bwd_kernel<T, kTile, XS, kDirs, kReverse>;
   const size_t smem =
       static_cast<size_t>(kTile) * (3 * src.width() + 5 * H) * sizeof(float);
   if (smem > kDefaultSmem) {
@@ -307,7 +336,7 @@ cudaError_t launch_backward(const XS& src, const void* const* p, int B,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((B + kTile - 1) / kTile, 2);
+  const dim3 grid((B + kTile - 1) / kTile, kDirs);
   const int threads = (H + 31) / 32 * 32;
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(p[0]), src, static_cast<const T*>(p[1]),
@@ -323,18 +352,19 @@ cudaError_t launch_backward(const XS& src, const void* const* p, int B,
   return cudaGetLastError();
 }
 
-template <typename T, typename XS>
+template <typename T, typename XS, int kDirs = 2, bool kReverse = false>
 cudaError_t launch_wgrad(const void* x, const XS& src, const void* y,
                          const void* dg, void* dw_part, int B, int T_len,
                          int H, int splits, cudaStream_t stream) {
   const long long rows = static_cast<long long>(B) * T_len;
   const int rows_per_split = static_cast<int>((rows + splits - 1) / splits);
   const dim3 grid((src.width() + H + kWgM - 1) / kWgM,
-                  (4 * H + kWgN - 1) / kWgN, 2 * splits);
-  bilstm_wgrad_kernel<T, XS><<<grid, kWgThreads, 0, stream>>>(
-      static_cast<const T*>(x), src, static_cast<const T*>(y),
-      static_cast<const T*>(dg),
-      static_cast<float*>(dw_part), B, T_len, H, rows_per_split);
+                  (4 * H + kWgN - 1) / kWgN, kDirs * splits);
+  bilstm_wgrad_kernel<T, XS, kDirs, kReverse>
+      <<<grid, kWgThreads, 0, stream>>>(
+          static_cast<const T*>(x), src, static_cast<const T*>(y),
+          static_cast<const T*>(dg), static_cast<float*>(dw_part), B, T_len,
+          H, rows_per_split);
   return cudaGetLastError();
 }
 

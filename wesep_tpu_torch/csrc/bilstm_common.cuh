@@ -1,8 +1,9 @@
-// Device code shared by the fused BiLSTM layer kernels: the plain layer
-// (bilstm_layer.cu, bilstm_layer_bwd.cu) and the unfold-fused layer
-// (bilstm_unfold.cu, bilstm_unfold_bwd.cu). Helpers, the two sources of a
-// step's input row, and the forward kernel; the backward kernels are in
-// bilstm_backward.cuh.
+// Device code shared by the LSTM layer kernels: the plain layer
+// (bilstm_layer.cu, bilstm_layer_bwd.cu), the unfold-fused layer
+// (bilstm_unfold.cu, bilstm_unfold_bwd.cu) and the two-kernel layers over a
+// precomputed gate projection (lstm_fused.cu, lstm_fused_bwd.cu). Helpers,
+// the three sources of a step's gate pre-activation, and the forward
+// kernel; the backward kernels are in bilstm_backward.cuh.
 
 #pragma once
 
@@ -37,14 +38,18 @@ __device__ __forceinline__ float sigmoidf(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
 
-// Where the input row of step t comes from. The kernels below take the
-// stream x as their own `const T* __restrict__` argument and read a row
-// only through the source's `width()` (K, the row's length, K % 4 == 0),
-// `load(x, b, t, k)` and `load_row(x, n, k)` (row n = b * T + t of the
-// [B * T, K] stream); the source holds only the geometry.
+// How the gate pre-activation of step t starts. The kernels below take the
+// stream x as their own `const T* __restrict__` argument and read it only
+// through the source, which holds only the geometry. A source that
+// projects (`kProjects`) gives an input row of `width()` elements (K,
+// K % 4 == 0) through `load(x, b, t, k)` and `load_row(x, n, k)` (row
+// n = b * T + t of the [B * T, K] stream); the kernels start the gates
+// from the bias and add row @ Wx themselves. A source that does not
+// project gives the whole pre-activation through `gate(x, dir, b, t, col)`.
 //
 // RowSource: the row is x_t of a [B, T, D] stream (the plain layer).
 struct RowSource {
+  static constexpr bool kProjects = true;
   int T_len;
   int D;
   __host__ __device__ int width() const { return D; }
@@ -65,6 +70,7 @@ struct RowSource {
 // torch's F.unfold and of the checkpoint's input weight rows) is
 // x[b, t * hs + k, c]. The unfolded [B, T', ks * C] stream never exists.
 struct UnfoldSource {
+  static constexpr bool kProjects = true;
   int L;
   int C;
   int ks;
@@ -85,6 +91,31 @@ struct UnfoldSource {
     const unsigned row = static_cast<unsigned>(n);
     const int b = static_cast<int>(row / static_cast<unsigned>(frames));
     return load(x, b, static_cast<int>(row) - b * frames, m);
+  }
+};
+
+// XwSource: the pre-activation is precomputed outside the kernel, xw =
+// x @ Wx + b rounded to the stream's dtype (the two-kernel layers): step
+// (b, t) of direction dir reads row (b, t) of the [B, T, 4H] slab dir of
+// xw [dirs, B, T, 4H] and widens it to f32. No input row is staged
+// (width() is 0), no Wx product runs and no bias is added.
+struct XwSource {
+  static constexpr bool kProjects = false;
+  int B;
+  int T_len;
+  int H;
+  __host__ __device__ int width() const { return 0; }
+  template <typename T>
+  __device__ __forceinline__ float gate(const T* __restrict__ xw, int dir,
+                                        int b, int t, int col) const {
+    return to_f32(
+        xw[((static_cast<size_t>(dir) * B + b) * T_len + t) * (4 * H) + col]);
+  }
+  // never called: with width() 0 the weight-gradient kernel reads only h
+  template <typename T>
+  __device__ __forceinline__ float load_row(const T* __restrict__, long long,
+                                            int) const {
+    return 0.0f;
   }
 };
 
@@ -178,11 +209,22 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ tile,
   }
 }
 
+// Direction dir of a layer of kDirs directions walks time from T-1 down
+// when this is true: the bidirectional layers (kDirs 2, kReverse false)
+// walk their second direction backwards, a unidirectional layer (kDirs 1)
+// walks backwards when kReverse is true. The geometry is fixed at compile
+// time, so the bidirectional layers' kernels are those of a fixed layout.
+template <int kDirs, bool kReverse>
+__device__ __forceinline__ bool walks_back(int dir) {
+  return (kDirs == 2 && dir != 0) != kReverse;
+}
+
 // The forward kernel (its design is described in bilstm_layer.cu). One
 // block per (batch tile of BT rows, direction), the time loop inside the
-// block, thread j owning hidden unit j; the step's input row is read from
-// x through XS.
-template <typename T, int BT, typename XS>
+// block, thread j owning hidden unit j; the step's gate pre-activation
+// starts from XS. y and cs rows hold kDirs * H values, direction dir's at
+// offset dir * H.
+template <typename T, int BT, typename XS, int kDirs, bool kReverse>
 __global__ void __launch_bounds__(kMaxThreads)
     bilstm_fwd_kernel(const T* __restrict__ x, XS src,
                       const T* __restrict__ wx_f,
@@ -197,6 +239,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* hs = xs + BT * D;                      // [BT][H]
 
   const int dir = blockIdx.y;
+  const bool backwards = walks_back<kDirs, kReverse>(dir);
   const T* __restrict__ wx = dir ? wx_b : wx_f;
   const T* __restrict__ wh = dir ? wh_b : wh_f;
   const float* __restrict__ bias = dir ? b_b : b_f;
@@ -208,24 +251,41 @@ __global__ void __launch_bounds__(kMaxThreads)
   float c[BT];
   float h_new[BT];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bj[g] = active ? bias[g * H + j] : 0.0f;
+  for (int g = 0; g < 4; ++g) {
+    bj[g] = (XS::kProjects && active) ? bias[g * H + j] : 0.0f;
+  }
 #pragma unroll
   for (int r = 0; r < BT; ++r) c[r] = 0.0f;
   for (int i = threadIdx.x; i < BT * H; i += blockDim.x) hs[i] = 0.0f;
 
   for (int s = 0; s < T_len; ++s) {
-    const int t = dir ? T_len - 1 - s : s;
-    stage_x<BT>(xs, x, src, b0, B, t);
-    __syncthreads();  // x_t staged; h_{t-1} written by the previous step
-
-    if (active) {
-      float acc[BT][4];
+    const int t = backwards ? T_len - 1 - s : s;
+    float acc[BT][4];
+    if constexpr (XS::kProjects) {
+      stage_x<BT>(xs, x, src, b0, B, t);
+    } else {
+      // the gates start from xw, whose loads need not wait for the barrier
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
 #pragma unroll
-        for (int g = 0; g < 4; ++g) acc[r][g] = bj[g];
+        for (int g = 0; g < 4; ++g) {
+          acc[r][g] = (active && b0 + r < B)
+                          ? src.gate(x, dir, b0 + r, t, g * H + j)
+                          : 0.0f;
+        }
       }
-      accumulate<T, BT>(acc, xs, wx, D, H, j);
+    }
+    __syncthreads();  // x_t staged; h_{t-1} written by the previous step
+
+    if (active) {
+      if constexpr (XS::kProjects) {
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+#pragma unroll
+          for (int g = 0; g < 4; ++g) acc[r][g] = bj[g];
+        }
+        accumulate<T, BT>(acc, xs, wx, D, H, j);
+      }
       accumulate<T, BT>(acc, hs, wh, H, H, j);
 #pragma unroll
       for (int r = 0; r < BT; ++r) {
@@ -247,7 +307,8 @@ __global__ void __launch_bounds__(kMaxThreads)
         const int b = b0 + r;
         if (b < B) {
           const size_t at =
-              (static_cast<size_t>(b) * T_len + t) * (2 * H) + dir * H + j;
+              (static_cast<size_t>(b) * T_len + t) * (kDirs * H) + dir * H +
+              j;
           y[at] = from_f32<T>(h_new[r]);
           if (cs != nullptr) cs[at] = c[r];
         }
@@ -256,17 +317,18 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// Launch the forward kernel over x (rows through `src`): y [B, T, 2H] in
-// T, cs [B, T, 2H] f32 or null; weights wx_* [K, 4H], wh_* [H, 4H] in T,
-// biases [4H] f32.
-template <typename T, typename XS>
+// Launch the forward kernel over x (gates through `src`): y [B, T,
+// kDirs * H] in T, cs [B, T, kDirs * H] f32 or null; weights wx_* [K, 4H],
+// wh_* [H, 4H] in T, biases [4H] f32 (wx_* and b_* unread, and may be
+// null, when the source does not project; the _b ones when kDirs is 1).
+template <typename T, typename XS, int kDirs = 2, bool kReverse = false>
 cudaError_t launch_forward(const void* x, const XS& src, const void* wx_f,
                            const void* b_f,
                            const void* wh_f, const void* wx_b,
                            const void* b_b, const void* wh_b, void* y,
                            void* cs, int B, int T_len, int H,
                            cudaStream_t stream) {
-  auto kernel = bilstm_fwd_kernel<T, kTile, XS>;
+  auto kernel = bilstm_fwd_kernel<T, kTile, XS, kDirs, kReverse>;
   const size_t smem =
       static_cast<size_t>(kTile) * (src.width() + H) * sizeof(float);
   if (smem > kDefaultSmem) {  // only very wide inputs need the opt-in
@@ -275,7 +337,7 @@ cudaError_t launch_forward(const void* x, const XS& src, const void* wx_f,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid((B + kTile - 1) / kTile, 2);
+  const dim3 grid((B + kTile - 1) / kTile, kDirs);
   const int threads = (H + 31) / 32 * 32;
   kernel<<<grid, threads, smem, stream>>>(
       static_cast<const T*>(x), src, static_cast<const T*>(wx_f),

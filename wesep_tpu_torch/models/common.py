@@ -393,7 +393,7 @@ class LSTM(nn.Module):
 
     def forward(self, x):
         if not self.bidirectional:
-            return lstm(x, self.wx_f, self.wh_f, self.b_f)
+            return lstm(x, self.wx_f, self.wh_f, self.b_f, plain=self.plain)
         weights = (self.wx_f, self.wh_f, self.b_f,
                    self.wx_b, self.wh_b, self.b_b)
         if self.unfold_ks:

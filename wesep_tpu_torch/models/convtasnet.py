@@ -32,7 +32,7 @@ from wesep_tpu_torch.models.common import (
     get_norm,
     norm_auto_name,
 )
-from wesep_tpu_torch.ops.cuda_tcn import tcn_block_gln
+from wesep_tpu_torch.ops.cuda_tcn import kernel_fits, tcn_block_gln
 
 __all__ = ["ConvTasNet", "TCNBlock", "FuseTCNBlock", "TCNStack"]
 
@@ -99,7 +99,14 @@ class _TCNBlockBase(nn.Module):
 
     @property
     def fused(self) -> bool:
-        return self.norm == "gLN" and not self.skip_con
+        """gLN blocks without a skip connection take the fused kernel where
+        it takes their shapes (`cuda_tcn.kernel_fits`); the others run the
+        plain modules, as the JAX package's blocks do where its kernel does
+        not apply."""
+        return (self.norm == "gLN" and not self.skip_con
+                and kernel_fits(self.in_channels,
+                                self.Conv1d_0.Conv_0.kernel.shape[-1],
+                                self.kernel_size))
 
     def _norm(self, idx):
         return getattr(self, norm_auto_name(self.norm, idx))

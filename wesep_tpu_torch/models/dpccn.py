@@ -49,7 +49,7 @@ from wesep_tpu_torch.models.common import (
     SpeakerFuse,
     SpeakerTransform,
 )
-from wesep_tpu_torch.ops.cuda_conv2d import conv2d_block_in
+from wesep_tpu_torch.ops.cuda_conv2d import conv2d_block_in, kernel_fits
 from wesep_tpu_torch.ops.stft import hann_window, istft, stft
 
 __all__ = ["DPCCN", "Conv2dBlock", "ConvTrans2dBlock", "DenseBlock",
@@ -70,15 +70,19 @@ def instance_norm(x, eps: float = 1e-5):
     return (x - mean.to(x.dtype)) * scale
 
 
-def _fused_route(conv_impl: str, plain3x3: bool, in_ch: int) -> bool:
+def _fused_route(conv_impl: str, plain3x3: bool, in_ch: int,
+                 out_ch: int) -> bool:
     """Whether a Conv2dBlock takes the fused kernel: the JAX package's gates
     (conv_impl "pallas", a plain 3x3 conv, in_ch <= WESEP_CONV2D_CI_GATE,
-    WESEP_CONV2D_PALLAS not "0")."""
+    WESEP_CONV2D_PALLAS not "0") and the kernel's limits on the channels
+    (`cuda_conv2d.kernel_fits`); other blocks take the "xla" route, as
+    the JAX package's do where its kernel does not apply."""
     if conv_impl != "pallas" or not plain3x3:
         return False
     if os.environ.get("WESEP_CONV2D_PALLAS", "1") == "0":
         return False
-    return in_ch <= int(os.environ.get("WESEP_CONV2D_CI_GATE", "32"))
+    return (in_ch <= int(os.environ.get("WESEP_CONV2D_CI_GATE", "32"))
+            and kernel_fits(in_ch, out_ch))
 
 
 class Conv2dBlock(nn.Module):
@@ -99,7 +103,8 @@ class Conv2dBlock(nn.Module):
         self.plain = False
 
     def forward(self, x):
-        if _fused_route(self.conv_impl, self.plain3x3, x.shape[-1]):
+        if _fused_route(self.conv_impl, self.plain3x3, x.shape[-1],
+                        self.conv.kernel.shape[-1]):
             return conv2d_block_in(x, self.conv.kernel, self.conv.bias,
                                    plain=self.plain)
         return instance_norm(F.elu(self.conv(x)))

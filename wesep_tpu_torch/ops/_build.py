@@ -31,7 +31,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 SOURCES = ("bilstm_layer", "bilstm_layer_bwd", "bilstm_unfold",
-           "bilstm_unfold_bwd", "tcn_block", "tcn_block_bwd", "conv2d_block",
+           "bilstm_unfold_bwd", "lstm_fused", "lstm_fused_bwd", "tcn_block",
+           "tcn_block_bwd", "conv2d_block",
            "conv2d_block_bwd")  # every csrc/<name>.cu
 
 

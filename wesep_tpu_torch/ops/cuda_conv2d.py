@@ -36,7 +36,7 @@ from torch.nn import functional as F
 from wesep_tpu_torch.ops.cuda_lstm import _entry, _launch
 from wesep_tpu_torch.ops.cuda_tcn import _aligned
 
-__all__ = ["conv2d_block_in", "conv2d_block_in_reference",
+__all__ = ["kernel_fits", "conv2d_block_in", "conv2d_block_in_reference",
            "conv2d_block_in_backward", "conv2d_block_in_backward_reference",
            "Conv2dBlockFn"]
 
@@ -123,6 +123,13 @@ def _scratch(library: str, name: str, dims, dtype, device):
             torch.empty(n_f32.value, dtype=torch.float32, device=device))
 
 
+def kernel_fits(ci: int, co: int) -> bool:
+    """Whether the kernels take a block of Ci input and Co output channels:
+    multiples of 8, at most 256."""
+    return 0 < ci <= MAX_CHANNELS and 0 < co <= MAX_CHANNELS \
+        and ci % 8 == 0 and co % 8 == 0
+
+
 def _kernel_args(x, kernel, bias):
     """Check what the kernels take and return (x, kernel, bias) as they
     take them: x and the kernel in the stream's dtype, the bias f32, all
@@ -138,8 +145,8 @@ def _kernel_args(x, kernel, bias):
         raise ValueError(
             f"kernel must be [3, 3, {ci}, Co] and bias [Co]; got "
             f"{tuple(kernel.shape)}, {tuple(bias.shape)}")
-    if (ci % 8 or co % 8 or ci > MAX_CHANNELS or co > MAX_CHANNELS
-            or not 0 < batch <= 65535 or t_len == 0 or f_len == 0):
+    if (not kernel_fits(ci, co) or not 0 < batch <= 65535 or t_len == 0
+            or f_len == 0):
         raise ValueError(
             f"kernel needs Ci and Co multiples of 8, at most {MAX_CHANNELS}, "
             f"and a non-empty x with B <= 65535; got x {tuple(x.shape)}, "

@@ -21,7 +21,7 @@ import functools
 import torch
 from torch.autograd.function import once_differentiable
 
-__all__ = ["bilstm_layer", "bilstm_layer_reference",
+__all__ = ["kernel_fits", "bilstm_layer", "bilstm_layer_reference",
            "bilstm_layer_backward", "bilstm_layer_backward_reference",
            "bilstm_layer_wgrad", "bilstm_layer_wgrad_reference",
            "BiLSTMLayerFn"]
@@ -33,6 +33,14 @@ _TILE = 8  # batch rows per block of the serial kernels (csrc/bilstm_common.cuh)
 # weight-gradient kernel sums, and the most such splits
 _WGRAD_SPLIT_ROWS = 4096
 _WGRAD_MAX_SPLITS = 8
+
+
+def kernel_fits(d: int, hidden: int) -> bool:
+    """Whether the kernels take rows of d inputs into `hidden` units: one
+    thread per unit and float4 reads, so D % 4 == 0, H % 4 == 0 and
+    H <= 256."""
+    return d > 0 and d % 4 == 0 and 0 < hidden <= _MAX_HIDDEN \
+        and hidden % 4 == 0
 
 
 def _rounded(w, dtype):
@@ -209,7 +217,7 @@ def _kernel_args(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, d=None):
         raise TypeError(f"bilstm_layer takes float32 or bfloat16, not {x.dtype}")
     d = x.shape[2] if d is None else d
     hidden = wh_f.shape[0]
-    if d % 4 or hidden % 4 or hidden > _MAX_HIDDEN:
+    if not kernel_fits(d, hidden):
         raise ValueError(
             f"kernel needs D % 4 == 0, H % 4 == 0 and H <= {_MAX_HIDDEN}; "
             f"got D={d}, H={hidden}"

@@ -40,12 +40,25 @@ from wesep_tpu_torch.ops.cuda_lstm import (
     bilstm_layer_reference,
     bilstm_layer_wgrad_reference,
 )
+from wesep_tpu_torch.ops.cuda_lstm import kernel_fits as layer_kernel_fits
 
-__all__ = ["unfold_frames", "fold_frames", "bilstm_layer_unfold",
+__all__ = ["kernel_fits", "unfold_frames", "fold_frames",
+           "bilstm_layer_unfold",
            "bilstm_layer_unfold_reference", "bilstm_layer_unfold_backward",
            "bilstm_layer_unfold_backward_reference",
            "bilstm_layer_unfold_wgrad", "bilstm_layer_unfold_wgrad_reference",
            "BiLSTMUnfoldFn"]
+
+
+def kernel_fits(shape, ks: int, hs: int, hidden: int) -> bool:
+    """Whether the kernels take unfold(ks, hs) of a [B, L, C] stream into
+    `hidden` units: at least one frame, frames of ks * C % 4 == 0 inputs
+    (the plain layer's limits on D and H) and B * T' < 2^31 rows."""
+    batch, length, c = shape
+    if ks < 1 or hs < 1 or length < ks:
+        return False
+    frames = (length - ks) // hs + 1
+    return layer_kernel_fits(ks * c, hidden) and batch * frames < 2 ** 31
 
 
 def _frames(length: int, ks: int, hs: int) -> int:

@@ -36,7 +36,7 @@ from torch.nn import functional as F
 
 from wesep_tpu_torch.ops.cuda_lstm import _launch
 
-__all__ = ["tcn_block_gln", "tcn_block_gln_reference",
+__all__ = ["kernel_fits", "tcn_block_gln", "tcn_block_gln_reference",
            "tcn_block_gln_backward", "tcn_block_gln_backward_reference",
            "TCNBlockFn"]
 
@@ -210,6 +210,13 @@ def _scratch(query, dims, dtype, device):
             torch.empty(n_f32.value, dtype=torch.float32, device=device))
 
 
+def kernel_fits(c: int, h: int, k: int) -> bool:
+    """Whether the kernels take a block of C channels, H hidden channels
+    and k taps: C % 8 == 0, H % 8 == 0 and 0 < k <= 8."""
+    return c > 0 and h > 0 and c % 8 == 0 and h % 8 == 0 \
+        and 0 < k <= _MAX_TAPS
+
+
 def _aligned(t):
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -227,7 +234,7 @@ def _kernel_args(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w, g1b,
             f"tcn_block_gln takes float32 or bfloat16, not {x.dtype}")
     batch, t_len, c = x.shape
     h = w1.shape[1]
-    if c % 8 or h % 8 or not 0 < k <= _MAX_TAPS or batch == 0 or t_len == 0:
+    if not kernel_fits(c, h, k) or batch == 0 or t_len == 0:
         raise ValueError(
             f"kernel needs C % 8 == 0, H % 8 == 0, 0 < k <= {_MAX_TAPS} and "
             f"a non-empty x; got C={c}, H={h}, k={k}, x {tuple(x.shape)}")
