@@ -22,7 +22,13 @@ pass):
    at TF-GridNet's intra and inter RNN shapes for serving (2 rows x 3 s)
    and training (8 rows x 1 s), in f32 and bf16, and once at hs 2, with
    the weight gradients repeated bit for bit; and the plain layer's
-   kernels at TF-GridNet's materialised shapes (D = H = 192);
+   kernels at TF-GridNet's materialised shapes (D = H = 192); then the
+   tensor-core bf16 backward of the LSTM layers (gate products, cluster
+   chain, dx, dW) at every training shape of the four routes, each kernel
+   against its plain version, the whole backward against the route's plain
+   backward, run twice bit for bit, timed beside cuBLAS; and the TCN block
+   and the Conv2dBlock past one grid dimension (B = 65537, and K4 at a T of
+   more than 65535 element-wise chunks);
 4. serve: the full-width v1 pBSRNN (feature_dim 128, 6 repeats, multiply
    fuse, 256-d embeddings; random weights from a seed) decodes a small
    shard through the port's bin/infer on the card; the kernel's launch
@@ -31,12 +37,15 @@ pass):
 5. train: the same model trains through the port's bin/train on the card,
    in bf16 at batch_size 8 (16 rows x 3 s per step), a few steps and one
    validation pass on synthetic shards; the launch counts must show 12
-   forward launches per train and validation step and 12 launches of each
-   backward kernel per train step; losses must be finite, the parameters
+   forward launches per train and validation step and, per train step, 12
+   launches of each of the four tensor-core backward kernels (the bf16
+   backward: gates, chain, dx, dW); losses must be finite, the parameters
    must move, and the checkpoint must hold parameters, optimizer state and
    step and load as bin/infer loads it. Then the gradients of every
    parameter through the kernels against those through the plain LSTM
-   (f32, 2 rows x 3 s), and the time and peak memory of a train step;
+   (f32, 2 rows x 3 s, through the FMA backward kernels, 12 of each
+   counted; and bf16, through the tensor-core ones), and the time and peak
+   memory of a train step;
 6. serve SpEx+: the full-width ConvTasNet of
    examples/librimix/tse/v2/confs/spexplus.yaml (random weights from a
    seed) decodes a small shard with 6 s enrollment wavs through bin/infer:
@@ -60,7 +69,8 @@ pass):
 9. train TF-GridNet: the same model trains through bin/train with
    WESEP_LSTM_UNFOLD=1, bf16, batch_size 4 (8 rows x 1 s), a few steps
    and one validation step: 12 forward launches per train and validation
-   step and 12 of each backward kernel per train step; finite losses,
+   step and 12 of each tensor-core backward kernel per train step (the
+   FMA backward kernels on the f32 gradient check); finite losses,
    parameters that moved, a checkpoint that bin/infer decodes from,
    whole-model gradients through the kernels against those through the
    plain versions, and the time and peak memory of a train step on both
@@ -82,13 +92,14 @@ pass):
 12. the pBSRNN on WESEP_LSTM_LAYER=0: phases 4 and 5 again with every
    BiLSTM on the two-kernel layer (the projection a cuBLAS product, the
    recurrence K2, its adjoint and dWh K2b): 12 K2 launches per forward and
-   none of the fused layer's, 12 of each K2b kernel per train step; the
+   none of the fused layer's, 12 of the gates, chain and dW kernels per
+   bf16 train step (K2b's own kernels on the f32 gradient check); the
    forward and a train step also timed on the default route in the same
    process, in turns;
 13. the unidirectional pBSRNN (`--set
    model_args.tse_model.use_bidirectional=false`): phases 4 and 5 again
-   with 12 K1 launches per forward and 12 of each K1b kernel per train
-   step.
+   with 12 K1 launches per forward and 12 of the gates, chain and dW
+   kernels per bf16 train step (K1b's own on the f32 gradient check).
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
@@ -667,6 +678,251 @@ def check_fused_kernels(name, t_len, batch, dtype, dirs, train):
     return case
 
 
+def tc_bounds(rows, d, h, dirs):
+    """Least times of the tensor-core backward's kernels on the card, bf16
+    (989 TFLOP/s, 3.35 TB/s), each of its own inputs and outputs (so the
+    split design's: G and dg count where they pass between kernels): every
+    input read once, every output written once. The gate products A @ [Wx ; Wh] + (b or xw) (A = [x ; h_{t-1}],
+    f32 out); the chain's dh products, reading G, cs, dy and Wh and writing
+    dg and the tiles' db; dx = dg @ Wx^T; dW = A^T @ dg with its split
+    partials."""
+    h4, k = 4 * h, d + h
+    a_b = rows * (d + dirs * h) * 2  # x once, y once
+    g_b = dirs * rows * h4 * 4
+    dg_b = dirs * rows * h4 * 2
+    w_b = dirs * k * h4 * 2
+    base_b = dirs * rows * h4 * 2 if d == 0 else dirs * h4 * 4
+    gates = _bound(2 * dirs * rows * k * h4, a_b + w_b + base_b + g_b,
+                   torch.bfloat16)
+    chain = _bound(2 * dirs * rows * h * h4,
+                   g_b + rows * dirs * h * (4 + 2) + dg_b
+                   + dirs * h * h4 * 2, torch.bfloat16)
+    dx = _bound(2 * dirs * rows * h4 * d,
+                dg_b + dirs * d * h4 * 2 + dirs * rows * d * 2,
+                torch.bfloat16)
+    wgrad = _bound(2 * dirs * rows * k * h4, a_b + dg_b + dirs * k * h4 * 4,
+                   torch.bfloat16)
+    return {"lstm_gates": gates, "lstm_adjoint_chain": chain, "lstm_dx": dx,
+            "lstm_wgrad": wgrad}
+
+
+def tc_function_bounds(in_bytes, rows, d, h, dirs, dx_bytes):
+    """Least times of the functions the Pallas kernels compute, bf16: the
+    adjoint (gate recompute 2 T B (d + H) 4H, dh 2 T B H 4H and dx
+    2 T B 4H d per direction), reading x or xw, y, cs, dy, the weights and
+    b (`in_bytes`) and writing dg, dx (`dx_bytes`, 0 on the two-kernel
+    routes) and db; and the whole backward, the adjoint and dW = A^T @ dg
+    (2 T B (d + H) 4H more), writing dx (dxw, which is dg, on the
+    two-kernel routes), dW f32 and db. No G and no dg pass between kernels
+    here: those are the split design's own traffic (tc_bounds)."""
+    h4 = 4 * h
+    product = 2 * dirs * rows * (d + h) * h4
+    ops = product + 2 * dirs * rows * h * h4 + 2 * dirs * rows * h4 * d
+    dg_b, db_b = dirs * rows * h4 * 2, dirs * h4 * 4
+    adjoint = _bound(ops, in_bytes + dg_b + dx_bytes + db_b, torch.bfloat16)
+    whole = _bound(ops + product, in_bytes + (dx_bytes or dg_b)
+                   + dirs * (d + h) * h4 * 4 + db_b, torch.bfloat16)
+    return adjoint, whole
+
+
+TC_NAMES = ("lstm_gates", "lstm_adjoint_chain", "lstm_dx", "lstm_wgrad")
+
+
+def check_tc_backward(route, name, t_len, batch, d=D, h=H, length=None):
+    """The tensor-core backward (gates, chain, dx, dW) of one LSTM route at
+    one training shape, bf16, f32 parameters, on the plain forward's saved
+    tensors: each kernel against its plain version on the kernels' own
+    inputs (so that only the kernel differs), the whole backward against
+    the route's step-by-step plain backward (the JAX package's rounding
+    points), a second run bit for bit, each kernel's time beside its plain
+    version's, its cuBLAS yardstick and its bound, and the adjoint and the
+    whole backward, each timed as one call, beside their functions'
+    bounds (tc_function_bounds).
+
+    route: "layer" (x [B, T, d]), "unfold" (x [B, length, 48], ks d / 48,
+    hs 1, T the frames), "two_kernel" or "unidirectional" (xw from x [B, T,
+    d] as the layers project it). Limits: the f32 products (G, dW) within
+    1e-4 of their plain products' largest magnitude; dg, db and dx within
+    2e-2 (rel. L2 and max error over the largest magnitude: dgates and dh
+    are rounded to bf16 every step and a sum that differs in its last bit
+    flips such a rounding now and then); the whole backward against the
+    route's plain backward within 2e-2, the existing kernels' limit."""
+    from wesep_tpu_torch.ops import cuda_lstm, cuda_lstm_fused
+    from wesep_tpu_torch.ops import cuda_lstm_tc as tc
+    from wesep_tpu_torch.ops import cuda_lstm_unfold
+
+    dtype = torch.bfloat16
+    dirs = 1 if route == "unidirectional" else 2
+    gen = torch.Generator().manual_seed(SEED + 20)
+    scale = 1.0 / math.sqrt(h)
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
+
+    flat = [w for _ in range(dirs) for w in (u(d, 4 * h), u(4 * h),
+                                             u(h, 4 * h))]
+    wx32, b32, wh32 = flat[0::3], flat[1::3], flat[2::3]
+    whs = [w.to(dtype).contiguous() for w in wh32]
+    biases, xw, wxs = [b.float().contiguous() for b in b32], None, None
+    if route == "unfold":
+        ks = d // GRID_C
+        x = torch.randn(batch, length, GRID_C, generator=gen).cuda().to(dtype)
+        ys, cs = cuda_lstm_unfold.bilstm_layer_unfold_reference(
+            x, *flat, ks, 1, return_cs=True)
+        spec = tc.RowSpec(tc.ROW_UNFOLD, d, length, GRID_C, 1)
+        wxs = [tc.to_k_major(w, GRID_C, ks).to(dtype).contiguous()
+               for w in wx32]
+    elif route == "layer":
+        x = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda() \
+            .to(dtype)
+        ys, cs = cuda_lstm.bilstm_layer_reference(x, *flat, return_cs=True)
+        spec = tc.RowSpec(tc.ROW_X, d)
+        wxs = [w.to(dtype).contiguous() for w in wx32]
+    else:
+        x_in = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda() \
+            .to(dtype)
+        xw = torch.stack([cuda_lstm_fused.project(x_in, wx, b)
+                          for wx, b in zip(wx32, b32)])
+        ys, cs = cuda_lstm_fused._recurrence_reference(xw, wh32, False, True)
+        x, spec, biases = None, tc.RowSpec(tc.ROW_H, 0), None
+        del x_in
+    frames = ys.shape[1]
+    rows = batch * frames
+    dys = (torch.randn(batch, frames, dirs * h, generator=gen) * 0.1).cuda() \
+        .to(dtype)
+    k_in = spec.d
+
+    def run():
+        g = tc.lstm_gates(x, ys, wxs, whs, spec, biases, xw)
+        dg, db = tc.lstm_adjoint_chain(g, whs, cs, dys)
+        dx2 = tc.lstm_dx(dg, wxs) if wxs is not None else None
+        dw = tc.lstm_wgrad(x, ys, dg, spec)
+        return g, dg, db, dx2, dw
+
+    g, dg, db, dx2, dw = run()
+    torch.cuda.synchronize()
+    g2, dg2, db2, dx22, dw2 = run()
+    repeats = (torch.equal(g, g2) and torch.equal(dg, dg2)
+               and torch.equal(db, db2) and torch.equal(dw, dw2)
+               and (dx2 is None or torch.equal(dx2, dx22)))
+    del g2, dg2, db2, dx22, dw2
+
+    # each kernel against its plain version on the kernels' own inputs
+    def compare(kname, got, want):
+        errs[kname] = rel_err(got, want)
+        max_abs[kname] = (got.float() - want.float()).abs().max().item()
+
+    errs, max_abs = {}, {}
+    compare("lstm_gates", g,
+            tc.lstm_gates_reference(x, ys, wxs, whs, spec, biases, xw))
+    dg_ref, db_ref = tc.lstm_adjoint_chain_reference(g, whs, cs, dys)
+    compare("lstm_adjoint_chain", dg, dg_ref)
+    errs["lstm_adjoint_chain"] = max(errs["lstm_adjoint_chain"],
+                                     rel_l2(dg, dg_ref), rel_err(db, db_ref))
+    del dg_ref
+    if dx2 is not None:
+        compare("lstm_dx", dx2, tc.lstm_dx_reference(dg, wxs))
+    compare("lstm_wgrad", dw, tc.lstm_wgrad_reference(x, ys, dg, spec))
+
+    # the whole backward against the route's step-by-step plain backward
+    if route == "layer":
+        want = cuda_lstm.bilstm_layer_backward_reference(x, *flat, ys, cs,
+                                                         dys)
+        got = tc.layer_backward(x, *flat, ys, cs, dys)
+        names = ("dx", "dwx_f", "db_f", "dwh_f", "dwx_b", "db_b", "dwh_b")
+    elif route == "unfold":
+        want = cuda_lstm_unfold.bilstm_layer_unfold_backward_reference(
+            x, *flat, ys, cs, dys, ks, 1)
+        got = tc.unfold_backward(x, *flat, ys, cs, dys, ks, 1)
+        names = ("dx", "dwx_f", "db_f", "dwh_f", "dwx_b", "db_b", "dwh_b")
+    else:
+        want = cuda_lstm_fused._adjoint_reference(xw, wh32, False, ys, cs,
+                                                  dys)
+        got = tc.fused_backward(xw, wh32, ys, cs, dys)
+        names = ("dxw", "dwh", "db")
+    whole = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+    del got, want
+
+    times = {"lstm_gates": time_ms(
+        lambda: tc.lstm_gates(x, ys, wxs, whs, spec, biases, xw), 1, 5)}
+    times["lstm_adjoint_chain"] = time_ms(
+        lambda: tc.lstm_adjoint_chain(g, whs, cs, dys), 1, 5)
+    if dx2 is not None:
+        times["lstm_dx"] = time_ms(lambda: tc.lstm_dx(dg, wxs), 1, 5)
+    times["lstm_wgrad"] = time_ms(lambda: tc.lstm_wgrad(x, ys, dg, spec), 1,
+                                  5)
+    plain = {"lstm_gates": time_ms(
+        lambda: tc.lstm_gates_reference(x, ys, wxs, whs, spec, biases, xw),
+        0, 1),
+        "lstm_adjoint_chain": time_ms(
+            lambda: tc.lstm_adjoint_chain_reference(g, whs, cs, dys), 0, 1),
+        "lstm_wgrad": time_ms(
+            lambda: tc.lstm_wgrad_reference(x, ys, dg, spec), 0, 1)}
+    if dx2 is not None:
+        plain["lstm_dx"] = time_ms(lambda: tc.lstm_dx_reference(dg, wxs), 0,
+                                   1)
+    # cuBLAS yardsticks, never called by the port: the same products per
+    # direction, back to back (bf16 operands; f32 out for G and dW)
+    a = tc.gate_rows(x, ys, spec, dirs).to(dtype)
+    wcat = [w if wxs is None else torch.cat([wx, w])
+            for wx, w in zip(wxs or [None] * dirs, whs)]
+    library = {"lstm_gates": time_ms(lambda: [
+        torch.mm(a[i].reshape(rows, -1), wcat[i], out_dtype=torch.float32)
+        for i in range(dirs)], 1, 5)}
+    dg2d = dg.reshape(dirs, rows, -1)
+    # the adjoint (gates, chain, dx) and the whole backward, each timed as
+    # one call, against the functions' own bounds
+    def adjoint():
+        dg_, _ = tc.lstm_adjoint_chain(
+            tc.lstm_gates(x, ys, wxs, whs, spec, biases, xw), whs, cs, dys)
+        return tc.lstm_dx(dg_, wxs) if wxs is not None else dg_
+
+    whole_ms = {"adjoint": time_ms(adjoint, 1, 5),
+                "backward": time_ms(run, 1, 5)}
+    in_bytes = sum(t.numel() * t.element_size()
+                   for t in (x, xw, ys, cs, dys, *whs, *(wxs or []),
+                             *(biases or [])) if t is not None)
+    fn_bounds = tc_function_bounds(
+        in_bytes, rows, k_in, h, dirs,
+        x.numel() * x.element_size() if wxs is not None else 0)
+    library["lstm_wgrad"] = time_ms(lambda: [
+        torch.mm(a[i].reshape(rows, -1).t(), dg2d[i],
+                 out_dtype=torch.float32) for i in range(dirs)], 1, 5)
+    if dx2 is not None:
+        library["lstm_dx"] = time_ms(lambda: [
+            torch.matmul(dg2d[i], wxs[i].t()) for i in range(dirs)], 1, 5)
+    del a, g
+    bounds = tc_bounds(rows, k_in, h, dirs)
+    kernels = {}
+    for kname in TC_NAMES:
+        if kname not in times:
+            continue
+        kernels[kname] = {
+            "rel_err": errs[kname], "max_abs_err": max_abs.get(kname),
+            "ms": times[kname], "plain_ms": plain[kname],
+            "library_ms": library.get(kname),
+            "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
+    case = {"route": route, "shape": name, "dtype": "bfloat16", "dirs": dirs,
+            "T": frames, "B": batch, "D": k_in, "H": h, "rows": rows,
+            "repeats_bit_for_bit": repeats, "whole_rel_err": whole,
+            "kernels": kernels,
+            "function": {
+                part: {"ms": whole_ms[part], "bound_ms": b[0],
+                       "bound_by": b[1]}
+                for part, b in zip(("adjoint", "backward"), fn_bounds)},
+            "dg_scratch_bytes": dg.numel() * dg.element_size(),
+            "g_scratch_bytes": dirs * rows * 4 * h * 4}
+    log("kernels tensor-core backward", json.dumps(case))
+    limits = {"lstm_gates": 1e-4, "lstm_wgrad": 1e-4,
+              "lstm_adjoint_chain": 2e-2, "lstm_dx": 2e-2}
+    ok = (repeats and all(errs[n] <= limits[n] for n in errs)
+          and all(v <= 2e-2 for v in whole.values())
+          and all(torch.isfinite(t).all() for t in (dg, db, dw)))
+    if not ok:
+        raise AssertionError(f"tensor-core backward disagrees: {case}")
+    return case
+
+
 def write_shard(root, rng, name, seconds):
     """Premixed shard `name`.tar of len(seconds) two-speaker mixtures, with
     its list, 256-d embeddings (scp), utt2spk and enrollment lists, as the
@@ -878,13 +1134,110 @@ def rows_loss(text):
         r"\|\s+TRAIN\s+\|\s+1\s+\|\s+\d+\s+\|\s+(\S+)\s+\|", text)]
 
 
-def param_grads(model, mix, emb, target):
-    """Gradients of the SI-SDR loss w.r.t. every parameter, by name."""
+def param_grads(model, mix, emb, target, dtype=None):
+    """Gradients of the SI-SDR loss w.r.t. every parameter, by name; with
+    `dtype`, the mixture and the cue cast to it as make_train_step casts
+    them, the estimate back to f32 for the loss."""
     from wesep_tpu_torch.train.losses import si_sdr_loss
 
     names, params = zip(*model.named_parameters())
-    loss = si_sdr_loss(model(mix, emb)[0], target).mean()
+    if dtype is not None:
+        mix, emb = mix.to(dtype), emb.to(dtype)
+    loss = si_sdr_loss(model(mix, emb)[0].float(), target).mean()
     return dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+# Whole-model gradients in bf16, kernels against plain versions. Both
+# paths round h, the dgates and dx to bf16 at the same points, but their
+# f32 sums differ in order (the kernels' tensor-core tiles and cluster
+# partition, the plain versions' step-by-step products), so a rounding
+# flips now and then and moves a value by one bf16 unit (2^-8 of it); the
+# flips pass through 12 layers and the bf16 model around them, whose own
+# roundings then differ too. So the bound is bf16's own error: with K, P
+# the kernels' and the plain versions' bf16 gradients and F the plain
+# versions' f32 one (all parameters' gradients together), a K no further
+# from F than P is gives |K - P| <= |K - F| + |F - P| <= 2 |P - F|; and no
+# parameter may differ by more than BF16_GRAD_WORST (relative L2; some
+# parameters' gradients nearly cancel).
+BF16_GRAD_WORST = 1e-1
+# Controls of that bound: the kernels' path with a fault planted in the
+# chain wrapper's inputs. "g_bf16" rounds the stored gates G to bf16 first,
+# one rounding more than the design has (reported, not required either
+# way); "dh_partial_dropped" zeroes the Wh columns that the last block of
+# every cluster owns, so its partial dh never reaches the units' owners, as
+# a reduce-scatter that lost one sender would: the bound must reject it.
+BF16_GRAD_CONTROLS = ("g_bf16", "dh_partial_dropped")
+
+
+def bf16_verdict(got, want, plain_f32):
+    """bf16 gradients `got` against the plain versions' bf16 (`want`) and
+    f32 (`plain_f32`) ones, by the bounds above."""
+    rel = {n: rel_l2(got[n], want[n]) for n in want}
+    worst = max(rel, key=rel.get)
+    flat = [torch.cat([g.flatten() for g in d.values()])
+            for d in (got, want, plain_f32)]
+    out = {"whole": rel_l2(flat[0], flat[1]),
+           "bf16_vs_f32": rel_l2(flat[1], flat[2]),
+           "kernels_vs_f32": rel_l2(flat[0], flat[2]),
+           "worst": rel[worst], "worst_at": worst}
+    out["passes"] = (out["whole"] <= 2 * out["bf16_vs_f32"]
+                     and out["worst"] <= BF16_GRAD_WORST)
+    return out
+
+
+def planted_chain(chain, fault):
+    """`chain` (the chain wrapper) with one of BF16_GRAD_CONTROLS planted;
+    its `.calls` counts its calls (and `.launches` the kernel's, as the
+    wrapper counts them while it stands in the wrapper's place)."""
+    from wesep_tpu_torch.ops.cuda_lstm_tc import CLUSTER
+
+    def faulty(g, whs, cs, dys, reverse=False):
+        faulty.calls += 1
+        if fault == "g_bf16":
+            g = g.to(torch.bfloat16).float()
+        else:
+            h = whs[0].shape[0]
+            whs = [w.clone() for w in whs]
+            for w in whs:
+                w.view(h, 4, h)[:, :, h - h // CLUSTER:] = 0
+        return chain(g, whs, cs, dys, reverse)
+
+    faulty.calls = faulty.launches = 0
+    return faulty
+
+
+def bf16_grads(model, plain_modules, mix, emb, target, plain_f32):
+    """bf16 whole-model gradients through the kernels against those
+    through the plain versions (`plain_modules` switched by their `plain`
+    flag), with `plain_f32` the plain versions' f32 gradients; raises past
+    the bounds above, or if the bounds accept the dropped partial dh."""
+    from wesep_tpu_torch.ops import cuda_lstm_tc as tc
+
+    got = param_grads(model, mix, emb, target, torch.bfloat16)
+    for m in plain_modules:
+        m.plain = True
+    want = param_grads(model, mix, emb, target, torch.bfloat16)
+    for m in plain_modules:
+        m.plain = False
+    out = bf16_verdict(got, want, plain_f32)
+    if not out["passes"]:
+        raise AssertionError(f"bf16 gradients differ: {out}")
+    del got
+    chain, out["controls"] = tc.lstm_adjoint_chain, {}
+    for fault in BF16_GRAD_CONTROLS:
+        tc.lstm_adjoint_chain = planted = planted_chain(chain, fault)
+        try:
+            bad = param_grads(model, mix, emb, target, torch.bfloat16)
+        finally:
+            tc.lstm_adjoint_chain = chain
+        out["controls"][fault] = dict(bf16_verdict(bad, want, plain_f32),
+                                      chain_calls=planted.calls)
+        del bad
+    dropped = out["controls"]["dh_partial_dropped"]
+    if dropped["passes"] or not dropped["chain_calls"]:
+        raise AssertionError(f"the bf16 bound accepts a dropped partial dh "
+                             f"(or the chain never ran): {dropped}")
+    return out
 
 
 def train_phase(root, route="layer"):
@@ -971,8 +1324,10 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
     expected = [per_pass * (TRAIN_STEPS + val_steps), per_pass * TRAIN_STEPS,
                 per_pass * TRAIN_STEPS]
     log(f"{tag}: {TRAIN_STEPS} steps + {val_steps} validation step through "
-        f"bin/train in {wall:.3f} s wall; launches {' / '.join(names)} "
-        f"{launches} (expected {expected}, no other LSTM kernel)")
+        f"bin/train in {wall:.3f} s wall; launches "
+        f"{ {n: v for n, v in counts.items() if v} } (expected "
+        f"{expected[0]} {names[0]} and {expected[1]} of each tensor-core "
+        f"backward kernel, no other LSTM kernel)")
     expect_counts(counts, expected[0], expected[1], route, tag)
     with open(os.path.join(config["exp_dir"], "train.log")) as f:
         text = f.read()
@@ -1014,7 +1369,11 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
     target = (torch.randn(2, CHUNK, generator=gen) * 0.1).cuda()
     emb = torch.randn(2, 256, generator=gen).cuda()
     lstms = [m for m in model.modules() if isinstance(m, LSTM)]
+    zero_counts()
     got = param_grads(model, mix, emb, target)
+    f32_counts = read_counts()
+    expect_counts(f32_counts, per_pass, per_pass, route,
+                  f"{tag}: f32 gradients", f32=True)
     for m in lstms:
         m.plain = True
     want = param_grads(model, mix, emb, target)
@@ -1027,7 +1386,22 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
         f"(f32): worst relative L2 {rel[worst]:.3e} at {worst} (limit 1e-3)")
     if not rel[worst] <= 1e-3:
         raise AssertionError(f"gradients differ: {worst} {rel[worst]}")
+
+    # and in bf16, the dtype the recipe trains in, where the backward runs
+    # the tensor-core kernels (bounds above bf16_grads)
+    bf16 = bf16_grads(model, lstms, mix, emb, target, want)
     del got, want
+    log(f"{tag}: gradients of {len(rel)} parameters, kernels vs plain LSTM "
+        f"(bf16): whole gradient relative L2 {bf16['whole']:.3e} (limit "
+        f"twice the plain LSTM's bf16 vs f32, {bf16['bf16_vs_f32']:.3e}; "
+        f"kernels' bf16 vs plain f32 {bf16['kernels_vs_f32']:.3e}); worst "
+        f"parameter {bf16['worst']:.3e} at {bf16['worst_at']} (limit "
+        f"{BF16_GRAD_WORST})")
+    for fault, c in bf16["controls"].items():
+        log(f"{tag}: bf16 control {fault} ({c['chain_calls']} chain calls): "
+            f"whole {c['whole']:.3e} against the limit "
+            f"{2 * c['bf16_vs_f32']:.3e}, worst parameter {c['worst']:.3e} "
+            f"at {c['worst_at']}: {'accepted' if c['passes'] else 'rejected'}")
 
     # time and peak memory of one train step at the recipe's size
     rows = 2 * TRAIN_BATCH
@@ -1046,7 +1420,10 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     step(tstate, batch)
-    expect_counts(read_counts(), per_pass, per_pass, route,
+    per_step = read_counts()
+    log(f"{tag}: launches of one train step "
+        f"{ {n: v for n, v in per_step.items() if v} }")
+    expect_counts(per_step, per_pass, per_pass, route,
                   f"one train step ({route} route)")
     step_ms = time_ms(lambda: step(tstate, batch), warmup=1, runs=5)
     peak = torch.cuda.max_memory_allocated()
@@ -1056,6 +1433,8 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
         "wall_s": wall, "running_mean_loss": losses, "step_ms": step_ms,
         "audio_s_per_s": audio / (step_ms / 1e3),
         "peak_memory_bytes": peak, "grad_rel_l2_worst": rel[worst],
+        "bf16_grad_rel_l2": bf16,
+        "launches_per_step": {n: v for n, v in per_step.items() if v},
     }
     if route == "layer":
         for m in lstms:
@@ -1084,7 +1463,7 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
     log(f"{tag}: step [16 rows x 3 s, bf16] {step_ms:.3f} ms with the "
         f"kernels{other}; {audio / (step_ms / 1e3):.1f} audio-s/s; peak "
         f"memory {peak / 2 ** 30:.2f} GiB")
-    return dict(zip(names, launches)), summary
+    return {"main": counts, "f32_grads": f32_counts}, summary
 
 
 TCN_GRADS = ("dx", "db1_eff", "dw1", "dp0", "dkd", "dbd", "dg0w", "dg0b",
@@ -1206,6 +1585,74 @@ def check_tcn(name, batch, dtype, dilation):
     if not ok:
         raise AssertionError(f"tcn_block_gln disagrees at {case}")
     return case
+
+
+def check_large_grids():
+    """K4/K4b and K5/K5b past one grid dimension, f32, against their plain
+    versions: K4 at B = 65537 (two slices of the batch) and at B = 1 with a
+    T of more than 65535 element-wise chunks (the grid-stride loop), K5 at
+    B = 65537; narrow widths (C = H = 8, Ci = Co = 8). Limits as
+    tcn_limits and conv_limits give them for f32."""
+    from wesep_tpu_torch.ops import cuda_conv2d, cuda_tcn
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
+    cases = []
+    for name, batch, t_len in (("tcn_batch_65537", 65537, 16),
+                               ("tcn_t_65536_chunks", 1, 65536 * 128 + 5)):
+        c, h, k = 8, 8, 3
+        args = [r(batch, t_len, c) * 0.5, r(batch, h) * 0.1, r(c, h) * 0.2,
+                torch.tensor([0.25]), r(k, h) * 0.3, r(h) * 0.1,
+                torch.rand(h, generator=gen) + 0.5, r(h) * 0.2,
+                torch.tensor([0.2]), r(h, c) * 0.2, r(c) * 0.1,
+                torch.rand(h, generator=gen) + 0.5, r(h) * 0.2]
+        args = [a.cuda() for a in args]
+        dy = (r(batch, t_len, c) * 0.1).cuda()
+        conf = (2, k, False, 1e-5)
+        y, stats = cuda_tcn._forward_cuda(*args, *conf)
+        ref_y, ref_stats = cuda_tcn.tcn_block_gln_reference(
+            *args, *conf, return_stats=True)
+        grads = cuda_tcn.tcn_block_gln_backward(*args, ref_stats, dy, *conf)
+        ref = cuda_tcn.tcn_block_gln_backward_reference(*args, ref_stats, dy,
+                                                        *conf)
+        cases.append({"shape": name, "B": batch, "T": t_len, "C": c, "H": h,
+                      "y_rel_err": rel_err(y, ref_y),
+                      "stats_rel_err": rel_err(stats, ref_stats),
+                      "grad_rel_l2": {n: rel_l2(g, w) for n, g, w in
+                                      zip(TCN_GRADS, grads, ref)},
+                      "grad_rel_max": {n: rel_err(g, w) for n, g, w in
+                                       zip(TCN_GRADS, grads, ref)},
+                      "limits": tcn_limits(torch.float32)})
+        del args, dy, y, ref_y, grads, ref
+    x = (r(65537, 4, 4, 8) * 0.5).cuda()
+    w = (r(3, 3, 8, 8) * 0.1).cuda()
+    b = (r(8) * 0.1).cuda()
+    dy = (r(65537, 4, 4, 8) * 0.1).cuda()
+    y, stats = cuda_conv2d._forward_cuda(x, w, b, 1e-5)
+    ref_y, ref_stats = cuda_conv2d.conv2d_block_in_reference(
+        x, w, b, return_stats=True)
+    grads = cuda_conv2d.conv2d_block_in_backward(x, w, b, ref_stats, dy)
+    ref = cuda_conv2d.conv2d_block_in_backward_reference(x, w, b, ref_stats,
+                                                         dy)
+    cases.append({"shape": "conv2d_batch_65537", "B": 65537, "T": 4, "F": 4,
+                  "Ci": 8, "Co": 8, "y_rel_err": rel_err(y, ref_y),
+                  "stats_rel_err": rel_err(stats, ref_stats),
+                  "grad_rel_l2": {n: rel_l2(g, w_) for n, g, w_ in
+                                  zip(CONV_GRADS, grads, ref)},
+                  "grad_rel_max": {n: rel_err(g, w_) for n, g, w_ in
+                                   zip(CONV_GRADS, grads, ref)},
+                  "limits": conv_limits(torch.float32)})
+    log("kernels past one grid dimension", json.dumps(cases))
+    for case in cases:
+        lim = case["limits"]
+        if not (case["y_rel_err"] <= lim["y"]
+                and case["stats_rel_err"] <= 1e-4
+                and all(v <= lim["grad_l2"]
+                        for v in case["grad_rel_l2"].values())
+                and all(v <= lim["grad_max"]
+                        for v in case["grad_rel_max"].values())):
+            raise AssertionError(f"past one grid dimension: {case}")
+    return cases
 
 
 def check_fused_tcn_block(dtype):
@@ -1818,15 +2265,19 @@ LSTM_ROUTES = {
 
 def lstm_counters():
     """Every LSTM wrapper's counter: K0, K0b x2, K3, K3b x2, K2, K2b x2,
-    K1, K1b x2."""
+    K1, K1b x2, and the tensor-core backward's four kernels."""
     from wesep_tpu_torch.ops import cuda_lstm as k0
     from wesep_tpu_torch.ops import cuda_lstm_fused as k12
+    from wesep_tpu_torch.ops import cuda_lstm_tc as tc
     from wesep_tpu_torch.ops import cuda_lstm_unfold as k3
 
-    return {name: getattr(module, name)
-            for module, route in ((k0, "layer"), (k3, "unfold"),
-                                  (k12, "two_kernel"), (k12, "unidirectional"))
-            for name in LSTM_ROUTES[route]}
+    counters = {name: getattr(module, name)
+                for module, route in ((k0, "layer"), (k3, "unfold"),
+                                      (k12, "two_kernel"),
+                                      (k12, "unidirectional"))
+                for name in LSTM_ROUTES[route]}
+    counters.update({name: getattr(tc, name) for name in TC_NAMES})
+    return counters
 
 
 def zero_counts():
@@ -1838,13 +2289,23 @@ def read_counts():
     return {n: fn.launches for n, fn in lstm_counters().items()}
 
 
-def expect_counts(got, forward, backward, route, what):
-    """Launch counts of a run: `forward` forward launches and `backward`
-    launches of each backward kernel on the LSTM route taken, none of any
-    other LSTM wrapper."""
+def expect_counts(got, forward, backward, route, what, f32=False):
+    """Launch counts of a run: `forward` forward launches on the LSTM route
+    taken and `backward` layer backwards, none of any other LSTM wrapper.
+    A bf16 backward at shapes the tensor-core route gate takes (every
+    training run here) is one launch each of the gate product, the chain
+    and the dW product, and of the dx product on the layers that project x
+    (K0, K3); an f32 backward (`f32`) one launch of each of the route's own
+    two backward kernels."""
     want = dict.fromkeys(got, 0)
     name, adjoint, wgrad = LSTM_ROUTES[route]
-    want.update({name: forward, adjoint: backward, wgrad: backward})
+    want[name] = forward
+    if f32:
+        want.update({adjoint: backward, wgrad: backward})
+    else:
+        want.update(lstm_gates=backward, lstm_adjoint_chain=backward,
+                    lstm_wgrad=backward,
+                    lstm_dx=backward if route in ("layer", "unfold") else 0)
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
@@ -2087,7 +2548,11 @@ def train_tfgridnet(root):
         mix = (torch.randn(2, GRID_CHUNK, generator=gen) * 0.1).cuda()
         target = (torch.randn(2, GRID_CHUNK, generator=gen) * 0.1).cuda()
         emb = torch.randn(2, 256, generator=gen).cuda()
+        zero_counts()
         got = param_grads(model, mix, emb, target)
+        f32_counts = read_counts()
+        expect_counts(f32_counts, GRID_RNNS, GRID_RNNS, "unfold",
+                      "TF-GridNet f32 gradients", f32=True)
         set_plain(lstms, True)
         want = param_grads(model, mix, emb, target)
         set_plain(lstms, False)
@@ -2131,7 +2596,10 @@ def train_tfgridnet(root):
             zero_counts()
             step(tstate, batch)
             torch.cuda.synchronize()
-            expect_counts(read_counts(), GRID_RNNS, GRID_RNNS,
+            per_step = read_counts()
+            log(f"train TF-GridNet: launches of one train step ({route} "
+                f"route) { {n: v for n, v in per_step.items() if v} }")
+            expect_counts(per_step, GRID_RNNS, GRID_RNNS,
                           "unfold" if unfold else "layer",
                           f"one TF-GridNet train step ({route})")
             torch.cuda.empty_cache()
@@ -2154,7 +2622,7 @@ def train_tfgridnet(root):
             f"peak memory {t['peak_memory_bytes'] / 2 ** 30:.2f} GiB")
     log(f"train TF-GridNet: step with the plain versions (unfold route) "
         f"{plain_step_ms:.3f} ms")
-    return launches, {
+    return {"main": launches, "f32_grads": f32_counts}, {
         "steps": GRID_TRAIN_STEPS, "val_steps": val_steps, "wall_s": wall,
         "running_mean_loss": losses, "plain_step_ms": plain_step_ms,
         "grad_rel_l2_worst": rel[worst],
@@ -2674,12 +3142,28 @@ def main() -> int:
                                      (TRAIN_SHAPES, torch.bfloat16, True))
         for name, (t_len, batch) in shapes.items() for dirs in (2, 1)]
 
+    # the tensor-core backward of every LSTM route at its training shapes
+    # (bf16): the pBSRNN's band and comm on K0, K2 and K1; TF-GridNet's
+    # intra and inter on K3 and on K0 over the materialised frames
+    tc_cases = [check_tc_backward(route, "train_" + name, t_len, batch)
+                for route in ("layer", "two_kernel", "unidirectional")
+                for name, (t_len, batch) in TRAIN_SHAPES.items()]
+    for name, (rows, length) in UNFOLD_SHAPES.items():
+        if name.startswith("train"):
+            tc_cases.append(check_tc_backward(
+                "unfold", name, None, rows, grid_d, GRID_H, length=length))
+            tc_cases.append(check_tc_backward(
+                "layer", "train_grid_" + name[len("train_"):],
+                length - GRID_KS + 1, rows, grid_d, GRID_H))
+
     # the fused Conv2dBlock at DPCCN's six shapes: serving in f32 (2 rows),
     # training in bf16 (8 rows)
     conv_cases = [check_conv2d(name, f, ci, co, batch, dtype)
                   for batch, dtype in ((ROWS_PER_STEP, torch.float32),
                                        (2 * DPCCN_BATCH, torch.bfloat16))
                   for name, f, ci, co in CONV_SHAPES]
+    # the TCN block and the Conv2dBlock past one grid dimension
+    large_cases = check_large_grids()
 
     # 4. serve
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -2816,23 +3300,37 @@ def main() -> int:
         headline[fwd] = serve_band["forward"]
         headline[adjoint] = train_band_case["backward"]
         headline[wgrad] = train_band_case["wgrad"]
+    # and of the tensor-core backward: the main path's training band (K0,
+    # bf16); the chain has no library call of its own (cuDNN's backward
+    # also forms the gates, dx and dW: it is held against the whole
+    # backward, in the tensor-core cases' "function")
+    tc_head = next(c for c in tc_cases
+                   if c["route"] == "layer" and c["shape"] == "train_band")
+    for name in TC_NAMES:
+        sources[name] = "wesep_tpu_torch/csrc/lstm_backward_tc.cu"
+        replaces[name] = "wesep_tpu/ops/pallas_lstm.py:932"
+        headline[name] = dict(tc_head["kernels"][name])
     # launches of each wrapper on each path that ran it: the main-path
-    # count of an entry is its training path's
+    # count of an entry is its training path's (the f32 gradient checks are
+    # the paths of the LSTM routes' own backward kernels, which bf16
+    # training no longer runs)
     by_path = {name: {} for name in headline}
+
+    def add_path(path, counts):
+        for name, n in counts.items():
+            if n:
+                by_path[name][path] = n
+
     by_path["bilstm_layer"].update(serve=serve_launches)
-    for name in ("bilstm_layer", "bilstm_layer_backward",
-                 "bilstm_layer_wgrad"):
-        by_path[name]["train"] = train_launches[name]
+    add_path("train", train_launches["main"])
+    add_path("train_f32_grads", train_launches["f32_grads"])
     by_path["tcn_block_gln"].update(serve=spex_serve_launches)
     for name in ("tcn_block_gln", "tcn_block_gln_backward"):
         by_path[name]["train"] = spex_launches[name]
     for route in ("unfold", "default"):
-        for name, n in grid_served[route]["launches"].items():
-            if n:
-                by_path[name][f"tfgridnet_serve_{route}"] = n
-    for name, n in grid_launches.items():
-        if n:
-            by_path[name]["tfgridnet_train"] = n
+        add_path(f"tfgridnet_serve_{route}", grid_served[route]["launches"])
+    add_path("tfgridnet_train", grid_launches["main"])
+    add_path("tfgridnet_f32_grads", grid_launches["f32_grads"])
     for route in ("pallas", "xla"):
         n = dpccn_served[route]["launches"]["conv2d_block_in"]
         by_path["conv2d_block_in"][f"dpccn_serve_{route}"] = n
@@ -2840,14 +3338,16 @@ def main() -> int:
         by_path[name]["dpccn_train"] = n
     for route, (n_serve, n_train) in route_launches.items():
         by_path[LSTM_ROUTES[route][0]][f"serve_{route}"] = n_serve
-        for name, n in n_train.items():
-            by_path[name][f"train_{route}"] = n
+        add_path(f"train_{route}", n_train["main"])
+        add_path(f"train_{route}_f32_grads", n_train["f32_grads"])
+    main_paths = ("train", "tfgridnet_train", "dpccn_train",
+                  "train_two_kernel", "train_unidirectional",
+                  "train_f32_grads", "tfgridnet_f32_grads",
+                  "train_two_kernel_f32_grads",
+                  "train_unidirectional_f32_grads")
     kernels = []
     for name, head in headline.items():
-        main_path = next(p for p in ("train", "tfgridnet_train",
-                                     "dpccn_train", "train_two_kernel",
-                                     "train_unidirectional")
-                         if p in by_path[name])
+        main_path = next(p for p in main_paths if p in by_path[name])
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name],
                  "launches": by_path[name][main_path],
@@ -2874,6 +3374,8 @@ def main() -> int:
                 dict(c[part], shape=c["shape"], dtype=c["dtype"], B=c["B"],
                      T=c["T"], F=c["F"], Ci=c["Ci"], Co=c["Co"])
                 for c in conv_cases]
+            entry["large_grid_cases"] = [c for c in large_cases
+                                         if c["shape"].startswith("conv2d")]
         elif name in fused_names(2) + fused_names(1):
             part = ("forward", "backward", "wgrad")[
                 fused_names(2 if name.startswith("bilstm") else 1)
@@ -2884,10 +3386,23 @@ def main() -> int:
                 for c in two_kernel_cases
                 if part in c and c["dirs"] == (2 if name.startswith("bilstm")
                                                else 1)]
+        elif name in TC_NAMES:
+            entry["also_replaces"] = [
+                "wesep_tpu/ops/pallas_lstm.py:1353",
+                "wesep_tpu/ops/pallas_lstm.py:546",
+                "wesep_tpu/ops/pallas_lstm.py:230"]
+            entry["cases"] = [
+                dict(c["kernels"][name], route=c["route"], shape=c["shape"],
+                     T=c["T"], B=c["B"], D=c["D"], H=c["H"],
+                     repeats_bit_for_bit=c["repeats_bit_for_bit"],
+                     whole_rel_err=c["whole_rel_err"])
+                for c in tc_cases if name in c["kernels"]]
         elif name.startswith("tcn_block_gln"):
             part = "backward" if name.endswith("backward") else "forward"
             if part == "forward":
                 entry["fused_block_cases"] = fused_cases
+            entry["large_grid_cases"] = [c for c in large_cases
+                                         if c["shape"].startswith("tcn")]
             entry["cases"] = [
                 dict(c[part], shape=c["shape"], dtype=c["dtype"], T=c["T"],
                      B=c["B"], dilation=c["dilation"]) for c in tcn_cases]

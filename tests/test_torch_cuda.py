@@ -17,6 +17,7 @@ from wesep_tpu_torch.ops import (
     cuda_conv2d,
     cuda_lstm,
     cuda_lstm_fused,
+    cuda_lstm_tc,
     cuda_lstm_unfold,
     cuda_tcn,
 )
@@ -78,12 +79,15 @@ def _grad_tolerances(refs, dtype):
                                      (1100, 2, 16, 32), (1, 1, 4, 4),
                                      (5, 9, 128, 32)])
 def test_bilstm_layer_backward_matches_plain(cuda, dtype, b, t, d, h):
-    """Forward with cell states, then both backward kernels, each against
-    its plain version on the same tensors."""
+    """Forward with cell states, then the backward kernels, each against
+    its plain version on the same tensors: the layer's own two (f32, and
+    bf16 shapes the tensor-core route gate refuses) or the four of the
+    tensor-core backward (bf16 shapes it takes)."""
     args = _args(cuda, b, t, d, h, dtype)
+    tc = cuda_lstm_tc.backward_fits(dtype, d, h, b * t)
     counts = (cuda_lstm.bilstm_layer.launches,
               cuda_lstm.bilstm_layer_backward.launches,
-              cuda_lstm.bilstm_layer_wgrad.launches)
+              cuda_lstm.bilstm_layer_wgrad.launches, _tc_counts())
     ys, cs = cuda_lstm._forward_cuda(*args, with_cs=True)
     ref_ys, ref_cs = cuda_lstm.bilstm_layer_reference(*args, return_cs=True)
     assert cs.dtype == torch.float32 and cs.shape == (b, t, 2 * h)
@@ -99,8 +103,9 @@ def test_bilstm_layer_backward_matches_plain(cuda, dtype, b, t, d, h):
     torch.cuda.synchronize()
     assert (cuda_lstm.bilstm_layer.launches,
             cuda_lstm.bilstm_layer_backward.launches,
-            cuda_lstm.bilstm_layer_wgrad.launches) == tuple(
-                c + 1 for c in counts)
+            cuda_lstm.bilstm_layer_wgrad.launches, _tc_counts()) == (
+                counts[0] + 1, counts[1] + (not tc), counts[2] + (not tc),
+                tuple(c + tc for c in counts[3]))
     want = cuda_lstm.bilstm_layer_backward_reference(
         *args, ref_ys, ref_cs, dys)
     assert got[0].dtype == dtype
@@ -184,6 +189,73 @@ def _fused_inputs(device, dirs, b, t, h, dtype, seed=0):
     whs = [(torch.randn(h, 4 * h, generator=gen) * 0.2).to(device)
            for _ in range(dirs)]
     return xw.to(dtype), whs
+
+
+def _tc_counts():
+    return tuple(f.launches for f in (
+        cuda_lstm_tc.lstm_gates, cuda_lstm_tc.lstm_adjoint_chain,
+        cuda_lstm_tc.lstm_dx, cuda_lstm_tc.lstm_wgrad))
+
+
+# (route, B, T, D, H): ragged row tiles (B % 32), one step, the smallest
+# hidden size the chain takes, a unidirectional layer walked backwards
+TC_SHAPES = [("layer", 37, 9, 24, 64), ("layer", 5, 1, 8, 128),
+             ("two_kernel", 70, 6, 0, 192), ("reverse", 33, 7, 0, 256),
+             ("unfold", 19, 11, 16, 64)]
+
+
+@pytest.mark.parametrize("route,b,t,d,h", TC_SHAPES)
+def test_tc_backward_matches_its_plain_composition(cuda, route, b, t, d, h):
+    """The tensor-core backward's four kernels against the same composition
+    of their plain versions, bf16, on the same saved tensors: G and dW
+    within 1e-4 of their largest magnitude (f32 sums of exact products in
+    another order); dg, db and dx within 2e-2 (bf16 roundings flip where an
+    f32 sum differs in its last bit); a second run bit for bit."""
+    tc = cuda_lstm_tc
+    gen = torch.Generator().manual_seed(7)
+    r = lambda *s: (torch.randn(*s, generator=gen) * 0.3).to(cuda)  # noqa
+    dirs = 1 if route == "reverse" else 2
+    whs = [r(h, 4 * h).bfloat16() for _ in range(dirs)]
+    ys = r(b, t, dirs * h).bfloat16()
+    cs = r(b, t, dirs * h)
+    dys = r(b, t, dirs * h).bfloat16()
+    biases, xw, wxs, x = None, None, None, None
+    if route == "unfold":  # ks 2, hs 1 over C = d // 2: T = L - 1
+        x = r(b, t + 1, d // 2).bfloat16()
+        spec = tc.RowSpec(tc.ROW_UNFOLD, d, t + 1, d // 2, 1)
+    elif route == "layer":
+        x = r(b, t, d).bfloat16()
+        spec = tc.RowSpec(tc.ROW_X, d)
+    else:
+        spec = tc.RowSpec(tc.ROW_H, 0)
+        xw = r(dirs, b, t, 4 * h).bfloat16()
+    if x is not None:
+        wxs = [r(d, 4 * h).bfloat16() for _ in range(dirs)]
+        biases = [r(4 * h) for _ in range(dirs)]
+    rev = route == "reverse"
+    before = _tc_counts()
+    got = tc.split_backward(x, spec, wxs, biases, whs, ys, cs, dys, xw, rev)
+    again = tc.split_backward(x, spec, wxs, biases, whs, ys, cs, dys, xw,
+                              rev)
+    torch.cuda.synchronize()
+    assert _tc_counts() == tuple(
+        c + 2 * n for c, n in zip(before, (1, 1, x is not None, 1)))
+    assert all(a is None and g is None or torch.equal(a, g)
+               for a, g in zip(again, got))
+    g = tc.lstm_gates(x, ys, wxs, whs, spec, biases, xw, rev)
+    g_ref = tc.lstm_gates_reference(x, ys, wxs, whs, spec, biases, xw, rev)
+    dg_ref, db_ref = tc.lstm_adjoint_chain_reference(g, whs, cs, dys, rev)
+    dx2, dw, db, dg = got
+
+    def rel(a, w):
+        return ((a.float() - w.float()).abs().max()
+                / w.float().abs().max().clamp_min(1e-6)).item()
+
+    assert rel(g, g_ref) <= 1e-4
+    assert rel(dg, dg_ref) <= 2e-2 and rel(db, db_ref) <= 2e-2
+    assert rel(dw, tc.lstm_wgrad_reference(x, ys, dg, spec, rev)) <= 1e-4
+    if x is not None:
+        assert rel(dx2, tc.lstm_dx_reference(dg, wxs)) <= 2e-2
 
 
 def _fused_counts():
@@ -273,8 +345,9 @@ def test_fused_kernels_repeat_bit_for_bit(cuda, dtype, dirs, reverse):
 def test_fused_functions_route_and_return_f32_weight_gradients(
         cuda, monkeypatch):
     """Through models.common.LSTM on a bf16 stream with f32 parameters:
-    WESEP_LSTM_LAYER=0 sends the bidirectional layer to K2/K2b and none to
-    K0; the unidirectional one goes to K1/K1b. dx comes back in bf16,
+    WESEP_LSTM_LAYER=0 sends the bidirectional layer to K2 and none to K0;
+    the unidirectional one goes to K1; both backwards (bf16, H 128) to the
+    tensor-core backward's gates, chain and dW. dx comes back in bf16,
     weight gradients in f32 within the bf16 limits of the plain versions';
     no gradient asked, no graph."""
     from wesep_tpu_torch.models.common import LSTM
@@ -286,10 +359,13 @@ def test_fused_functions_route_and_return_f32_weight_gradients(
         torch.manual_seed(0)
         module = LSTM(64, 128, bidirectional=bidirectional).to(cuda)
         before, k0 = _fused_counts(), cuda_lstm.bilstm_layer.launches
+        tc_before = _tc_counts()
         xg = x.clone().requires_grad_()
         module(xg).float().square().sum().backward()
-        step = (1, 1, 1, 0, 0, 0) if bidirectional else (0, 0, 0, 1, 1, 1)
+        step = (1, 0, 0, 0, 0, 0) if bidirectional else (0, 0, 0, 1, 0, 0)
         assert _fused_counts() == tuple(c + s for c, s in zip(before, step))
+        assert _tc_counts() == tuple(c + s for c, s in zip(tc_before,
+                                                            (1, 1, 0, 1)))
         assert cuda_lstm.bilstm_layer.launches == k0
         assert xg.grad.dtype == torch.bfloat16
         got = [xg.grad] + [p.grad.clone() for p in module.parameters()]
@@ -358,18 +434,21 @@ UNFOLD_SHAPES = [(5, 13, 8, 4, 1, 16), (3, 19, 16, 4, 2, 32),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,length,c,ks,hs,h", UNFOLD_SHAPES)
 def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
-    """Forward (with and without cell states) and both backward kernels
-    against their plain versions (unfold + the plain layer + the fold), each
-    from the same saved tensors. Limits as for the plain layer: ys 1e-4 or 4
-    bf16 units in the last place; gradients 1e-4 (f32) or 2e-2 (bf16) of
-    the plain version's largest magnitude; the weight-gradient kernel 1e-4
-    of the plain product on the kernel's own dgates."""
+    """Forward (with and without cell states) and the backward kernels (the
+    layer's own two, or the tensor-core backward's four for bf16 shapes its
+    route gate takes) against their plain versions (unfold + the plain
+    layer + the fold), each from the same saved tensors. Limits as for the
+    plain layer: ys 1e-4 or 4 bf16 units in the last place; gradients 1e-4
+    (f32) or 2e-2 (bf16) of the plain version's largest magnitude; the
+    weight-gradient kernel 1e-4 of the plain product on the kernel's own
+    dgates."""
     args = _unfold_args(cuda, b, length, c, ks, h, dtype)
     k = cuda_lstm_unfold
     frames = (length - ks) // hs + 1
+    tc = cuda_lstm_tc.backward_fits(dtype, ks * c, h, b * frames, c=c)
     counts = (k.bilstm_layer_unfold.launches,
               k.bilstm_layer_unfold_backward.launches,
-              k.bilstm_layer_unfold_wgrad.launches)
+              k.bilstm_layer_unfold_wgrad.launches, _tc_counts())
     y = k.bilstm_layer_unfold(*args, ks, hs)
     ys, cs = k._forward_cuda(*args, ks, hs, with_cs=True)
     torch.cuda.synchronize()
@@ -387,8 +466,9 @@ def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
     torch.cuda.synchronize()
     assert (k.bilstm_layer_unfold.launches,
             k.bilstm_layer_unfold_backward.launches,
-            k.bilstm_layer_unfold_wgrad.launches) == (
-                counts[0] + 2, counts[1] + 1, counts[2] + 1)
+            k.bilstm_layer_unfold_wgrad.launches, _tc_counts()) == (
+                counts[0] + 2, counts[1] + (not tc), counts[2] + (not tc),
+                tuple(c + tc for c in counts[3]))
     want = k.bilstm_layer_unfold_backward_reference(
         *args, ref_ys, ref_cs, dys, ks, hs)
     assert got[0].dtype == dtype and got[0].shape == (b, length, c)

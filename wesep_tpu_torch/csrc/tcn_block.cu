@@ -84,7 +84,9 @@ __global__ void __launch_bounds__(kEwThreads)
                      int dilation, int pad_lo) {
   const int b = blockIdx.z;
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t0 = blockIdx.y * kChunkRows;
+  const int nc = ew_chunks(T_len);
+  for (int cy = blockIdx.y; cy < nc; cy += gridDim.y) {
+  const int t0 = cy * kChunkRows;
   const int t1 = min(t0 + kChunkRows, T_len);
   float sum = 0.0f;
   float sq = 0.0f;
@@ -126,12 +128,13 @@ __global__ void __launch_bounds__(kEwThreads)
   }
   block_sum2(sum, sq);
   if (threadIdx.x == 0) {
-    const size_t blocks = static_cast<size_t>(gridDim.x) * gridDim.y;
+    const size_t blocks = static_cast<size_t>(gridDim.x) * nc;
     const size_t at =
-        (b * blocks + static_cast<size_t>(blockIdx.y) * gridDim.x +
-         blockIdx.x) * 2;
+        (b * blocks + static_cast<size_t>(cy) * gridDim.x + blockIdx.x) * 2;
     part[at] = sum;
     part[at + 1] = sq;
+  }
+  __syncthreads();  // block_sum2's scratch is read before the next chunk
   }
 }
 
@@ -203,7 +206,7 @@ cudaError_t forward(const void* x, const void* b1_eff, const void* w1,
   T* gw = u + n_stream;
   const dim3 ew = ew_grid(B, T_len, H);
   const int p_u = u_blocks(T_len, H);
-  const int p_w = static_cast<int>(ew.x * ew.y);
+  const int p_w = static_cast<int>(ew.x) * ew_chunks(T_len);
   float* part_u = static_cast<float*>(f32_ws);
   float* part_w = part_u + static_cast<size_t>(B) * p_u * 2;
   float* corr = part_w + static_cast<size_t>(B) * p_w * 2;
@@ -247,8 +250,8 @@ extern "C" void tcn_block_forward_scratch(int B, int T_len, int C, int H,
                                           long long* n_f32) {
   const dim3 ew = tcn::ew_grid(B, T_len, H);
   *n_stream = 2LL * B * T_len * H;
-  *n_f32 = 2LL * B * tcn::u_blocks(T_len, H) + 2LL * B * ew.x * ew.y +
-           1LL * B * C;
+  *n_f32 = 2LL * B * tcn::u_blocks(T_len, H) +
+           2LL * B * ew.x * tcn::ew_chunks(T_len) + 1LL * B * C;
 }
 
 // x [B, T, C], w1 [C, H], kd [k, H], w2 [H, C] in the stream's dtype;

@@ -165,14 +165,17 @@ __global__ void __launch_bounds__(kEwThreads)
   const int b = blockIdx.z;
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
-  const int t0 = blockIdx.y * kChunkRows;
-  const int t1 = min(t0 + kChunkRows, T_len);
-  const size_t base = static_cast<size_t>(b) * T_len * C + c;
-  float acc = 0.0f;
-  for (int t = t0; t < t1; ++t) {
-    acc += to_f32(dy[base + static_cast<size_t>(t) * C]);
+  const int nc = ew_chunks(T_len);
+  for (int cy = blockIdx.y; cy < nc; cy += gridDim.y) {
+    const int t0 = cy * kChunkRows;
+    const int t1 = min(t0 + kChunkRows, T_len);
+    const size_t base = static_cast<size_t>(b) * T_len * C + c;
+    float acc = 0.0f;
+    for (int t = t0; t < t1; ++t) {
+      acc += to_f32(dy[base + static_cast<size_t>(t) * C]);
+    }
+    part[(static_cast<size_t>(b) * nc + cy) * C + c] = acc;
   }
-  part[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * C + c] = acc;
 }
 
 // What one thread (channel h of sample b) needs to recompute v in f32.
@@ -224,24 +227,24 @@ __device__ __forceinline__ float recompute_v(const T* __restrict__ ub,
   return v;
 }
 
-// Where a block of an elementwise kernel puts its per-channel partials
-// (`nvec` vectors of H) and its two scalar partials.
-__device__ __forceinline__ size_t vec_at(int b, int nvec, int vec, int H,
-                                         int h) {
-  return ((static_cast<size_t>(b) * gridDim.y + blockIdx.y) * nvec + vec) * H +
-         h;
+// Where a block of an elementwise kernel puts the per-channel partials of
+// chunk cy of nc (`nvec` vectors of H) and its two scalar partials.
+__device__ __forceinline__ size_t vec_at(int b, int cy, int nc, int nvec,
+                                         int vec, int H, int h) {
+  return ((static_cast<size_t>(b) * nc + cy) * nvec + vec) * H + h;
 }
 __device__ __forceinline__ void write_scalars(float* __restrict__ spart,
-                                              int b, float s0, float s1) {
+                                              int b, int cy, int nc, float s0,
+                                              float s1) {
   block_sum2(s0, s1);
   if (threadIdx.x == 0) {
-    const size_t blocks = static_cast<size_t>(gridDim.x) * gridDim.y;
+    const size_t blocks = static_cast<size_t>(gridDim.x) * nc;
     const size_t at =
-        (b * blocks + static_cast<size_t>(blockIdx.y) * gridDim.x +
-         blockIdx.x) * 2;
+        (b * blocks + static_cast<size_t>(cy) * gridDim.x + blockIdx.x) * 2;
     spart[at] = s0;
     spart[at + 1] = s1;
   }
+  __syncthreads();  // block_sum2's scratch is read before the next chunk
 }
 
 // round(n1) for the dW2 product; partials of dg1, dbe1 (vpart, 2 vectors)
@@ -260,7 +263,9 @@ __global__ void __launch_bounds__(kEwThreads)
                     int T_len, int H, int k, int dilation, int pad_lo) {
   const int b = blockIdx.z;
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t0 = blockIdx.y * kChunkRows;
+  const int nc = ew_chunks(T_len);
+  for (int cy = blockIdx.y; cy < nc; cy += gridDim.y) {
+  const int t0 = cy * kChunkRows;
   const int t1 = min(t0 + kChunkRows, T_len);
   float acc0 = 0.0f;
   float acc1 = 0.0f;
@@ -288,10 +293,11 @@ __global__ void __launch_bounds__(kEwThreads)
       acc0 += gw * d;
       acc1 += gw * d * s1hat;
     }
-    vpart[vec_at(b, 2, 0, H, h)] = dg1;
-    vpart[vec_at(b, 2, 1, H, h)] = dbe1;
+    vpart[vec_at(b, cy, nc, 2, 0, H, h)] = dg1;
+    vpart[vec_at(b, cy, nc, 2, 1, H, h)] = dbe1;
   }
-  write_scalars(spart, b, acc0, acc1);
+  write_scalars(spart, b, cy, nc, acc0, acc1);
+  }
 }
 
 // round(dv) for the gather; partials of dbd and dkd (vpart, 1 + k vectors)
@@ -311,7 +317,9 @@ __global__ void __launch_bounds__(kEwThreads)
                   float nhw) {
   const int b = blockIdx.z;
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t0 = blockIdx.y * kChunkRows;
+  const int nc = ew_chunks(T_len);
+  for (int cy = blockIdx.y; cy < nc; cy += gridDim.y) {
+  const int t0 = cy * kChunkRows;
   const int t1 = min(t0 + kChunkRows, T_len);
   float dp1 = 0.0f;
   if (h < H) {
@@ -342,13 +350,14 @@ __global__ void __launch_bounds__(kEwThreads)
       for (int kk = 0; kk < kMaxTaps; ++kk) dkd[kk] += dv * taps[kk];
       dvc[idx] = from_f32<T>(dv);
     }
-    vpart[vec_at(b, 1 + k, 0, H, h)] = dbd;
+    vpart[vec_at(b, cy, nc, 1 + k, 0, H, h)] = dbd;
 #pragma unroll
     for (int kk = 0; kk < kMaxTaps; ++kk) {
-      if (kk < k) vpart[vec_at(b, 1 + k, 1 + kk, H, h)] = dkd[kk];
+      if (kk < k) vpart[vec_at(b, cy, nc, 1 + k, 1 + kk, H, h)] = dkd[kk];
     }
   }
-  write_scalars(spart, b, dp1, 0.0f);
+  write_scalars(spart, b, cy, nc, dp1, 0.0f);
+  }
 }
 
 // dn0 by a gather of round(dv) at the mirrored shifts, accumulated in the
@@ -364,7 +373,9 @@ __global__ void __launch_bounds__(kEwThreads)
                    int dilation, int pad_lo) {
   const int b = blockIdx.z;
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t0 = blockIdx.y * kChunkRows;
+  const int nc = ew_chunks(T_len);
+  for (int cy = blockIdx.y; cy < nc; cy += gridDim.y) {
+  const int t0 = cy * kChunkRows;
   const int t1 = min(t0 + kChunkRows, T_len);
   float acc2 = 0.0f;
   float acc3 = 0.0f;
@@ -401,10 +412,11 @@ __global__ void __launch_bounds__(kEwThreads)
       acc2 += gw * dn0;
       acc3 += gw * dn0 * s0hat;
     }
-    vpart[vec_at(b, 2, 0, H, h)] = dg0;
-    vpart[vec_at(b, 2, 1, H, h)] = dbe0;
+    vpart[vec_at(b, cy, nc, 2, 0, H, h)] = dg0;
+    vpart[vec_at(b, cy, nc, 2, 1, H, h)] = dbe0;
   }
-  write_scalars(spart, b, acc2, acc3);
+  write_scalars(spart, b, cy, nc, acc2, acc3);
+  }
 }
 
 // round(ds) for the last two products; partials of db1_eff (vpart, one
@@ -421,7 +433,9 @@ __global__ void __launch_bounds__(kEwThreads)
                   int T_len, int H, float nhw) {
   const int b = blockIdx.z;
   const int h = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t0 = blockIdx.y * kChunkRows;
+  const int nc = ew_chunks(T_len);
+  for (int cy = blockIdx.y; cy < nc; cy += gridDim.y) {
+  const int t0 = cy * kChunkRows;
   const int t1 = min(t0 + kChunkRows, T_len);
   float dp0 = 0.0f;
   if (h < H) {
@@ -443,9 +457,10 @@ __global__ void __launch_bounds__(kEwThreads)
       db1 += ds;
       dsc[idx] = from_f32<T>(ds);
     }
-    vpart[vec_at(b, 1, 0, H, h)] = db1;
+    vpart[vec_at(b, cy, nc, 1, 0, H, h)] = db1;
   }
-  write_scalars(spart, b, dp0, 0.0f);
+  write_scalars(spart, b, cy, nc, dp0, 0.0f);
+  }
 }
 
 constexpr int kSplitRows = 1024;  // rows of (batch, time) per wgrad block
@@ -478,7 +493,7 @@ struct Layout {
 Layout layout(int B, int T_len, int C, int H, int k) {
   const dim3 ew = ew_grid(B, T_len, H);
   const size_t n = static_cast<size_t>(B) * T_len * H;
-  const size_t chunks = static_cast<size_t>(B) * ew.y;
+  const size_t chunks = static_cast<size_t>(B) * ew_chunks(T_len);
   const size_t vec_h = chunks * (1 + k) * H;
   const size_t vec_c = chunks * C;
   Layout l;
@@ -533,8 +548,8 @@ cudaError_t backward(const Args& a, int B, int T_len, int C, int H, int k,
   float* dscal = static_cast<float*>(a.dscal);
   const dim3 ew = ew_grid(B, T_len, H);
   const int threads = ew_threads(H);
-  const int chunks = static_cast<int>(ew.y);
-  const int sblocks = static_cast<int>(ew.x * ew.y);
+  const int chunks = ew_chunks(T_len);  // partials per sample
+  const int sblocks = static_cast<int>(ew.x) * chunks;
   const float nhw = static_cast<float>(T_len) * static_cast<float>(H);
   const long long rows = static_cast<long long>(B) * T_len;
   const dim3 grid_h((T_len + kBM - 1) / kBM, (H + kBN - 1) / kBN, B);
@@ -549,7 +564,7 @@ cudaError_t backward(const Args& a, int B, int T_len, int C, int H, int k,
 
   const int cthreads = ew_threads(C);
   tcn_colsum_kernel<T>
-      <<<dim3((C + cthreads - 1) / cthreads, chunks, B), cthreads, 0,
+      <<<dim3((C + cthreads - 1) / cthreads, ew.y, B), cthreads, 0,
          stream>>>(dy, vpart, T_len, C);
   TCN_CHECK(cudaGetLastError());
   TCN_CHECK(sum_partials(vpart, static_cast<float*>(a.db2), 1, B * chunks, C,

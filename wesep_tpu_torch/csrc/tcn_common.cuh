@@ -265,18 +265,26 @@ inline int ew_threads(int H) {
   const int t = (H + 31) / 32 * 32;
   return t < kEwThreads ? t : kEwThreads;
 }
-inline int ew_chunks(int T_len) { return (T_len + kChunkRows - 1) / kChunkRows; }
+// The chunks of kChunkRows rows of a sample, and the most blocks a grid's y
+// dimension takes: an elementwise kernel's blocks loop over the chunks
+// blockIdx.y, blockIdx.y + gridDim.y, ... and index their partials by
+// chunk, so a T of more than 65535 chunks gives the same partials.
+constexpr int kMaxGridY = 65535;
+__host__ __device__ inline int ew_chunks(int T_len) {
+  return (T_len + kChunkRows - 1) / kChunkRows;
+}
 inline dim3 ew_grid(int B, int T_len, int H) {
   const int threads = ew_threads(H);
-  return dim3((H + threads - 1) / threads, ew_chunks(T_len), B);
+  const int chunks = ew_chunks(T_len);
+  return dim3((H + threads - 1) / threads,
+              chunks < kMaxGridY ? chunks : kMaxGridY, B);
 }
 
 inline bool bad_shape(int B, int T_len, int C, int H, int k, int dilation,
                       int pad_lo) {
   return B <= 0 || T_len <= 0 || C <= 0 || H <= 0 || C % 8 != 0 ||
          H % 8 != 0 || k <= 0 || k > kMaxTaps || dilation <= 0 ||
-         pad_lo < 0 || pad_lo > (k - 1) * dilation || B > 65535 ||
-         ew_chunks(T_len) > 65535;
+         pad_lo < 0 || pad_lo > (k - 1) * dilation || B > 65535;
 }
 
 #define TCN_CHECK(expr)                         \

@@ -24,7 +24,10 @@ Backward: S_b sums round(dy * e_hat); dout is rounded before db's sum and
 before both products (dK in f32, dx rounded once).
 
 Kernel limits (`csrc/conv2d_common.cuh`): Ci and Co multiples of 8, at
-most 256; B at most 65535. DPCCN's gated convs have Ci <= 32, Co 16 or 32.
+most 256; B at most 65535 a launch (a grid dimension), so a larger batch
+runs in slices of that many samples (`cuda_tcn.run_in_batch_chunks`: the
+statistics are per sample). DPCCN's gated convs have Ci <= 32, Co 16 or
+32.
 """
 
 import ctypes
@@ -34,7 +37,7 @@ from torch.autograd.function import once_differentiable
 from torch.nn import functional as F
 
 from wesep_tpu_torch.ops.cuda_lstm import _entry, _launch
-from wesep_tpu_torch.ops.cuda_tcn import _aligned
+from wesep_tpu_torch.ops.cuda_tcn import _aligned, run_in_batch_chunks
 
 __all__ = ["kernel_fits", "conv2d_block_in", "conv2d_block_in_reference",
            "conv2d_block_in_backward", "conv2d_block_in_backward_reference",
@@ -145,12 +148,11 @@ def _kernel_args(x, kernel, bias):
         raise ValueError(
             f"kernel must be [3, 3, {ci}, Co] and bias [Co]; got "
             f"{tuple(kernel.shape)}, {tuple(bias.shape)}")
-    if (not kernel_fits(ci, co) or not 0 < batch <= 65535 or t_len == 0
+    if (not kernel_fits(ci, co) or batch == 0 or t_len == 0
             or f_len == 0):
         raise ValueError(
             f"kernel needs Ci and Co multiples of 8, at most {MAX_CHANNELS}, "
-            f"and a non-empty x with B <= 65535; got x {tuple(x.shape)}, "
-            f"Co={co}")
+            f"and a non-empty x; got x {tuple(x.shape)}, Co={co}")
     if kernel.device != x.device or bias.device != x.device:
         raise ValueError("all tensors must be on x's device")
     return (_aligned(x.detach()), _aligned(kernel.detach().to(x.dtype)),
@@ -158,8 +160,16 @@ def _kernel_args(x, kernel, bias):
 
 
 def _forward_cuda(x, kernel, bias, eps):
-    """Launch the forward kernels -> (y, stats [B, 2, Co])."""
+    """Launch the forward kernels -> (y, stats [B, 2, Co]), in slices of at
+    most cuda_tcn.MAX_GRID_BATCH samples (the statistics are per sample)."""
     x, kernel, bias = _kernel_args(x, kernel, bias)
+    return run_in_batch_chunks(
+        lambda b0, b1: _forward_slice(x[b0:b1], kernel, bias, eps),
+        x.shape[0])
+
+
+def _forward_slice(x, kernel, bias, eps):
+    """The forward kernels over a batch they take, operands prepared."""
     batch, t_len, f_len, ci = x.shape
     co = kernel.shape[-1]
     dims = (batch, t_len, f_len, ci, co)
@@ -189,6 +199,20 @@ def conv2d_block_in_backward(x, kernel, bias, stats, dy):
         raise ValueError(f"dy must be [B, T, F, Co], got {tuple(dy.shape)}")
     if tuple(stats.shape) != (batch, 2, co) or stats.device != x.device:
         raise ValueError(f"stats must be [B, 2, Co], got {tuple(stats.shape)}")
+    stats = _aligned(stats.float())
+    dy = _aligned(dy.detach().to(x.dtype))
+    flipped = _aligned(kernel.flip(0, 1).transpose(2, 3))
+    # dx per sample; dK and db summed over the slices
+    return run_in_batch_chunks(
+        lambda b0, b1: _backward_slice(x[b0:b1], kernel, flipped, bias,
+                                       stats[b0:b1], dy[b0:b1]),
+        batch, summed=(1, 2))
+
+
+def _backward_slice(x, kernel, flipped, bias, stats, dy):
+    """The backward kernels over a batch they take, operands prepared."""
+    batch, t_len, f_len, ci = x.shape
+    co = kernel.shape[-1]
     dims = (batch, t_len, f_len, ci, co)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -199,9 +223,8 @@ def conv2d_block_in_backward(x, kernel, bias, stats, dy):
                                  x.dtype, x.device)
     _launch(conv2d_block_in_backward,
             _entry("conv2d_block_bwd", "conv2d_block_backward", 11, 6),
-            (x, kernel, _aligned(kernel.flip(0, 1).transpose(2, 3)), bias,
-             _aligned(stats.float()), _aligned(dy.detach().to(x.dtype)), dx,
-             dk, db, stream_ws, f32_ws),
+            (x, kernel, flipped, bias, stats, dy, dx, dk, db, stream_ws,
+             f32_ws),
             (*dims, _DTYPE_CODES[x.dtype]), x.device)
     return dx, dk, db
 

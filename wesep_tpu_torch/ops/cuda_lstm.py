@@ -317,8 +317,17 @@ def bilstm_layer_backward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys):
 
 
 def _backward_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys):
-    """Both backward kernels; results as `bilstm_layer_backward_reference`."""
+    """The backward kernels; results as `bilstm_layer_backward_reference`.
+    Where `cuda_lstm_tc.backward_fits` takes the shapes (bf16), the
+    tensor-core backward of ops/cuda_lstm_tc.py; otherwise the serial
+    adjoint and weight-gradient kernels of csrc/bilstm_layer_bwd.cu."""
+    from wesep_tpu_torch.ops import cuda_lstm_tc
+
     d = x.shape[2]
+    if cuda_lstm_tc.backward_fits(x.dtype, d, wh_f.shape[0],
+                                  x.shape[0] * x.shape[1]):
+        return cuda_lstm_tc.layer_backward(x, wx_f, b_f, wh_f, wx_b, b_b,
+                                           wh_b, ys, cs, dys)
     dx, db, dg = bilstm_layer_backward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b,
                                        ys, cs, dys)
     dw = bilstm_layer_wgrad(x.detach().contiguous(), ys.contiguous(), dg)

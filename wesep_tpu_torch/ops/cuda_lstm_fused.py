@@ -375,15 +375,26 @@ def _layer_forward(ctx, route, plain, save, reverse, x, flat):
 
 
 def _layer_backward(ctx, route, dys):
-    """-> (dx, then dWx, db, dWh per direction in the parameters' dtype)."""
+    """-> (dx, then dWx, db, dWh per direction in the parameters' dtype).
+    On the card a bf16 stream whose shapes `cuda_lstm_tc.backward_fits`
+    takes runs the tensor-core adjoint and dWh of ops/cuda_lstm_tc.py,
+    other streams the route's K1b/K2b kernels."""
+    from wesep_tpu_torch.ops import cuda_lstm_tc
+
     x, *flat, ys, cs = ctx.saved_tensors
     weights = [flat[i:i + 3] for i in range(0, len(flat), 3)]
     xw = _project_all(x, weights)  # recomputed, not saved
     whs = [wh for _, _, wh in weights]
     dys = dys.to(x.dtype)
     if _on_kernel_path(ctx.plain, x):
-        dxw, db = _backward_cuda(route[1], xw, whs, ctx.reverse, ys, cs, dys)
-        dwh = _wgrad_cuda(route[2], ys.contiguous(), dxw, ctx.reverse)
+        if cuda_lstm_tc.backward_fits(xw.dtype, 0, whs[0].shape[0],
+                                      xw.shape[1] * xw.shape[2]):
+            dxw, dwh, db = cuda_lstm_tc.fused_backward(xw, whs, ys, cs, dys,
+                                                       ctx.reverse)
+        else:
+            dxw, db = _backward_cuda(route[1], xw, whs, ctx.reverse, ys, cs,
+                                     dys)
+            dwh = _wgrad_cuda(route[2], ys.contiguous(), dxw, ctx.reverse)
     else:
         dxw, dwh, db = _adjoint_reference(xw, whs, ctx.reverse, ys, cs, dys)
     if route[3]:

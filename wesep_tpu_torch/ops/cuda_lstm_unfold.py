@@ -12,7 +12,9 @@ step's input row, and their headers say what bounds them.
 
 `bilstm_layer_unfold` is a `torch.autograd.Function` on both devices. On
 CUDA tensors its forward launches the forward kernel and its backward the
-two backward kernels, then adds the two directions' frame cotangents and
+two backward kernels (for a bf16 stream whose shapes
+`cuda_lstm_tc.backward_fits` takes, the tensor-core backward of
+ops/cuda_lstm_tc.py instead), then adds the two directions' frame cotangents and
 folds them back onto x's rows (`fold_frames`); on CPU tensors it runs the
 plain versions `bilstm_layer_unfold_reference` and
 `bilstm_layer_unfold_backward_reference`: `unfold_frames`, the plain layer
@@ -202,9 +204,18 @@ def bilstm_layer_unfold_backward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs,
 
 
 def _backward_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys, ks, hs):
-    """Both backward kernels and the fold; results as
-    `bilstm_layer_unfold_backward_reference`."""
+    """The backward kernels and the fold; results as
+    `bilstm_layer_unfold_backward_reference`. Where
+    `cuda_lstm_tc.backward_fits` takes the shapes (bf16), the tensor-core
+    backward of ops/cuda_lstm_tc.py; otherwise the kernels of
+    csrc/bilstm_unfold_bwd.cu."""
+    from wesep_tpu_torch.ops import cuda_lstm_tc
+
     d = ks * x.shape[2]
+    if cuda_lstm_tc.backward_fits(x.dtype, d, wh_f.shape[0],
+                                  x.shape[0] * ys.shape[1], c=x.shape[2]):
+        return cuda_lstm_tc.unfold_backward(x, wx_f, b_f, wh_f, wx_b, b_b,
+                                            wh_b, ys, cs, dys, ks, hs)
     du, db, dg = bilstm_layer_unfold_backward(
         x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys, ks, hs)
     dw = bilstm_layer_unfold_wgrad(x.detach().contiguous(), ys.contiguous(),

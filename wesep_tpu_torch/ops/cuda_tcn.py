@@ -10,7 +10,8 @@ how they are laid out.
 `tcn_block_gln` is a `torch.autograd.Function` on both devices. On CUDA
 tensors its forward launches the forward kernels and its backward the
 backward kernels (from x, dy and the four saved statistics; u is
-recomputed); on CPU tensors it runs the plain versions
+recomputed; a batch past one grid dimension, MAX_GRID_BATCH samples, in
+slices); on CPU tensors it runs the plain versions
 `tcn_block_gln_reference` and `tcn_block_gln_backward_reference`. Anything
 else raises: there is no fallback from a failed build or launch. Each
 wrapper counts its calls: `tcn_block_gln.launches`,
@@ -38,10 +39,42 @@ from wesep_tpu_torch.ops.cuda_lstm import _launch
 
 __all__ = ["kernel_fits", "tcn_block_gln", "tcn_block_gln_reference",
            "tcn_block_gln_backward", "tcn_block_gln_backward_reference",
-           "TCNBlockFn"]
+           "TCNBlockFn", "MAX_GRID_BATCH", "batch_chunks",
+           "run_in_batch_chunks"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_TAPS = 8  # csrc/tcn_common.cuh kMaxTaps
+# samples a launch of the TCN or Conv2dBlock kernels takes: the batch is a
+# grid dimension (csrc/tcn_common.cuh, csrc/conv2d_common.cuh)
+MAX_GRID_BATCH = 65535
+
+
+def batch_chunks(batch: int, most: int = MAX_GRID_BATCH):
+    """[(b0, b1), ...] in order, covering range(batch) in slices of at most
+    `most` samples."""
+    return [(b0, min(b0 + most, batch)) for b0 in range(0, batch, most)]
+
+
+def run_in_batch_chunks(run, batch: int, summed=(), most=MAX_GRID_BATCH):
+    """run(b0, b1) -> a tuple of results for samples b0:b1, once per slice
+    of `batch_chunks`: every statistic of the TCN and Conv2dBlock kernels is
+    per sample, so a batch the grid does not take runs exactly as slices.
+    Results with an index in `summed` (weight gradients) are added over
+    the slices in order, the others (per sample) joined along axis 0."""
+    chunks = batch_chunks(batch, most)
+    if len(chunks) == 1:
+        return run(0, batch)
+    parts = [run(b0, b1) for b0, b1 in chunks]
+    out = []
+    for i, first in enumerate(parts[0]):
+        if i in summed:
+            total = first.clone()
+            for part in parts[1:]:
+                total += part[i]
+            out.append(total)
+        else:
+            out.append(torch.cat([part[i] for part in parts]))
+    return tuple(out)
 
 
 def _pads(dilation: int, k: int, causal: bool):
@@ -261,10 +294,21 @@ def _kernel_args(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w, g1b,
 
 def _forward_cuda(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w, g1b,
                   dilation, k, causal, eps):
-    """Launch the forward kernels -> (y, stats [B, 4])."""
-    args = _kernel_args(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w,
-                        g1b, k)
-    x = args[0]
+    """Launch the forward kernels -> (y, stats [B, 4]), in slices of at
+    most MAX_GRID_BATCH samples."""
+    x, b1_eff, *rest = _kernel_args(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1,
+                                    w2, b2, g1w, g1b, k)
+    return run_in_batch_chunks(
+        lambda b0, b1: _forward_slice(x[b0:b1], b1_eff[b0:b1], *rest,
+                                      dilation, k, causal, eps),
+        x.shape[0])
+
+
+def _forward_slice(*args):
+    """The forward kernels over a batch they take, operands as
+    `_kernel_args` returns them, then (dilation, k, causal, eps)."""
+    *args, dilation, k, causal, eps = args
+    x, w1 = args[0], args[2]
     batch, t_len, c = x.shape
     h = w1.shape[1]
     lib = _library("tcn_block")
@@ -289,12 +333,27 @@ def tcn_block_gln_backward(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2,
     args = _kernel_args(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w,
                         g1b, k)
     (x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w, g1b) = args
-    batch, t_len, c = x.shape
-    h = w1.shape[1]
+    batch = x.shape[0]
     if tuple(dy.shape) != tuple(x.shape) or dy.device != x.device:
         raise ValueError(f"dy must be like x, got {tuple(dy.shape)}")
     if tuple(stats.shape) != (batch, 4) or stats.device != x.device:
         raise ValueError(f"stats must be [B, 4], got {tuple(stats.shape)}")
+    dy = _aligned(dy.detach().to(x.dtype))
+    stats = _aligned(stats.float())
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    # dx and db1_eff are per sample, the other eleven summed over slices
+    return run_in_batch_chunks(
+        lambda b0, b1: _backward_slice(
+            x[b0:b1], stats[b0:b1], dy[b0:b1], b1_eff[b0:b1], w1, w1t, p0,
+            kd, bd, g0w, g0b, p1, w2t, g1w, g1b, dilation, k, causal),
+        batch, summed=range(2, 13))
+
+
+def _backward_slice(x, stats, dy, b1_eff, w1, w1t, p0, kd, bd, g0w, g0b, p1,
+                    w2t, g1w, g1b, dilation, k, causal):
+    """The backward kernels over a batch they take, operands prepared."""
+    batch, t_len, c = x.shape
+    h = w1.shape[1]
     lib = _library("tcn_block_bwd")
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
@@ -309,10 +368,9 @@ def tcn_block_gln_backward(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2,
     stream_ws, f32_ws = _scratch(lib.tcn_block_backward_scratch,
                                  (batch, t_len, c, h, k), x.dtype, x.device)
     _launch(tcn_block_gln_backward, lib.tcn_block_backward,
-          (x, _aligned(dy.detach().to(x.dtype)), _aligned(stats.float()),
-           b1_eff, w1, w1.t().contiguous(), p0, kd, bd, g0w, g0b, p1,
-           w2.t().contiguous(), g1w, g1b, dx, db1e, dw1, dw2, dvec_dv,
-           dvec_g0, dvec_g1, db2, dscal, stream_ws, f32_ws),
+          (x, dy, stats, b1_eff, w1, w1t, p0, kd, bd, g0w, g0b, p1, w2t, g1w,
+           g1b, dx, db1e, dw1, dw2, dvec_dv, dvec_g0, dvec_g1, db2, dscal,
+           stream_ws, f32_ws),
           (batch, t_len, c, h, k, dilation, _pads(dilation, k, causal)[0],
            _DTYPE_CODES[x.dtype]), x.device)
     return (dx, db1e, dw1, dscal[0:1], dvec_dv[1:], dvec_dv[0], dvec_g0[0],
