@@ -26,7 +26,13 @@ pass):
    tensor-core bf16 backward of the LSTM layers (gate products, cluster
    chain, dx, dW) at every training shape of the four routes, each kernel
    against its plain version, the whole backward against the route's plain
-   backward, run twice bit for bit, timed beside cuBLAS; and the TCN block
+   backward, run twice bit for bit, timed beside cuBLAS; the tensor-core
+   bf16 forward of the LSTM layers (the projection in the chain's order,
+   the cluster recurrence) at the same shapes, likewise, timed beside
+   cuBLAS's projection and cuDNN's LSTM forward, with the clusters the card
+   runs at once (bf16 LSTM forwards of phases 3-13 at shapes
+   cuda_lstm_tc.forward_fits takes run these kernels; f32 forwards the
+   routes' own FMA kernels); and the TCN block
    and the Conv2dBlock past one grid dimension (B = 65537, and K4 at a T of
    more than 65535 element-wise chunks);
 4. serve: the full-width v1 pBSRNN (feature_dim 128, 6 repeats, multiply
@@ -36,10 +42,12 @@ pass):
    must agree with the plain-LSTM forward of the same model;
 5. train: the same model trains through the port's bin/train on the card,
    in bf16 at batch_size 8 (16 rows x 3 s per step), a few steps and one
-   validation pass on synthetic shards; the launch counts must show 12
-   forward launches per train and validation step and, per train step, 12
-   launches of each of the four tensor-core backward kernels (the bf16
-   backward: gates, chain, dx, dW); losses must be finite, the parameters
+   validation pass on synthetic shards; the launch counts must show, per
+   bf16 train step, 12 launches of each of the two tensor-core forward
+   kernels (projection, chain) and of each of the four tensor-core backward
+   kernels (gates, chain, dx, dW), and 12 of the FMA forward kernel per f32
+   validation step, none of it in the train steps; losses must be finite,
+   the parameters
    must move, and the checkpoint must hold parameters, optimizer state and
    step and load as bin/infer loads it. Then the gradients of every
    parameter through the kernels against those through the plain LSTM
@@ -341,6 +349,7 @@ def check_kernel(name, t_len, batch, dtype, d=D, h=H):
         "shape": name, "dtype": str(dtype).replace("torch.", ""),
         "T": t_len, "B": batch, "D": d, "H": h,
         "max_abs_err": err, "tolerance": tol,
+        "kernels": forward_kernels(dtype, d, h, batch * t_len),
         "max_abs_err_vs_cudnn": err_lib,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -383,6 +392,18 @@ def backward_bounds(t_len, batch, dtype, d=D, h=H, x_elems=None):
     wgrad = _bound(product, x_b + y_b + dg_b
                    + splits * 2 * (d + h) * h4 * 4, dtype)
     return forward, serial, wgrad
+
+
+def forward_kernels(dtype, d, h, rows, c=None):
+    """The kernels a layer forward at these shapes runs: the tensor-core
+    projection (d > 0) and chain where cuda_lstm_tc.forward_fits takes the
+    shapes (bf16), the route's own FMA forward kernel otherwise."""
+    from wesep_tpu_torch.ops.cuda_lstm_tc import forward_fits
+
+    if forward_fits(dtype, d, h, rows, c=c):
+        return ["lstm_project", "lstm_forward_chain"] if d else \
+            ["lstm_forward_chain"]
+    return ["own FMA kernel"]
 
 
 def rel_err(got, ref):
@@ -485,6 +506,7 @@ def check_training_kernels(name, t_len, batch, dtype, d=D, h=H):
         "shape": "train_" + name, "dtype": str(dtype).replace("torch.", ""),
         "T": t_len, "B": batch, "D": d, "H": h, "rel_limit": limit,
         "forward": {"max_abs_err": err_y, "tolerance": tolerance(ref_ys),
+                    "kernels": forward_kernels(dtype, d, h, batch * t_len),
                     "cs_rel_err": err_c, "ms": fwd_ms,
                     "plain_ms": fwd_plain_ms, "library_ms": lib_fwd_ms,
                     "bound_ms": f_ms, "bound_by": f_by},
@@ -603,7 +625,9 @@ def check_fused_kernels(name, t_len, batch, dtype, dirs, train):
         lib = lstm(x)[0]
     bound_ms, bound_by = fwd_b if train else serve_b
     case["forward"] = {
-        "name": names[0], "max_abs_err": err_y,
+        "name": names[0], "kernels": forward_kernels(dtype, 0, H,
+                                                     batch * t_len),
+        "max_abs_err": err_y,
         "tolerance": tolerance(ref_ys), "rel_l2_err": rel_y,
         "max_abs_err_vs_cudnn": (ys.float() - lib.float()).abs().max()
         .item(),
@@ -726,6 +750,7 @@ def tc_function_bounds(in_bytes, rows, d, h, dirs, dx_bytes):
 
 
 TC_NAMES = ("lstm_gates", "lstm_adjoint_chain", "lstm_dx", "lstm_wgrad")
+TC_FORWARD_NAMES = ("lstm_project", "lstm_forward_chain")
 
 
 def check_tc_backward(route, name, t_len, batch, d=D, h=H, length=None):
@@ -923,6 +948,214 @@ def check_tc_backward(route, name, t_len, batch, d=D, h=H, length=None):
     return case
 
 
+def tc_forward_bounds(rows, d, h, dirs, x_bytes, xw_size):
+    """Least times of the tensor-core forward on the card, bf16 (989
+    TFLOP/s, 3.35 TB/s): every input read once, every output written once.
+    The projection A @ Wx + b (x, Wx and b in, xw f32 out; layers that
+    project x); the chain h_{t-1} @ Wh and the cell update (xw, of
+    `xw_size` bytes an element, and Wh in, y and cs out); and the forward's
+    function as the Pallas kernel computes it, from x (or, on the two-kernel
+    routes, xw) and the weights to y and cs, with no xw passing between two
+    kernels."""
+    h4 = 4 * h
+    y_b, cs_b = rows * dirs * h * 2, rows * dirs * h * 4
+    wx_b, wh_b = dirs * d * h4 * 2 + dirs * h4 * 4, dirs * h * h4 * 2
+    xw_b = dirs * rows * h4 * xw_size
+    project = _bound(2 * dirs * rows * d * h4, x_bytes + wx_b + xw_b,
+                     torch.bfloat16)
+    chain = _bound(2 * dirs * rows * h * h4, xw_b + wh_b + y_b + cs_b,
+                   torch.bfloat16)
+    function = _bound(2 * dirs * rows * (d + h) * h4,
+                      (x_bytes + wx_b if d else xw_b) + wh_b + y_b + cs_b,
+                      torch.bfloat16)
+    return {"lstm_project": project, "lstm_forward_chain": chain,
+            "function": function}
+
+
+def check_tc_forward(route, name, t_len, batch, d=D, h=H, length=None):
+    """The tensor-core forward (projection, cluster chain) of one LSTM route
+    at one training shape, bf16, f32 parameters, cell states written as for
+    training: each kernel against its plain version on the kernels' own
+    inputs (the projection's chain order undone by from_chain_order; the
+    chain on the projection's own xw), the whole forward against the
+    route's step-by-step plain forward (the JAX package's rounding points),
+    a second run bit for bit, each kernel's time beside its plain
+    version's, its library yardstick (cuBLAS's product for the projection;
+    none for the chain alone) and its bound, and the whole forward, timed
+    as one call, beside cuDNN's LSTM forward over the same shape and the
+    bound of the forward's function (tc_forward_bounds).
+
+    route: as check_tc_backward. Limits: the projection within 1e-4 of its
+    plain product's largest magnitude (f32 sums of exact products in
+    another order); y, of the chain and of the whole forward, within 4 bf16
+    units in the last place at its largest magnitude and cs within 5e-2 of
+    its largest magnitude (the limits check_training_kernels holds the
+    bf16 forward to: h is rounded to bf16 every step and a sum that differs
+    in its last bit flips such a rounding now and then)."""
+    from wesep_tpu_torch.ops import cuda_lstm, cuda_lstm_fused
+    from wesep_tpu_torch.ops import cuda_lstm_tc as tc
+    from wesep_tpu_torch.ops import cuda_lstm_unfold
+
+    dtype = torch.bfloat16
+    dirs = 1 if route == "unidirectional" else 2
+    gen = torch.Generator().manual_seed(SEED + 30)
+    scale = 1.0 / math.sqrt(h)
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
+
+    flat = [w for _ in range(dirs) for w in (u(d, 4 * h), u(4 * h),
+                                             u(h, 4 * h))]
+    wx32, b32, wh32 = flat[0::3], flat[1::3], flat[2::3]
+    whs = [w.to(dtype).contiguous() for w in wh32]
+    biases = [b.float().contiguous() for b in b32]
+    xw = wxs = spec = None
+    if route == "unfold":
+        ks = d // GRID_C
+        x = torch.randn(batch, length, GRID_C, generator=gen).cuda().to(dtype)
+        t_len = length - ks + 1
+        spec = tc.RowSpec(tc.ROW_UNFOLD, d, length, GRID_C, 1)
+        wxs = [tc.to_k_major(w, GRID_C, ks).to(dtype).contiguous()
+               for w in wx32]
+        x_rows = cuda_lstm_unfold.unfold_frames(x, ks, 1)
+
+        def whole():
+            return tc.unfold_forward(x, *flat, ks, 1, with_cs=True)
+
+        def plain_whole():
+            return cuda_lstm_unfold.bilstm_layer_unfold_reference(
+                x, *flat, ks, 1, return_cs=True)
+    elif route == "layer":
+        x = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda() \
+            .to(dtype)
+        spec = tc.RowSpec(tc.ROW_X, d)
+        wxs = [w.to(dtype).contiguous() for w in wx32]
+        x_rows = x
+
+        def whole():
+            return tc.layer_forward(x, *flat, with_cs=True)
+
+        def plain_whole():
+            return cuda_lstm.bilstm_layer_reference(x, *flat, return_cs=True)
+    else:
+        x = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda() \
+            .to(dtype)
+        xw = torch.stack([cuda_lstm_fused.project(x, wx, b)
+                          for wx, b in zip(wx32, b32)])
+        x_rows = x
+
+        def whole():
+            return tc.fused_forward(xw, wh32, with_cs=True)
+
+        def plain_whole():
+            return cuda_lstm_fused._recurrence_reference(xw, wh32, False,
+                                                         True)
+    rows = batch * t_len
+
+    def run():
+        xw_k = xw if xw is not None else tc.lstm_project(x, wxs, biases, spec,
+                                                         t_len)
+        y, cs = tc.lstm_forward_chain(xw_k, whs, False, True, batch=batch)
+        return xw_k, y, cs
+
+    xw_k, y, cs = run()
+    torch.cuda.synchronize()
+    again = run()
+    repeats = all(torch.equal(a, b) for a, b in zip((xw_k, y, cs), again))
+    del again
+
+    # each kernel against its plain version on the kernels' own inputs
+    errs, max_abs = {}, {}
+    xw_nat = xw
+    if xw is None:
+        xw_nat = tc.from_chain_order(xw_k, batch)
+        xw_ref = tc.lstm_project_reference(x, wxs, biases, spec, t_len)
+        errs["lstm_project"] = rel_err(xw_nat, xw_ref)
+        max_abs["lstm_project"] = (xw_nat - xw_ref).abs().max().item()
+        del xw_ref
+    y_ref, cs_ref = tc.lstm_forward_chain_reference(xw_nat, whs, False, True)
+    chain_tol = tolerance(y_ref)
+    max_abs["lstm_forward_chain"] = (y.float() - y_ref.float()).abs().max() \
+        .item()
+    errs["lstm_forward_chain"] = rel_err(cs, cs_ref)
+    del y_ref, cs_ref
+    # the whole forward against the route's step-by-step plain forward
+    want_y, want_cs = plain_whole()
+    whole_tol = tolerance(want_y)
+    got_y, got_cs = whole()
+    whole_err = {"y_max_abs": (got_y.float() - want_y.float()).abs().max()
+                 .item(), "y_tolerance": whole_tol,
+                 "cs_rel_err": rel_err(got_cs, want_cs)}
+    del got_y, got_cs, want_y, want_cs
+
+    times = {"lstm_forward_chain": time_ms(
+        lambda: tc.lstm_forward_chain(xw_k, whs, False, True, batch=batch),
+        1, 5)}
+    plain = {"lstm_forward_chain": time_ms(
+        lambda: tc.lstm_forward_chain_reference(xw_nat, whs, False, True),
+        0, 1)}
+    library = {"lstm_forward_chain": None}
+    x_bytes = x.numel() * x.element_size()
+    if xw is None:
+        times["lstm_project"] = time_ms(
+            lambda: tc.lstm_project(x, wxs, biases, spec, t_len), 1, 5)
+        plain["lstm_project"] = time_ms(
+            lambda: tc.lstm_project_reference(x, wxs, biases, spec, t_len),
+            0, 1)
+        # cuBLAS: one product of the (materialised) input rows with both
+        # directions' Wx side by side, the bias added, f32 out
+        a2d = x_rows.reshape(rows, -1)
+        w_cat = torch.cat([w.to(dtype) for w in wx32], dim=1)
+        b_cat = torch.cat(biases)
+        library["lstm_project"] = time_ms(lambda: torch.addmm(
+            b_cat, a2d, w_cat, out_dtype=torch.float32), 1, 5)
+        del a2d, w_cat
+    whole_ms = time_ms(whole, 1, 5)
+    plain_ms = time_ms(plain_whole, 0, 1)
+    # cuDNN's LSTM forward at the same shape (its input the materialised
+    # frames on the unfold route)
+    torch.manual_seed(SEED)
+    lstm = torch.nn.LSTM(x_rows.shape[-1], h, batch_first=True,
+                         bidirectional=dirs == 2).cuda().to(dtype)
+    lstm.flatten_parameters()
+    x_lib = x_rows.contiguous()
+    with torch.inference_mode():
+        cudnn_ms = time_ms(lambda: lstm(x_lib), 1, 5)
+    del lstm, x_lib
+    bounds = tc_forward_bounds(rows, spec.d if xw is None else 0, h, dirs,
+                               x_bytes, 4 if xw is None else 2)
+    kernels = {}
+    for kname in TC_FORWARD_NAMES:
+        if kname not in times:
+            continue
+        kernels[kname] = {
+            "rel_err": errs[kname], "max_abs_err": max_abs[kname],
+            "ms": times[kname], "plain_ms": plain[kname],
+            "library_ms": library[kname],
+            "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
+    kernels["lstm_forward_chain"]["y_tolerance"] = chain_tol
+    case = {"route": route, "shape": name, "dtype": "bfloat16", "dirs": dirs,
+            "T": t_len, "B": batch, "D": spec.d if xw is None else 0, "H": h,
+            "rows": rows, "repeats_bit_for_bit": repeats,
+            "whole_err": whole_err, "kernels": kernels,
+            "forward": {"ms": whole_ms, "plain_ms": plain_ms,
+                        "library_ms": cudnn_ms,
+                        "bound_ms": bounds["function"][0],
+                        "bound_by": bounds["function"][1]},
+            "xw_scratch_bytes": xw_k.numel() * xw_k.element_size()
+            if xw is None else 0}
+    log("kernels tensor-core forward", json.dumps(case))
+    ok = (repeats and errs.get("lstm_project", 0.0) <= 1e-4
+          and max_abs["lstm_forward_chain"] <= chain_tol
+          and errs["lstm_forward_chain"] <= 5e-2
+          and whole_err["y_max_abs"] <= whole_tol
+          and whole_err["cs_rel_err"] <= 5e-2
+          and torch.isfinite(y.float()).all() and torch.isfinite(cs).all())
+    if not ok:
+        raise AssertionError(f"tensor-core forward disagrees: {case}")
+    return case
+
+
 def write_shard(root, rng, name, seconds):
     """Premixed shard `name`.tar of len(seconds) two-speaker mixtures, with
     its list, 256-d embeddings (scp), utt2spk and enrollment lists, as the
@@ -1062,7 +1295,7 @@ def serve(root, route="layer"):
         per_forward = 2 * V1_MODEL_ARGS["num_repeat"]  # band + comm per BSNet
         log(f"{tag}: {LSTM_ROUTES[route][0]} launches {launches} (expected "
             f"{per_forward} x {steps}, no other LSTM kernel)")
-        expect_counts(counts, per_forward * steps, 0, route, tag)
+        expect_counts(counts, per_forward * steps, 0, route, tag, f32=True)
         if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
             raise AssertionError("non-finite SI-SNR from infer")
         audio = os.path.join(root, "exp", "audio")
@@ -1085,7 +1318,7 @@ def serve(root, route="layer"):
             zero_counts()
             est = model(mix, emb)[0]
             expect_counts(read_counts(), per_forward, 0, route,
-                          f"one forward ({route} route)")
+                          f"one forward ({route} route)", f32=True)
             step_ms = time_ms(lambda: model(mix, emb), warmup=1, runs=5)
             for m in lstms:
                 m.plain = True
@@ -1321,14 +1554,14 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
     launches = [counts[n] for n in names]
     per_pass = 2 * V1_MODEL_ARGS["num_repeat"]  # band + comm per BSNet
     val_steps = 1  # 16 validation enrollments / 2 / batch_size 8
-    expected = [per_pass * (TRAIN_STEPS + val_steps), per_pass * TRAIN_STEPS,
-                per_pass * TRAIN_STEPS]
     log(f"{tag}: {TRAIN_STEPS} steps + {val_steps} validation step through "
         f"bin/train in {wall:.3f} s wall; launches "
         f"{ {n: v for n, v in counts.items() if v} } (expected "
-        f"{expected[0]} {names[0]} and {expected[1]} of each tensor-core "
-        f"backward kernel, no other LSTM kernel)")
-    expect_counts(counts, expected[0], expected[1], route, tag)
+        f"{per_pass * TRAIN_STEPS} of each tensor-core forward and backward "
+        f"kernel (bf16 steps), {per_pass * val_steps} {names[0]} (the f32 "
+        f"validation step), no other LSTM kernel)")
+    expect_counts(counts, per_pass * TRAIN_STEPS, per_pass * TRAIN_STEPS,
+                  route, tag, f32_forward=per_pass * val_steps)
     with open(os.path.join(config["exp_dir"], "train.log")) as f:
         text = f.read()
     losses = rows_loss(text)
@@ -2202,6 +2435,8 @@ def check_unfold_kernels(name, rows, length, dtype, ks=GRID_KS, hs=1):
         "B": rows, "L": length, "C": GRID_C, "ks": ks, "hs": hs,
         "T": frames, "H": h, "rel_limit": limit,
         "forward": {"max_abs_err": err_y, "tolerance": tol,
+                    "kernels": forward_kernels(dtype, d, h, rows * frames,
+                                               c=GRID_C),
                     "max_abs_err_with_cs": err_y_train, "cs_rel_err": err_c,
                     "rel_err_cudnn_vs_plain": err_lib, "ms": ms,
                     "with_cs_ms": fwd_cs_ms, "plain_ms": plain_ms,
@@ -2265,7 +2500,8 @@ LSTM_ROUTES = {
 
 def lstm_counters():
     """Every LSTM wrapper's counter: K0, K0b x2, K3, K3b x2, K2, K2b x2,
-    K1, K1b x2, and the tensor-core backward's four kernels."""
+    K1, K1b x2, the tensor-core forward's two kernels and the tensor-core
+    backward's four."""
     from wesep_tpu_torch.ops import cuda_lstm as k0
     from wesep_tpu_torch.ops import cuda_lstm_fused as k12
     from wesep_tpu_torch.ops import cuda_lstm_tc as tc
@@ -2276,7 +2512,8 @@ def lstm_counters():
                                       (k12, "two_kernel"),
                                       (k12, "unidirectional"))
                 for name in LSTM_ROUTES[route]}
-    counters.update({name: getattr(tc, name) for name in TC_NAMES})
+    counters.update({name: getattr(tc, name)
+                     for name in TC_NAMES + TC_FORWARD_NAMES})
     return counters
 
 
@@ -2289,23 +2526,32 @@ def read_counts():
     return {n: fn.launches for n, fn in lstm_counters().items()}
 
 
-def expect_counts(got, forward, backward, route, what, f32=False):
-    """Launch counts of a run: `forward` forward launches on the LSTM route
-    taken and `backward` layer backwards, none of any other LSTM wrapper.
-    A bf16 backward at shapes the tensor-core route gate takes (every
-    training run here) is one launch each of the gate product, the chain
-    and the dW product, and of the dx product on the layers that project x
-    (K0, K3); an f32 backward (`f32`) one launch of each of the route's own
-    two backward kernels."""
+def expect_counts(got, forward, backward, route, what, f32=False,
+                  f32_forward=0):
+    """Launch counts of a run: `forward` layer forwards and `backward`
+    layer backwards on the LSTM route taken, none of any other LSTM
+    wrapper. In bf16, at shapes the tensor-core route gates take (every
+    bf16 run here), a forward is one launch of the forward chain, and of
+    the projection on the layers that project x (K0, K3), and none of the
+    route's own forward kernel; a backward one launch each of the gate
+    product, the adjoint chain and the dW product, and of the dx product on
+    K0 and K3. In f32 (`f32`: serving and the f32 gradient checks) a
+    forward is one launch of the route's own forward kernel and a backward
+    one of each of its two backward kernels; `f32_forward` counts the f32
+    forwards of a bf16 run (bin/train's validation step)."""
     want = dict.fromkeys(got, 0)
     name, adjoint, wgrad = LSTM_ROUTES[route]
-    want[name] = forward
+    projects = route in ("layer", "unfold")
     if f32:
+        want[name] = forward
         want.update({adjoint: backward, wgrad: backward})
     else:
-        want.update(lstm_gates=backward, lstm_adjoint_chain=backward,
+        want[name] = f32_forward
+        want.update(lstm_forward_chain=forward,
+                    lstm_project=forward if projects else 0,
+                    lstm_gates=backward, lstm_adjoint_chain=backward,
                     lstm_wgrad=backward,
-                    lstm_dx=backward if route in ("layer", "unfold") else 0)
+                    lstm_dx=backward if projects else 0)
     if got != want:
         raise AssertionError(f"{what}: launches {got}, expected {want}")
 
@@ -2361,7 +2607,7 @@ def serve_tfgridnet(root):
                 f"chain ran, not quality); launches {launches}")
             expect_counts(launches, GRID_RNNS * steps, 0,
                           "unfold" if unfold else "layer",
-                          f"serve TF-GridNet ({route})")
+                          f"serve TF-GridNet ({route})", f32=True)
             if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
                 raise AssertionError("non-finite SI-SNR from infer")
             audio = os.path.join(exp_dir, "audio")
@@ -2388,7 +2634,7 @@ def serve_tfgridnet(root):
                     set_plain(lstms, False)
             expect_counts(per_forward, GRID_RNNS, 0,
                           "unfold" if unfold else "layer",
-                          f"one TF-GridNet forward ({route})")
+                          f"one TF-GridNet forward ({route})", f32=True)
             if not torch.isfinite(est).all() or est.shape != mix.shape:
                 raise AssertionError("kernel forward is not finite / wrong "
                                      "shape")
@@ -2485,9 +2731,9 @@ def train_tfgridnet(root):
         log(f"train TF-GridNet: {GRID_TRAIN_STEPS} steps + {val_steps} "
             f"validation step through bin/train in {wall:.3f} s wall; "
             f"launches {launches}")
-        expect_counts(launches, GRID_RNNS * (GRID_TRAIN_STEPS + val_steps),
+        expect_counts(launches, GRID_RNNS * GRID_TRAIN_STEPS,
                       GRID_RNNS * GRID_TRAIN_STEPS, "unfold",
-                      "train TF-GridNet")
+                      "train TF-GridNet", f32_forward=GRID_RNNS * val_steps)
         with open(os.path.join(config["exp_dir"], "train.log")) as f:
             text = f.read()
         losses = rows_loss(text)
@@ -3156,6 +3402,23 @@ def main() -> int:
                 "layer", "train_grid_" + name[len("train_"):],
                 length - GRID_KS + 1, rows, grid_d, GRID_H))
 
+    # the tensor-core forward of every LSTM route at the same shapes
+    tc_fwd_cases = [check_tc_forward(route, "train_" + name, t_len, batch)
+                    for route in ("layer", "two_kernel", "unidirectional")
+                    for name, (t_len, batch) in TRAIN_SHAPES.items()]
+    for name, (rows, length) in UNFOLD_SHAPES.items():
+        if name.startswith("train"):
+            tc_fwd_cases.append(check_tc_forward(
+                "unfold", name, None, rows, grid_d, GRID_H, length=length))
+            tc_fwd_cases.append(check_tc_forward(
+                "layer", "train_grid_" + name[len("train_"):],
+                length - GRID_KS + 1, rows, grid_d, GRID_H))
+    from wesep_tpu_torch.ops.cuda_lstm_tc import forward_clusters
+
+    clusters = {h: forward_clusters(h) for h in (64, 128, 192, 256)}
+    log(f"forward chain: clusters of 4 blocks the card runs at once, by H: "
+        f"{clusters}")
+
     # the fused Conv2dBlock at DPCCN's six shapes: serving in f32 (2 rows),
     # training in bf16 (8 rows)
     conv_cases = [check_conv2d(name, f, ci, co, batch, dtype)
@@ -3230,12 +3493,17 @@ def main() -> int:
     tcn_head = next(c for c in tcn_cases if c["shape"] == "spex_train"
                     and c["dtype"] == "bfloat16" and c["dilation"] == 1)
     # and of the unfold-fused layer: the TF-GridNet training shape (bf16)
-    # whose kernels take longest
+    # whose kernels take longest; its own forward kernel, which bf16 no
+    # longer runs there, at the f32 training shape that takes longest
     unfold_head = max(
         (c for c in unfold_cases
          if c["shape"].startswith("train") and c["dtype"] == "bfloat16"),
         key=lambda c: c["forward"]["ms"] + c["backward"]["ms"]
         + c["wgrad"]["ms"])
+    unfold_fwd_head = max(
+        (c for c in unfold_cases
+         if c["shape"].startswith("train") and c["dtype"] == "float32"),
+        key=lambda c: c["forward"]["ms"])
     # and of the fused Conv2dBlock: the DPCCN training shape (bf16) whose
     # kernels take longest
     conv_head = max((c for c in conv_cases if c["dtype"] == "bfloat16"),
@@ -3283,7 +3551,7 @@ def main() -> int:
     headline = {"bilstm_layer": band,
                 "bilstm_layer_backward": train_band["backward"],
                 "bilstm_layer_wgrad": train_band["wgrad"],
-                "bilstm_layer_unfold": unfold_head["forward"],
+                "bilstm_layer_unfold": unfold_fwd_head["forward"],
                 "bilstm_layer_unfold_backward": unfold_head["backward"],
                 "bilstm_layer_unfold_wgrad": unfold_head["wgrad"],
                 "tcn_block_gln": tcn_head["forward"],
@@ -3310,6 +3578,16 @@ def main() -> int:
         sources[name] = "wesep_tpu_torch/csrc/lstm_backward_tc.cu"
         replaces[name] = "wesep_tpu/ops/pallas_lstm.py:932"
         headline[name] = dict(tc_head["kernels"][name])
+    # and of the tensor-core forward: the main path's training band (K0,
+    # bf16); the chain alone has no library call (cuDNN's forward also
+    # projects x: it is held against the whole forward, the cases'
+    # "forward")
+    tc_fwd_head = next(c for c in tc_fwd_cases
+                       if c["route"] == "layer" and c["shape"] == "train_band")
+    for name in TC_FORWARD_NAMES:
+        sources[name] = "wesep_tpu_torch/csrc/lstm_forward_tc.cu"
+        replaces[name] = "wesep_tpu/ops/pallas_lstm.py:834"
+        headline[name] = dict(tc_fwd_head["kernels"][name])
     # launches of each wrapper on each path that ran it: the main-path
     # count of an entry is its training path's (the f32 gradient checks are
     # the paths of the LSTM routes' own backward kernels, which bf16
@@ -3386,6 +3664,19 @@ def main() -> int:
                 for c in two_kernel_cases
                 if part in c and c["dirs"] == (2 if name.startswith("bilstm")
                                                else 1)]
+        elif name in TC_FORWARD_NAMES:
+            entry["also_replaces"] = [
+                "wesep_tpu/ops/pallas_lstm.py:1236",
+                "wesep_tpu/ops/pallas_lstm.py:460",
+                "wesep_tpu/ops/pallas_lstm.py:157"][
+                    :3 if name == "lstm_forward_chain" else 1]
+            entry["clusters_at_once"] = clusters
+            entry["cases"] = [
+                dict(c["kernels"][name], route=c["route"], shape=c["shape"],
+                     T=c["T"], B=c["B"], D=c["D"], H=c["H"],
+                     repeats_bit_for_bit=c["repeats_bit_for_bit"],
+                     whole_err=c["whole_err"], forward=c["forward"])
+                for c in tc_fwd_cases if name in c["kernels"]]
         elif name in TC_NAMES:
             entry["also_replaces"] = [
                 "wesep_tpu/ops/pallas_lstm.py:1353",

@@ -51,15 +51,27 @@ def _args(device, b, t, d, h, dtype, seed=0):
             r(d, 4 * h), r(4 * h), r(h, 4 * h))
 
 
+def _fwd_counts():
+    """The layer's own forward kernel, then the tensor-core forward's two."""
+    return (cuda_lstm.bilstm_layer.launches,
+            cuda_lstm_tc.lstm_project.launches,
+            cuda_lstm_tc.lstm_forward_chain.launches)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,d,h", [(8, 10, 64, 128), (13, 7, 128, 256),
                                      (1100, 2, 16, 32), (1, 1, 4, 4)])
 def test_bilstm_layer_matches_plain(cuda, dtype, b, t, d, h):
+    """One launch of the layer's own forward kernel, or (bf16 shapes
+    `forward_fits` takes) one each of the tensor-core projection and
+    chain; y against the plain version."""
     args = _args(cuda, b, t, d, h, dtype)
-    before = cuda_lstm.bilstm_layer.launches
+    new = cuda_lstm_tc.forward_fits(dtype, d, h, b * t)
+    before = _fwd_counts()
     y = cuda_lstm.bilstm_layer(*args)
     torch.cuda.synchronize()
-    assert cuda_lstm.bilstm_layer.launches == before + 1
+    assert _fwd_counts() == (before[0] + (not new), before[1] + new,
+                             before[2] + new)
     assert y.dtype == dtype and y.shape == (b, t, 2 * h)
     ref = cuda_lstm.bilstm_layer_reference(*args)
     assert (y.float() - ref.float()).abs().max().item() <= _tolerance(ref)
@@ -85,6 +97,8 @@ def test_bilstm_layer_backward_matches_plain(cuda, dtype, b, t, d, h):
     tensor-core backward (bf16 shapes it takes)."""
     args = _args(cuda, b, t, d, h, dtype)
     tc = cuda_lstm_tc.backward_fits(dtype, d, h, b * t)
+    new = cuda_lstm_tc.forward_fits(dtype, d, h, b * t)
+    fwd = _fwd_counts()
     counts = (cuda_lstm.bilstm_layer.launches,
               cuda_lstm.bilstm_layer_backward.launches,
               cuda_lstm.bilstm_layer_wgrad.launches, _tc_counts())
@@ -104,8 +118,9 @@ def test_bilstm_layer_backward_matches_plain(cuda, dtype, b, t, d, h):
     assert (cuda_lstm.bilstm_layer.launches,
             cuda_lstm.bilstm_layer_backward.launches,
             cuda_lstm.bilstm_layer_wgrad.launches, _tc_counts()) == (
-                counts[0] + 1, counts[1] + (not tc), counts[2] + (not tc),
-                tuple(c + tc for c in counts[3]))
+                counts[0] + (not new), counts[1] + (not tc),
+                counts[2] + (not tc), tuple(c + tc for c in counts[3]))
+    assert _fwd_counts()[1:] == (fwd[1] + new, fwd[2] + new)
     want = cuda_lstm.bilstm_layer_backward_reference(
         *args, ref_ys, ref_cs, dys)
     assert got[0].dtype == dtype
@@ -258,6 +273,87 @@ def test_tc_backward_matches_its_plain_composition(cuda, route, b, t, d, h):
         assert rel(dx2, tc.lstm_dx_reference(dg, wxs)) <= 2e-2
 
 
+# (route, B, T, D, H, ks): ragged row tiles (B % 64), one step, three
+# tiles, each hidden size, a unidirectional layer walked backwards; then a
+# training shape per route: the pBSRNN's band on K0, K2 and K1 (walked
+# backwards) and TF-GridNet's intra RNN on K3 (T the frames)
+TC_FORWARD_SHAPES = [("layer", 37, 9, 24, 64, 1), ("layer", 5, 1, 8, 128, 1),
+                     ("layer", 130, 5, 32, 256, 1),
+                     ("two_kernel", 70, 6, 0, 192, 1),
+                     ("reverse", 33, 7, 0, 256, 1),
+                     ("unfold", 19, 11, 16, 64, 2),
+                     ("layer", 512, 376, 128, 256, 1),
+                     ("two_kernel", 512, 376, 0, 256, 1),
+                     ("reverse", 512, 376, 0, 256, 1),
+                     ("unfold", 2056, 68, 192, 192, 4)]
+
+
+@pytest.mark.parametrize("route,b,t,d,h,ks", TC_FORWARD_SHAPES)
+def test_tc_forward_matches_its_plain_composition(cuda, route, b, t, d, h,
+                                                  ks):
+    """The tensor-core forward's two kernels against their plain versions,
+    bf16: the projection (its chain order undone) within 1e-4 of its
+    largest magnitude (f32 sums of exact products in another order); the
+    chain on the projection's own xw, and the whole split forward against
+    the plain composition, y within 4 bf16 units in the last place at its
+    largest magnitude and cs within 10 of them (h is rounded to bf16 every
+    step; a different sum order may flip one rounding); one launch of each
+    a run, and a second run bit for bit."""
+    tc = cuda_lstm_tc
+    gen = torch.Generator().manual_seed(8)
+    scale = 1.0 / math.sqrt(h)
+
+    def u(*s):
+        return ((torch.rand(*s, generator=gen) * 2 - 1) * scale).to(cuda)
+
+    dirs = 1 if route == "reverse" else 2
+    whs = [u(h, 4 * h).bfloat16() for _ in range(dirs)]
+    x = xw = wxs = biases = None
+    if route in ("two_kernel", "reverse"):
+        spec = tc.RowSpec(tc.ROW_H, 0)
+        xw = (torch.randn(dirs, b, t, 4 * h, generator=gen) * 0.5).to(cuda) \
+            .bfloat16()
+    else:
+        if route == "unfold":
+            c = d // ks
+            x = torch.randn(b, t + ks - 1, c, generator=gen).to(cuda)
+            spec = tc.RowSpec(tc.ROW_UNFOLD, d, t + ks - 1, c, 1)
+        else:
+            x = (torch.randn(b, t, d, generator=gen) * 0.5).to(cuda)
+            spec = tc.RowSpec(tc.ROW_X, d)
+        x = x.bfloat16()
+        wxs = [u(d, 4 * h).bfloat16() for _ in range(dirs)]
+        biases = [u(4 * h) for _ in range(dirs)]
+    rev = route == "reverse"
+    before = (tc.lstm_project.launches, tc.lstm_forward_chain.launches)
+
+    def run():
+        xw_k = xw if xw is not None else tc.lstm_project(x, wxs, biases, spec,
+                                                         t)
+        return (xw_k, *tc.lstm_forward_chain(xw_k, whs, rev, True, batch=b))
+
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert (tc.lstm_project.launches, tc.lstm_forward_chain.launches) == (
+        before[0] + 2 * (x is not None), before[1] + 2)
+    assert all(torch.equal(a, g) for a, g in zip(again, got))
+    xw_k, y, cs = got
+    assert y.dtype == torch.bfloat16 and y.shape == (b, t, dirs * h)
+    assert cs.dtype == torch.float32 and cs.shape == y.shape
+    if x is not None:
+        xw_k = tc.from_chain_order(xw_k, b)
+        ref = tc.lstm_project_reference(x, wxs, biases, spec, t)
+        assert ((xw_k - ref).abs().max() / ref.abs().max()).item() <= 1e-4
+    for (gy, gcs), (ry, rcs) in (
+            ((y, cs), tc.lstm_forward_chain_reference(xw_k, whs, rev, True)),
+            (tc.split_forward(x, spec, wxs, biases, whs, xw, t, rev, True),
+             tc.split_forward(x, spec, wxs, biases, whs, xw, t, rev, True,
+                              plain=True))):
+        tol = _tolerance(ry)
+        assert (gy.float() - ry.float()).abs().max().item() <= tol
+        assert (gcs - rcs).abs().max().item() <= 10 * tol
+
+
 def _fused_counts():
     k = cuda_lstm_fused
     return tuple(f.launches for f in (
@@ -273,9 +369,12 @@ def test_fused_layer_matches_plain(cuda, dtype, dirs, reverse, b, t, h):
     """The forward with cell states, the serial adjoint (on the plain
     forward's saved tensors, so only the adjoint differs) and the
     weight-gradient kernel (on the adjoint's own dxw), each against its
-    plain version; each wrapper counts one launch."""
+    plain version; each wrapper counts one launch (the forward: the
+    tensor-core chain for bf16 shapes `forward_fits` takes)."""
     k = cuda_lstm_fused
     xw, whs = _fused_inputs(cuda, dirs, b, t, h, dtype)
+    new = cuda_lstm_tc.forward_fits(dtype, 0, h, b * t)
+    chain = cuda_lstm_tc.lstm_forward_chain.launches
     before = _fused_counts()
     ys, cs = k._forward_cuda(
         k.bilstm_fused_forward if dirs == 2 else k.lstm_fused_forward, xw,
@@ -297,8 +396,9 @@ def test_fused_layer_matches_plain(cuda, dtype, dirs, reverse, b, t, h):
                                         reverse=reverse)
         dwh = k.lstm_fused_wgrad(ref_ys, dxw, reverse=reverse)
     torch.cuda.synchronize()
-    step = (1, 1, 1, 0, 0, 0) if dirs == 2 else (0, 0, 0, 1, 1, 1)
+    step = (not new, 1, 1, 0, 0, 0) if dirs == 2 else (0, 0, 0, not new, 1, 1)
     assert _fused_counts() == tuple(c + s for c, s in zip(before, step))
+    assert cuda_lstm_tc.lstm_forward_chain.launches == chain + new
     want_dxw, want_dwh, want_db = k._adjoint_reference(
         xw, whs, reverse, ref_ys, ref_cs, dys)
     assert dxw.dtype == dtype and db.dtype == dwh.dtype == torch.float32
@@ -347,9 +447,10 @@ def test_fused_functions_route_and_return_f32_weight_gradients(
     """Through models.common.LSTM on a bf16 stream with f32 parameters:
     WESEP_LSTM_LAYER=0 sends the bidirectional layer to K2 and none to K0;
     the unidirectional one goes to K1; both backwards (bf16, H 128) to the
-    tensor-core backward's gates, chain and dW. dx comes back in bf16,
-    weight gradients in f32 within the bf16 limits of the plain versions';
-    no gradient asked, no graph."""
+    tensor-core backward's gates, chain and dW, and both forwards to the
+    tensor-core chain. dx comes back in bf16, weight gradients in f32
+    within the bf16 limits of the plain versions'; no gradient asked, no
+    graph."""
     from wesep_tpu_torch.models.common import LSTM
 
     monkeypatch.setenv("WESEP_LSTM_LAYER", "0")
@@ -360,10 +461,12 @@ def test_fused_functions_route_and_return_f32_weight_gradients(
         module = LSTM(64, 128, bidirectional=bidirectional).to(cuda)
         before, k0 = _fused_counts(), cuda_lstm.bilstm_layer.launches
         tc_before = _tc_counts()
+        chain = cuda_lstm_tc.lstm_forward_chain.launches
         xg = x.clone().requires_grad_()
         module(xg).float().square().sum().backward()
-        step = (1, 0, 0, 0, 0, 0) if bidirectional else (0, 0, 0, 1, 0, 0)
+        step = (0, 0, 0, 0, 0, 0)
         assert _fused_counts() == tuple(c + s for c, s in zip(before, step))
+        assert cuda_lstm_tc.lstm_forward_chain.launches == chain + 1
         assert _tc_counts() == tuple(c + s for c, s in zip(tc_before,
                                                             (1, 1, 0, 1)))
         assert cuda_lstm.bilstm_layer.launches == k0
@@ -446,6 +549,8 @@ def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
     k = cuda_lstm_unfold
     frames = (length - ks) // hs + 1
     tc = cuda_lstm_tc.backward_fits(dtype, ks * c, h, b * frames, c=c)
+    new = cuda_lstm_tc.forward_fits(dtype, ks * c, h, b * frames, c=c)
+    fwd = _fwd_counts()
     counts = (k.bilstm_layer_unfold.launches,
               k.bilstm_layer_unfold_backward.launches,
               k.bilstm_layer_unfold_wgrad.launches, _tc_counts())
@@ -467,8 +572,9 @@ def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
     assert (k.bilstm_layer_unfold.launches,
             k.bilstm_layer_unfold_backward.launches,
             k.bilstm_layer_unfold_wgrad.launches, _tc_counts()) == (
-                counts[0] + 2, counts[1] + (not tc), counts[2] + (not tc),
-                tuple(c + tc for c in counts[3]))
+                counts[0] + 2 * (not new), counts[1] + (not tc),
+                counts[2] + (not tc), tuple(c + tc for c in counts[3]))
+    assert _fwd_counts()[1:] == (fwd[1] + 2 * new, fwd[2] + 2 * new)
     want = k.bilstm_layer_unfold_backward_reference(
         *args, ref_ys, ref_cs, dys, ks, hs)
     assert got[0].dtype == dtype and got[0].shape == (b, length, c)

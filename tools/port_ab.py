@@ -11,12 +11,18 @@ kernel (K0) without cell states at pBSRNN's serving shapes, and its forward
 with cell states and its two backward kernels (K0b: serial adjoint, weight
 gradients) at pBSRNN's training shapes, in f32 and bf16 (the shapes of
 chip_smoke.py: band T 376, comm T 32; B' 64 / 752 serving, 512 / 6016
-training; D 128, H 256). Runs go parent, change, change, parent, N times,
-so that a drift of the card's clock falls on both sides. Each run prints a
-JSON line; the last line holds the median per checkout and case. Only the
-wrappers' API common to every slice of the port since training was ported
-is used (`cuda_lstm.bilstm_layer`, `_forward_cuda`, `bilstm_layer_backward`,
-`bilstm_layer_wgrad`). Needs one GPU; exits non-zero without one.
+training; D 128, H 256); then (median of 5 after 1 warm-up) a bf16 train
+step of the full-width v1 pBSRNN on its default LSTM route (16 rows x 3 s)
+and of TF-GridNet on the unfold-fused route (8 rows x 1 s), with the
+optimizer chain, as chip_smoke.py times them. The wrappers time whatever
+route each checkout's wrappers take for the stream's dtype. Runs go parent,
+change, change, parent, N times, so that a drift of the card's clock falls
+on both sides. Each run prints a JSON line; the last line holds the median
+per checkout and case. Only the API common to every slice of the port
+since TF-GridNet was ported is used (`cuda_lstm.bilstm_layer`,
+`_forward_cuda`, `bilstm_layer_backward`, `bilstm_layer_wgrad`, the models,
+`train.trainer` and chip_smoke.py's model arguments). Needs one GPU; exits
+non-zero without one.
 """
 
 import argparse
@@ -78,6 +84,41 @@ for dtype in (torch.float32, torch.bfloat16):
             lambda: k.bilstm_layer_wgrad(args[0], ys, dg))
         del ys, cs, dg
         torch.cuda.empty_cache()
+
+# bf16 train steps at the recipes' sizes, as chip_smoke.py times them
+import os
+from chip_smoke import GRID_MODEL_ARGS, V1_MODEL_ARGS
+from wesep_tpu_torch.models.bsrnn import BSRNN
+from wesep_tpu_torch.models.tfgridnet import TFGridNet
+from wesep_tpu_torch.train.losses import parse_loss
+from wesep_tpu_torch.train.schedulers import exponential_decrease
+from wesep_tpu_torch.train.trainer import (TrainState, make_optimizer,
+                                           make_train_step)
+
+
+def step_ms(model, rows, samples):
+    gen = torch.Generator().manual_seed(0)
+    batch = {"wav_mix": (torch.randn(rows, samples, generator=gen) * 0.1)
+             .cuda(),
+             "wav_targets": (torch.randn(rows, samples, generator=gen) * 0.1)
+             .cuda(),
+             "spk_embeds": torch.randn(rows, 256, generator=gen).cuda()}
+    opt = make_optimizer(model, exponential_decrease(
+        num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+        warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0)
+    state = TrainState(model=model, optimizer=opt)
+    step = make_train_step(parse_loss("SISDR"), compute_dtype=torch.bfloat16)
+    return time_ms(lambda: step(state, batch), 1, 5)
+
+
+torch.manual_seed(0)
+out["pBSRNN train step 16x3s bf16"] = step_ms(
+    BSRNN(**V1_MODEL_ARGS).cuda().train(), 16, 48000)
+torch.cuda.empty_cache()
+os.environ["WESEP_LSTM_UNFOLD"] = "1"
+torch.manual_seed(0)
+out["TF-GridNet train step 8x1s bf16"] = step_ms(
+    TFGridNet(**GRID_MODEL_ARGS).cuda().train(), 8, 16000)
 print("RESULT " + json.dumps(out))
 '''
 

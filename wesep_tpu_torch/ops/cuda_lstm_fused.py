@@ -15,10 +15,12 @@ first).
 
 `bilstm_fused` and `lstm_fused` are `torch.autograd.Function`s on both
 devices (`BiLSTMFusedFn`, `LSTMFusedFn`). On CUDA tensors they launch the
-kernels; on CPU tensors they run the plain versions `bilstm_fused_reference`
-and `bilstm_fused_backward_reference`, `lstm_fused_reference` and
-`lstm_fused_backward_reference`. Anything else raises: there is no fallback
-from a failed build or launch. Every wrapper counts its launches:
+kernels (for a bf16 stream whose shapes `cuda_lstm_tc.forward_fits` and
+`backward_fits` take, the tensor-core recurrence and backward of
+ops/cuda_lstm_tc.py); on CPU tensors they run the plain versions
+`bilstm_fused_reference` and `bilstm_fused_backward_reference`,
+`lstm_fused_reference` and `lstm_fused_backward_reference`. Anything else
+raises: there is no fallback from a failed build or launch. Every wrapper counts its launches:
 `bilstm_fused_forward.launches`, `bilstm_fused_backward.launches`,
 `bilstm_fused_wgrad.launches` and the three `lstm_fused_*` ones.
 
@@ -236,7 +238,15 @@ def _stream_args(xw, whs):
 
 
 def _forward_cuda(counter, xw, whs, reverse, with_cs):
+    """The recurrence on the card -> (ys, cs or None): where
+    `cuda_lstm_tc.forward_fits` takes the shapes (bf16), the cluster
+    recurrence of ops/cuda_lstm_tc.py; otherwise the route's K1/K2 kernel
+    (`counter`)."""
+    from wesep_tpu_torch.ops import cuda_lstm_tc
+
     (dirs, batch, t_len, hidden), whs = _stream_args(xw, whs)
+    if cuda_lstm_tc.forward_fits(xw.dtype, 0, hidden, batch * t_len):
+        return cuda_lstm_tc.fused_forward(xw, whs, reverse, with_cs)
     ys = torch.empty(batch, t_len, dirs * hidden, dtype=xw.dtype,
                      device=xw.device)
     cs = torch.empty(batch, t_len, dirs * hidden, dtype=torch.float32,

@@ -1,5 +1,16 @@
-"""The bf16 backward of the LSTM layers on tensor cores: CUDA kernel
-wrappers, plain versions and the route gate.
+"""The bf16 forward and backward of the LSTM layers on tensor cores: CUDA
+kernel wrappers, plain versions and the route gates.
+
+The forward, for all four LSTM layers (csrc/lstm_forward_tc.cu over
+csrc/lstm_tc.cuh, whose header describes the design and its bounds): the
+input projection xw = x @ Wx + b of every step as one tensor-core product,
+f32 (`lstm_project`, the layers that project x: `cuda_lstm.bilstm_layer`
+and `cuda_lstm_unfold.bilstm_layer_unfold`; the two-kernel layers bring xw
+rounded to bf16), then the recurrence over thread-block clusters, each
+block holding its slice of Wh on chip (`lstm_forward_chain`). A layer takes
+it where `forward_fits` says so (the same shapes as `backward_fits`);
+`split_forward` composes the two as the card does, from the kernels or,
+with `plain`, from their plain versions, on any device.
 
 One backward for all four LSTM layers (`cuda_lstm.bilstm_layer`,
 `cuda_lstm_unfold.bilstm_layer_unfold`, `cuda_lstm_fused.bilstm_fused` and
@@ -28,6 +39,7 @@ that order here and dWx and dx back to the weights' channel-major order);
 or h alone (the two-kernel layers, whose gates start from xw).
 """
 
+import ctypes
 import dataclasses
 
 import torch
@@ -36,7 +48,11 @@ from wesep_tpu_torch.ops.cuda_lstm import _check, _entry, _launch
 from wesep_tpu_torch.ops.cuda_lstm_unfold import fold_frames
 
 __all__ = ["RowSpec", "ROW_X", "ROW_UNFOLD", "ROW_H", "CLUSTER", "CHAIN_ROWS",
-           "CHAIN_HIDDEN", "backward_fits", "wgrad_splits",
+           "FORWARD_ROWS", "CHAIN_HIDDEN", "forward_fits", "backward_fits",
+           "wgrad_splits", "lstm_project", "lstm_forward_chain",
+           "forward_clusters", "lstm_project_reference",
+           "lstm_forward_chain_reference", "split_forward", "layer_forward",
+           "unfold_forward", "fused_forward",
            "lstm_gates", "lstm_adjoint_chain", "lstm_dx", "lstm_wgrad",
            "gate_rows", "lstm_gates_reference",
            "lstm_adjoint_chain_reference", "lstm_dx_reference",
@@ -45,7 +61,8 @@ __all__ = ["RowSpec", "ROW_X", "ROW_UNFOLD", "ROW_H", "CLUSTER", "CHAIN_ROWS",
 
 ROW_X, ROW_UNFOLD, ROW_H = 0, 1, 2
 CLUSTER = 4        # blocks of a cluster of the chain kernel
-CHAIN_ROWS = 32    # batch rows of a cluster
+CHAIN_ROWS = 32    # batch rows of a cluster of the adjoint chain
+FORWARD_ROWS = 64  # batch rows of a cluster of the forward chain
 CHAIN_HIDDEN = (64, 128, 192, 256)
 _MAX_ROWS = 65535 * 128  # a grid dimension of the products, in 128-row tiles
 _WGRAD_TILE = (128, 128)  # rows and columns of a weight-gradient block
@@ -73,6 +90,15 @@ def backward_fits(dtype, d: int, hidden: int, rows: int, c=None) -> bool:
     return (dtype == torch.bfloat16 and hidden in CHAIN_HIDDEN
             and d % 8 == 0 and (c is None or (c > 0 and c % 8 == 0))
             and 0 < rows <= _MAX_ROWS)
+
+
+def forward_fits(dtype, d: int, hidden: int, rows: int, c=None) -> bool:
+    """The forward's route gate: whether the layer's forward takes these
+    kernels. The shapes of `backward_fits` (the same cluster of 4 blocks
+    over H / 4 units each, 16-byte copies of x and the same row limit of
+    the product's grid): a bf16 stream, H of 64, 128, 192 or 256, d and C
+    multiples of 8, 0 < B * T <= 65535 * 128."""
+    return backward_fits(dtype, d, hidden, rows, c)
 
 
 def wgrad_splits(rows: int, m: int, n: int, dirs: int) -> int:
@@ -170,7 +196,87 @@ def lstm_wgrad(x, ys, dg, spec, reverse=False):
     return partial.sum(dim=0)
 
 
-for _fn in (lstm_gates, lstm_adjoint_chain, lstm_dx, lstm_wgrad):
+def lstm_project(x, wxs, biases, spec, t_len):
+    """xw = A @ Wx + b per direction, on the card: bf16 products with f32
+    sums, the bias added once, not activated, f32 in the chain's order
+    ([dirs, ceil(B / 64), T, 64 * 4H]; `from_chain_order` gives the
+    layers' [dirs, B, T, 4H]). x as `spec` says (ROW_X or ROW_UNFOLD, T of
+    it the frames), wxs one [d, 4H] bf16 per direction (k-major for
+    ROW_UNFOLD), biases one [4H] f32 per direction, all contiguous."""
+    dirs = len(wxs)
+    batch, h4 = x.shape[0], wxs[0].shape[1]
+    xw = torch.empty(dirs, -(-batch // FORWARD_ROWS), t_len,
+                     FORWARD_ROWS * h4, dtype=torch.float32, device=x.device)
+    wx_f, wx_b = _pair(wxs)
+    b_f, b_b = _pair(biases)
+    _launch(lstm_project, _entry("lstm_forward_tc", "lstm_tc_project", 6, 9),
+            (x, wx_f, wx_b, b_f, b_b, xw),
+            (spec.kind, batch, t_len, spec.d, spec.length, spec.c, spec.hs,
+             h4 // 4, dirs), x.device)
+    return xw
+
+
+def lstm_forward_chain(xw, whs, reverse=False, with_cs=False, batch=None):
+    """The recurrence on the card -> (y [B, T, dirs * H] in whs's dtype
+    (bf16), cs [B, T, dirs * H] f32 or None). xw f32 in the chain's order
+    from `lstm_project` (B given as `batch`), or bf16 [dirs, B, T, 4H] (the
+    two-kernel layers); whs one [H, 4H] bf16 per direction, contiguous."""
+    hidden = whs[0].shape[0]
+    dirs, t_len = xw.shape[0], xw.shape[2]
+    if xw.dtype != torch.float32:
+        batch = xw.shape[1]
+    elif batch is None:
+        raise ValueError("an f32 xw is in the chain's order: give its batch")
+    y = torch.empty(batch, t_len, dirs * hidden, dtype=whs[0].dtype,
+                    device=xw.device)
+    cs = torch.empty(batch, t_len, dirs * hidden, dtype=torch.float32,
+                     device=xw.device) if with_cs else None
+    wh_f, wh_b = _pair(whs)
+    _launch(lstm_forward_chain,
+            _entry("lstm_forward_tc", "lstm_tc_forward", 5, 6),
+            (xw, wh_f, wh_b, y, cs),
+            (batch, t_len, hidden, dirs, int(reverse),
+             0 if xw.dtype == torch.float32 else 1), xw.device)
+    return y, cs
+
+
+def _chain_dims(hidden):
+    """(row splits, 8-unit groups, 16-row tiles a warp) of the chain's
+    blocks at this hidden size (FwdShape of csrc/lstm_tc.cuh)."""
+    groups = hidden // CLUSTER // 8
+    splits = 1 if groups >= 6 else 2
+    return splits, groups, FORWARD_ROWS // splits // 16
+
+
+def from_chain_order(xw, batch):
+    """xw in the chain's order -> [dirs, B, T, 4H] (the inverse of the
+    layout ChainXw of csrc/lstm_tc.cuh: per tile and step, [rank][warp]
+    [piece][lane][4] with warp = (row split, group), piece = (16-row tile,
+    gate), lane = (row % 8, unit pair), and (half, unit % 2) the 4)."""
+    dirs, tiles, t_len, n = xw.shape
+    hidden = n // FORWARD_ROWS // 4
+    splits, groups, mi = _chain_dims(hidden)
+    v = xw.view(dirs, tiles, t_len, CLUSTER, splits, groups, mi, 4, 8, 4, 2,
+                2)
+    # rows (split, 16-row tile, half, row % 8); columns (gate, rank, group,
+    # unit pair, unit % 2)
+    v = v.permute(0, 1, 4, 6, 10, 8, 2, 7, 3, 5, 9, 11)
+    return v.reshape(dirs, tiles * FORWARD_ROWS, t_len, 4 * hidden)[:, :batch]
+
+
+def forward_clusters(hidden: int) -> int:
+    """How many clusters of the forward chain at this hidden size the card
+    runs at once (cudaOccupancyMaxActiveClusters)."""
+    out = ctypes.c_int(0)
+    err = _entry("lstm_forward_tc", "lstm_tc_forward_clusters", 1, 1)(
+        ctypes.addressof(out), hidden, None)
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {err}")
+    return out.value
+
+
+for _fn in (lstm_gates, lstm_adjoint_chain, lstm_dx, lstm_wgrad,
+            lstm_project, lstm_forward_chain):
     _fn.launches = 0
 
 
@@ -181,22 +287,27 @@ def _walks_back(d: int, dirs: int, reverse: bool) -> bool:
     return (dirs == 2 and d == 1) != bool(reverse)
 
 
+def x_rows(x, spec, t_len):
+    """The x part of A, [B, T, d] f32, as `spec` says: the rows of x, or
+    the k-major frames of unfold(d // c, hs) (ROW_UNFOLD); None for
+    ROW_H."""
+    if spec.kind == ROW_X:
+        return x.float()
+    if spec.kind == ROW_UNFOLD:
+        ks = spec.d // spec.c
+        # [B, T', C, ks] -> k-major frames [B, T', ks * C]
+        return x.float().unfold(1, ks, spec.hs)[:, :t_len] \
+            .transpose(2, 3).reshape(x.shape[0], t_len, spec.d)
+    return None
+
+
 def gate_rows(x, ys, spec, dirs, reverse=False):
     """A [dirs, B, T, d + H] f32: row (b, t) of direction d is [x part ;
     h_{t-1}], h_{t-1} the row of ys one step back in that direction's walk,
-    zero at the boundary; the x part as `spec` says (k-major frames for
-    ROW_UNFOLD)."""
+    zero at the boundary; the x part as `x_rows` gives it."""
     batch, t_len, width = ys.shape
     hidden = width // dirs
-    if spec.kind == ROW_X:
-        xs = x.float()
-    elif spec.kind == ROW_UNFOLD:
-        ks = spec.d // spec.c
-        # [B, T', C, ks] -> k-major frames [B, T', ks * C]
-        xs = x.float().unfold(1, ks, spec.hs)[:, :t_len] \
-            .transpose(2, 3).reshape(batch, t_len, spec.d)
-    else:
-        xs = None
+    xs = x_rows(x, spec, t_len)
     zero = ys.new_zeros(batch, 1, hidden, dtype=torch.float32)
     out = []
     for d in range(dirs):
@@ -206,6 +317,56 @@ def gate_rows(x, ys, spec, dirs, reverse=False):
             else torch.cat([zero, y32[:, :-1]], dim=1)
         out.append(h_prev if xs is None else torch.cat([xs, h_prev], dim=-1))
     return torch.stack(out)
+
+
+def lstm_project_reference(x, wxs, biases, spec, t_len):
+    """Plain version of `lstm_project`: f32 sums of the x part of A and Wx
+    as the kernel reads them (in the stream's dtype), plus the bias."""
+    xs = x_rows(x, spec, t_len)
+    return torch.stack([torch.matmul(xs, w.float()) + b.float()
+                        for w, b in zip(wxs, biases)])
+
+
+def _block_columns(hidden):
+    """The gate columns of each of the CLUSTER blocks: block r owns units
+    [r H / CLUSTER, (r + 1) H / CLUSTER) and their four gates."""
+    hu = hidden // CLUSTER
+    return [torch.tensor([q * hidden + r * hu + j for q in range(4)
+                          for j in range(hu)]) for r in range(CLUSTER)]
+
+
+def lstm_forward_chain_reference(xw, whs, reverse=False, with_cs=False):
+    """Plain version of `lstm_forward_chain`, step by step with the
+    kernel's partition and rounding points: each block's gate columns g =
+    xw + h_{t-1} @ Wh[:, own] in f32 (xw widened to f32, h_{t-1} and Wh in
+    whs's dtype), the activations and c in f32, h rounded to whs's dtype
+    as it enters the next product and y. -> (y [B, T, dirs * H] in whs's
+    dtype, cs [B, T, dirs * H] f32 or None)."""
+    dtype = whs[0].dtype
+    dirs, batch, t_len, h4 = xw.shape
+    hidden = h4 // 4
+    cols = _block_columns(hidden)
+    ys, cs = [], []
+    for d in range(dirs):
+        wh32 = whs[d].float()
+        h = xw.new_zeros(batch, hidden, dtype=torch.float32)
+        c = torch.zeros_like(h)
+        y_d, c_d = [None] * t_len, [None] * t_len
+        steps = range(t_len - 1, -1, -1) if _walks_back(d, dirs, reverse) \
+            else range(t_len)
+        for t in steps:
+            xw_t = xw[d, :, t].float()
+            g = torch.empty_like(xw_t)
+            for own in cols:
+                g[:, own] = xw_t[:, own] + torch.matmul(h, wh32[:, own])
+            i, f, gg, o = g.split(hidden, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(gg)
+            h = (torch.sigmoid(o) * torch.tanh(c)).to(dtype).float()
+            y_d[t], c_d[t] = h, c
+        ys.append(torch.stack(y_d, dim=1))
+        cs.append(torch.stack(c_d, dim=1))
+    y = torch.cat(ys, dim=-1).to(dtype)
+    return y, (torch.cat(cs, dim=-1) if with_cs else None)
 
 
 def lstm_gates_reference(x, ys, wxs, whs, spec, biases=None, xw=None,
@@ -237,9 +398,7 @@ def lstm_adjoint_chain_reference(g, whs, cs, dys, reverse=False):
     dtype = dys.dtype
     dirs, batch, t_len, h4 = g.shape
     hidden = h4 // 4
-    hu = hidden // CLUSTER
-    cols = [torch.tensor([q * hidden + r * hu + j for q in range(4)
-                          for j in range(hu)]) for r in range(CLUSTER)]
+    cols = _block_columns(hidden)
     dg = torch.empty(dirs, batch, t_len, h4, dtype=dtype, device=g.device)
     zeros = g.new_zeros(batch, hidden)
     tiles = [slice(k, k + CHAIN_ROWS) for k in range(0, batch, CHAIN_ROWS)]
@@ -296,6 +455,22 @@ def lstm_wgrad_reference(x, ys, dg, spec, reverse=False):
 # ---- the composition ----------------------------------------------------------
 
 
+def split_forward(x, spec, wxs, biases, whs, xw=None, t_len=None,
+                  reverse=False, with_cs=False, plain=False):
+    """The forward as the card runs it: the projection (unless xw is given)
+    and the recurrence, from the kernels or (`plain`) their plain versions.
+    Operands in the stream's dtype and contiguous, biases f32; t_len the
+    steps (frames for ROW_UNFOLD) when xw is not given. -> (y [B, T, dirs
+    * H] in whs's dtype, cs [B, T, dirs * H] f32 or None)."""
+    project, chain = (lstm_project_reference, lstm_forward_chain_reference) \
+        if plain else (lstm_project, lstm_forward_chain)
+    if xw is None:
+        xw = project(x, wxs, biases, spec, t_len)
+        if not plain:  # the kernel's xw is in the chain's order
+            return chain(xw, whs, reverse, with_cs, batch=x.shape[0])
+    return chain(xw, whs, reverse, with_cs)
+
+
 def split_backward(x, spec, wxs, biases, whs, ys, cs, dys, xw=None,
                    reverse=False, plain=False):
     """The backward as the card runs it: gates, the chain, dx (where wxs is
@@ -326,6 +501,24 @@ def _stream(ys, cs, dys, dtype):
     return ys.contiguous(), cs.contiguous(), dys.to(dtype).contiguous()
 
 
+def _biases(*bs):
+    return [b.detach().float().contiguous() for b in bs]
+
+
+def layer_forward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, with_cs=False,
+                  plain=False):
+    """The fused layer's forward (`cuda_lstm.bilstm_layer`) by
+    `split_forward`; arguments and results as
+    `cuda_lstm.bilstm_layer_reference` with `return_cs`: (ys, cs or
+    None)."""
+    dtype = x.dtype
+    return split_forward(
+        x.detach().contiguous(), RowSpec(ROW_X, x.shape[2]),
+        [_cast(wx_f, dtype), _cast(wx_b, dtype)], _biases(b_f, b_b),
+        [_cast(wh_f, dtype), _cast(wh_b, dtype)], t_len=x.shape[1],
+        with_cs=with_cs, plain=plain)
+
+
 def layer_backward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys,
                    plain=False):
     """The fused layer's backward (`cuda_lstm.bilstm_layer`) by
@@ -336,8 +529,7 @@ def layer_backward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys,
     _check("ys", ys, (x.shape[0], x.shape[1], 2 * wh_f.shape[0]), x.device)
     dx2, dw, db, _ = split_backward(
         x.detach().contiguous(), RowSpec(ROW_X, d),
-        [_cast(wx_f, dtype), _cast(wx_b, dtype)],
-        [b_f.detach().float().contiguous(), b_b.detach().float().contiguous()],
+        [_cast(wx_f, dtype), _cast(wx_b, dtype)], _biases(b_f, b_b),
         [_cast(wh_f, dtype), _cast(wh_b, dtype)], *_stream(ys, cs, dys, dtype),
         plain=plain)
     return (dx2[0] + dx2[1], dw[0, :d], db[0], dw[0, d:], dw[1, :d], db[1],
@@ -348,6 +540,21 @@ def to_k_major(w, c: int, ks: int):
     """Rows of an unfold layer's weight from channel-major (c * ks + k) to
     k-major (k * C + c) order."""
     return w.reshape(c, ks, -1).transpose(0, 1).reshape(c * ks, -1)
+
+
+def unfold_forward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ks: int, hs: int,
+                   with_cs=False, plain=False):
+    """The unfold-fused layer's forward by `split_forward` over k-major
+    frames (Wx permuted by `to_k_major`); arguments and results as
+    `cuda_lstm_unfold.bilstm_layer_unfold_reference` with `return_cs`:
+    (ys, cs or None)."""
+    dtype = x.dtype
+    batch, length, c = x.shape
+    return split_forward(
+        x.detach().contiguous(), RowSpec(ROW_UNFOLD, ks * c, length, c, hs),
+        [_cast(to_k_major(w.detach(), c, ks), dtype) for w in (wx_f, wx_b)],
+        _biases(b_f, b_b), [_cast(wh_f, dtype), _cast(wh_b, dtype)],
+        t_len=(length - ks) // hs + 1, with_cs=with_cs, plain=plain)
 
 
 def unfold_backward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys,
@@ -364,14 +571,24 @@ def unfold_backward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys,
     dx2, dw, db, _ = split_backward(
         x.detach().contiguous(), RowSpec(ROW_UNFOLD, d, length, c, hs),
         [_cast(to_k_major(w.detach(), c, ks), dtype) for w in (wx_f, wx_b)],
-        [b_f.detach().float().contiguous(), b_b.detach().float().contiguous()],
-        [_cast(wh_f, dtype), _cast(wh_b, dtype)], *_stream(ys, cs, dys, dtype),
+        _biases(b_f, b_b), [_cast(wh_f, dtype), _cast(wh_b, dtype)],
+        *_stream(ys, cs, dys, dtype),
         plain=plain)
     du = (dx2[0] + dx2[1]).reshape(batch, frames, ks, c).transpose(2, 3) \
         .reshape(batch, frames, d)
     dwx = dw[:, :d].reshape(2, ks, c, -1).transpose(1, 2).reshape(2, d, -1)
     return (fold_frames(du, ks, hs, length), dwx[0], db[0], dw[0, d:], dwx[1],
             db[1], dw[1, d:])
+
+
+def fused_forward(xw, whs, reverse=False, with_cs=False, plain=False):
+    """The two-kernel layers' recurrence by `split_forward` (xw given, in
+    the stream's dtype) -> (ys [B, T, dirs * H], cs or None), as
+    `cuda_lstm_fused._recurrence_reference` returns them."""
+    return split_forward(None, RowSpec(ROW_H, 0), None, None,
+                         [_cast(w, xw.dtype) for w in whs],
+                         xw=xw.contiguous(), reverse=reverse, with_cs=with_cs,
+                         plain=plain)
 
 
 def fused_backward(xw, whs, ys, cs, dys, reverse=False, plain=False):
