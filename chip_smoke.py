@@ -31,28 +31,40 @@ pass):
    the cluster recurrence) at the same shapes, likewise, timed beside
    cuBLAS's projection and cuDNN's LSTM forward, with the clusters the card
    runs at once (bf16 LSTM forwards of phases 3-13 at shapes
-   cuda_lstm_tc.forward_fits takes run these kernels; f32 forwards the
-   routes' own FMA kernels); and the TCN block
+   cuda_lstm_tc.forward_fits takes run these kernels); the f32 cluster
+   forward of the LSTM layers (the FMA projection in the chain's order, the
+   recurrence over clusters of H / 32 blocks with Wh in registers) at every
+   f32 shape serving and the validation step run, each kernel against its
+   plain version, the whole forward against the route's plain forward,
+   twice bit for bit, timed beside cuBLAS's f32 projection, cuDNN's f32
+   LSTM forward (TF32 off), the route's own FMA forward kernel and the
+   bound, with the clusters the card runs at once (f32 LSTM forwards of
+   phases 3-13 at shapes cuda_lstm_f32.f32_forward_fits takes run these
+   kernels); each route's own FMA forward kernel through the layers at a
+   shape that gate refuses (H 96); and the TCN block
    and the Conv2dBlock past one grid dimension (B = 65537, and K4 at a T of
    more than 65535 element-wise chunks);
 4. serve: the full-width v1 pBSRNN (feature_dim 128, 6 repeats, multiply
    fuse, 256-d embeddings; random weights from a seed) decodes a small
-   shard through the port's bin/infer on the card; the kernel's launch
-   count must show it ran 12 times per forward, and the kernel forward
-   must agree with the plain-LSTM forward of the same model;
+   shard through the port's bin/infer on the card; the launch counts must
+   show 12 launches of the f32 cluster chain and 12 of the f32 projection
+   per forward, none of the route's own FMA forward kernel, and the kernel
+   forward must agree with the plain-LSTM forward of the same model;
 5. train: the same model trains through the port's bin/train on the card,
    in bf16 at batch_size 8 (16 rows x 3 s per step), a few steps and one
    validation pass on synthetic shards; the launch counts must show, per
    bf16 train step, 12 launches of each of the two tensor-core forward
    kernels (projection, chain) and of each of the four tensor-core backward
-   kernels (gates, chain, dx, dW), and 12 of the FMA forward kernel per f32
-   validation step, none of it in the train steps; losses must be finite,
+   kernels (gates, chain, dx, dW), and 12 of the f32 cluster chain and
+   projection per f32 validation step, none of them in the train steps;
+   losses must be finite,
    the parameters
    must move, and the checkpoint must hold parameters, optimizer state and
    step and load as bin/infer loads it. Then the gradients of every
    parameter through the kernels against those through the plain LSTM
-   (f32, 2 rows x 3 s, through the FMA backward kernels, 12 of each
-   counted; and bf16, through the tensor-core ones), and the time and peak
+   (f32, 2 rows x 3 s, through the f32 cluster forward and the FMA backward
+   kernels, 12 of each counted; and bf16, through the tensor-core ones),
+   and the time and peak
    memory of a train step;
 6. serve SpEx+: the full-width ConvTasNet of
    examples/librimix/tse/v2/confs/spexplus.yaml (random weights from a
@@ -70,15 +82,17 @@ pass):
 8. serve TF-GridNet: the full-width model of
    examples/librimix/tse/v1/confs/tfgridnet.yaml (random weights from a
    seed) decodes a small shard through bin/infer twice, with
-   WESEP_LSTM_UNFOLD=1 (12 launches of the unfold-fused kernel per
-   forward, none of the plain layer's) and without it (12 of the plain
-   layer's, none of the unfold-fused); on each route the kernels' forward
-   against the plain versions' forward, and the step time;
+   WESEP_LSTM_UNFOLD=1 (the unfold-fused layer) and without it (the plain
+   layer over materialised frames): each of its 12 f32 BiLSTM forwards one
+   launch of the f32 cluster chain and of the f32 projection, none of
+   either route's own FMA forward kernel; on each route the kernels'
+   forward against the plain versions' forward, and the step time;
 9. train TF-GridNet: the same model trains through bin/train with
    WESEP_LSTM_UNFOLD=1, bf16, batch_size 4 (8 rows x 1 s), a few steps
-   and one validation step: 12 forward launches per train and validation
-   step and 12 of each tensor-core backward kernel per train step (the
-   FMA backward kernels on the f32 gradient check); finite losses,
+   and one validation step: 12 launches of each tensor-core forward and
+   backward kernel per train step, 12 of the f32 cluster chain and
+   projection per validation step (the FMA backward kernels on the f32
+   gradient check); finite losses,
    parameters that moved, a checkpoint that bin/infer decodes from,
    whole-model gradients through the kernels against those through the
    plain versions, and the time and peak memory of a train step on both
@@ -99,15 +113,17 @@ pass):
 
 12. the pBSRNN on WESEP_LSTM_LAYER=0: phases 4 and 5 again with every
    BiLSTM on the two-kernel layer (the projection a cuBLAS product, the
-   recurrence K2, its adjoint and dWh K2b): 12 K2 launches per forward and
-   none of the fused layer's, 12 of the gates, chain and dW kernels per
+   recurrence on the f32 cluster chain in f32, its adjoint and dWh K2b):
+   12 launches of the f32 cluster chain per forward and none of the fused
+   layer's kernels or K2, 12 of the gates, chain and dW kernels per
    bf16 train step (K2b's own kernels on the f32 gradient check); the
    forward and a train step also timed on the default route in the same
    process, in turns;
 13. the unidirectional pBSRNN (`--set
    model_args.tse_model.use_bidirectional=false`): phases 4 and 5 again
-   with 12 K1 launches per forward and 12 of the gates, chain and dW
-   kernels per bf16 train step (K1b's own on the f32 gradient check).
+   with 12 launches of the f32 cluster chain per forward (none of K1) and
+   12 of the gates, chain and dW kernels per bf16 train step (K1b's own on
+   the f32 gradient check).
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
@@ -397,12 +413,17 @@ def backward_bounds(t_len, batch, dtype, d=D, h=H, x_elems=None):
 def forward_kernels(dtype, d, h, rows, c=None):
     """The kernels a layer forward at these shapes runs: the tensor-core
     projection (d > 0) and chain where cuda_lstm_tc.forward_fits takes the
-    shapes (bf16), the route's own FMA forward kernel otherwise."""
+    shapes (bf16), the f32 projection and cluster chain where
+    cuda_lstm_f32.f32_forward_fits takes them (f32), the route's own FMA
+    forward kernel otherwise."""
+    from wesep_tpu_torch.ops.cuda_lstm_f32 import f32_forward_fits
     from wesep_tpu_torch.ops.cuda_lstm_tc import forward_fits
 
     if forward_fits(dtype, d, h, rows, c=c):
         return ["lstm_project", "lstm_forward_chain"] if d else \
             ["lstm_forward_chain"]
+    if f32_forward_fits(dtype, d, h, rows, c=c):
+        return list(F32_FORWARD_NAMES) if d else [F32_FORWARD_NAMES[1]]
     return ["own FMA kernel"]
 
 
@@ -1156,6 +1177,336 @@ def check_tc_forward(route, name, t_len, batch, d=D, h=H, length=None):
     return case
 
 
+F32_FORWARD_NAMES = ("lstm_f32_project", "lstm_f32_forward_chain")
+# the routes' own FMA forward kernels, which f32 runs only at shapes the
+# f32 gate refuses since the f32 cluster forward took the others
+OLD_F32_FORWARD = {"layer": "bilstm_layer", "unfold": "bilstm_layer_unfold",
+                   "two_kernel": "bilstm_fused_forward",
+                   "unidirectional": "lstm_fused_forward"}
+
+
+def f32_forward_bounds(rows, d, h, dirs, x_bytes, with_cs):
+    """Least times of the f32 forward on the card (67 TFLOP/s f32 outside
+    the tensor cores, 3.35 TB/s): every input read once, every output
+    written once. The projection A @ Wx + b (x, Wx and b in, xw f32 out;
+    layers that project x); the chain h_{t-1} @ Wh and the cell update (xw
+    and Wh in, y and, `with_cs`, cs out); and the forward's function as the
+    Pallas kernel computes it, from x (or, on the two-kernel routes, xw)
+    and the weights to y and cs, with no xw passing between two kernels."""
+    h4, f32 = 4 * h, torch.float32
+    out_b = rows * dirs * h * 4 * (2 if with_cs else 1)
+    wx_b, wh_b = dirs * (d + 1) * h4 * 4, dirs * h * h4 * 4
+    xw_b = dirs * rows * h4 * 4
+    return {
+        "lstm_f32_project": _bound(2 * dirs * rows * d * h4,
+                                   x_bytes + wx_b + xw_b, f32),
+        "lstm_f32_forward_chain": _bound(2 * dirs * rows * h * h4,
+                                         xw_b + wh_b + out_b, f32),
+        "function": _bound(2 * dirs * rows * (d + h) * h4,
+                           (x_bytes + wx_b if d else xw_b) + wh_b + out_b,
+                           f32)}
+
+
+def old_f32_forward(route, x, flat, xw, ks, with_cs):
+    """The route's own FMA forward kernel (`bilstm_fwd_kernel` of
+    csrc/bilstm_common.cuh) on f32 operands, launched directly: the layers
+    no longer reach it at shapes the f32 gate takes. -> (y, cs or None)."""
+    from wesep_tpu_torch.ops import cuda_lstm, cuda_lstm_fused
+    from wesep_tpu_torch.ops import cuda_lstm_unfold
+    from wesep_tpu_torch.ops.cuda_lstm import _entry, _launch
+
+    if route in ("two_kernel", "unidirectional"):
+        dirs, batch, t_len, h4 = xw.shape
+        whs = flat[2::3]
+        out = (batch, t_len, dirs * h4 // 4)
+        counter = getattr(cuda_lstm_fused, OLD_F32_FORWARD[route])
+        fn = _entry("lstm_fused", "lstm_fused_forward", 5, 6)
+        tensors = (xw, whs[0], whs[1] if dirs == 2 else None)
+        ints = (batch, t_len, h4 // 4, dirs, 0, 0)
+    elif route == "layer":
+        batch, t_len, d = x.shape
+        tensors = cuda_lstm._kernel_args(x, *flat)
+        h = flat[2].shape[0]
+        out = (batch, t_len, 2 * h)
+        counter = cuda_lstm.bilstm_layer
+        fn = _entry("bilstm_layer", "bilstm_layer_forward", 9, 5)
+        ints = (batch, t_len, d, h, 0)
+    else:
+        batch, length, c = x.shape
+        tensors = cuda_lstm._kernel_args(x, *flat, d=ks * c)
+        h = flat[2].shape[0]
+        out = (batch, length - ks + 1, 2 * h)
+        counter = cuda_lstm_unfold.bilstm_layer_unfold
+        fn = _entry("bilstm_unfold", "bilstm_unfold_forward", 9, 7)
+        ints = (batch, length, c, ks, 1, h, 0)
+    y = torch.empty(*out, device=tensors[0].device)
+    cs = torch.empty_like(y) if with_cs else None
+    _launch(counter, fn, (*tensors, y, cs), ints, y.device)
+    return y, cs
+
+
+def check_f32_forward(route, name, t_len, batch, d=D, h=H, length=None,
+                      with_cs=False):
+    """The f32 cluster forward (the FMA projection, the cluster chain) of
+    one LSTM route at one f32 shape that serving or the validation step
+    runs, f32 parameters, cell states written where a backward follows
+    (`with_cs`, the training shapes): each kernel against its plain version
+    on the kernels' own inputs (the projection's chain order undone by
+    from_f32_chain_order; the chain on the projection's own xw, with the
+    rows a cluster the wrapper picks), the whole forward as the route runs
+    it against the route's step-by-step plain forward, a second run bit for
+    bit, each kernel's time beside its plain version's, its library
+    yardstick (cuBLAS's f32 product for the projection; none for the chain
+    alone) and its bound; the whole forward beside cuDNN's f32 LSTM forward
+    (TF32 off) over the same shape, the route's own FMA forward kernel
+    (launched directly) and the bound of the forward's function.
+
+    route: "layer" (K0), "unfold" (K3, x [B', L, C]), "two_kernel" (K2) or
+    "unidirectional" (K1; both given xw from the layers' f32 projection).
+    Limits: y and cs of the chain, of the whole forward and of the FMA
+    kernel within 1e-4 abs of the plain versions (f32 sums in another
+    order over T steps), the projection within 1e-4 of its plain product's
+    largest magnitude."""
+    from wesep_tpu_torch.ops import cuda_lstm, cuda_lstm_fused
+    from wesep_tpu_torch.ops import cuda_lstm_f32 as f
+    from wesep_tpu_torch.ops import cuda_lstm_tc as tc
+    from wesep_tpu_torch.ops import cuda_lstm_unfold
+
+    dirs = 1 if route == "unidirectional" else 2
+    gen = torch.Generator().manual_seed(SEED + 40)
+    scale = 1.0 / math.sqrt(h)
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
+
+    flat = [w for _ in range(dirs) for w in (u(d, 4 * h), u(4 * h),
+                                             u(h, 4 * h))]
+    wx32, b32, whs = flat[0::3], flat[1::3], flat[2::3]
+    xw = spec = wxs = None
+    ks = d // GRID_C
+    if route == "unfold":
+        x = torch.randn(batch, length, GRID_C, generator=gen).cuda()
+        t_len = length - ks + 1
+        spec = tc.RowSpec(tc.ROW_UNFOLD, d, length, GRID_C, 1)
+        wxs = [tc.to_k_major(w, GRID_C, ks).contiguous() for w in wx32]
+        x_rows = cuda_lstm_unfold.unfold_frames(x, ks, 1)
+
+        def whole():
+            return cuda_lstm_unfold._forward_cuda(x, *flat, ks, 1, with_cs)
+
+        def plain_whole():
+            return cuda_lstm_unfold.bilstm_layer_unfold_reference(
+                x, *flat, ks, 1, return_cs=True)
+    else:
+        x = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda()
+        x_rows = x
+        if route == "layer":
+            spec = tc.RowSpec(tc.ROW_X, d)
+            wxs = [w.contiguous() for w in wx32]
+
+            def whole():
+                return cuda_lstm._forward_cuda(x, *flat, with_cs=with_cs)
+
+            def plain_whole():
+                return cuda_lstm.bilstm_layer_reference(x, *flat,
+                                                        return_cs=True)
+        else:
+            xw = torch.stack([cuda_lstm_fused.project(x, wx, b)
+                              for wx, b in zip(wx32, b32)])
+            counter = getattr(cuda_lstm_fused, OLD_F32_FORWARD[route])
+
+            def whole():
+                return cuda_lstm_fused._forward_cuda(counter, xw, whs, False,
+                                                     with_cs)
+
+            def plain_whole():
+                return cuda_lstm_fused._recurrence_reference(xw, whs, False,
+                                                             True)
+    rows = batch * t_len
+    per_cluster = f.rows_per_cluster(batch, dirs, h)
+
+    def run():
+        xw_k = xw if xw is not None else f.lstm_f32_project(
+            x, wxs, b32, spec, t_len, per_cluster)
+        y, cs = f.lstm_f32_forward_chain(
+            xw_k, whs, False, with_cs, batch=None if xw is not None
+            else batch)
+        return xw_k, y, cs
+
+    def natural(xw_k):
+        # the projection writes no row of the last tile past B: compare
+        # the rows it writes
+        return xw_k if xw is not None else f.from_f32_chain_order(
+            xw_k, batch, h)
+
+    xw_k, y, cs = run()
+    torch.cuda.synchronize()
+    again = run()
+    repeats = torch.equal(natural(xw_k), natural(again[0])) and all(
+        a is None or torch.equal(a, b) for a, b in zip((y, cs), again[1:]))
+    del again
+
+    # each kernel against its plain version on the kernels' own inputs
+    max_abs = {}
+    xw_nat = xw
+    if xw is None:
+        xw_nat = natural(xw_k)
+        xw_ref = f.lstm_f32_project_reference(x, wxs, b32, spec, t_len)
+        max_abs["lstm_f32_project"] = (xw_nat - xw_ref).abs().max().item()
+        proj_rel = rel_err(xw_nat, xw_ref)
+        del xw_ref
+    y_ref, cs_ref = f.lstm_f32_forward_chain_reference(xw_nat, whs, False,
+                                                       True)
+    max_abs["lstm_f32_forward_chain"] = (y - y_ref).abs().max().item()
+    cs_err = (cs - cs_ref).abs().max().item() if with_cs else 0.0
+    del y_ref
+    # the whole forward as the route runs it, the route's own FMA kernel,
+    # both against the route's step-by-step plain forward
+    want_y, want_cs = plain_whole()
+    got_y, got_cs = whole()
+    whole_err = {"y_max_abs": (got_y - want_y).abs().max().item(),
+                 "cs_max_abs": (got_cs - want_cs).abs().max().item()
+                 if with_cs else 0.0}
+    old_y, old_cs = old_f32_forward(route, x, flat, xw, ks, with_cs)
+    old_err = {"y_max_abs": (old_y - want_y).abs().max().item(),
+               "cs_max_abs": (old_cs - want_cs).abs().max().item()
+               if with_cs else 0.0}
+    del got_y, got_cs, want_y, want_cs, old_y, old_cs, cs_ref
+
+    times = {"lstm_f32_forward_chain": time_ms(
+        lambda: f.lstm_f32_forward_chain(
+            xw_k, whs, False, with_cs,
+            batch=None if xw is not None else batch), 1, 5)}
+    plain = {"lstm_f32_forward_chain": time_ms(
+        lambda: f.lstm_f32_forward_chain_reference(xw_nat, whs, False,
+                                                   with_cs), 0, 1)}
+    library = {"lstm_f32_forward_chain": None}
+    x_bytes = x.numel() * 4
+    if xw is None:
+        times["lstm_f32_project"] = time_ms(
+            lambda: f.lstm_f32_project(x, wxs, b32, spec, t_len,
+                                       per_cluster), 1, 5)
+        plain["lstm_f32_project"] = time_ms(
+            lambda: f.lstm_f32_project_reference(x, wxs, b32, spec, t_len),
+            0, 1)
+        # cuBLAS: one f32 product of the (materialised) input rows with
+        # both directions' Wx side by side, the bias added
+        a2d = x_rows.reshape(rows, -1)
+        w_cat = torch.cat(wx32, dim=1)
+        b_cat = torch.cat(b32)
+        library["lstm_f32_project"] = time_ms(
+            lambda: torch.addmm(b_cat, a2d, w_cat), 1, 5)
+        del a2d, w_cat
+    whole_ms = time_ms(whole, 1, 5)
+    plain_ms = time_ms(plain_whole, 0, 1)
+    old_ms = time_ms(lambda: old_f32_forward(route, x, flat, xw, ks,
+                                             with_cs), 1, 5)
+    # cuDNN's f32 LSTM forward at the same shape (TF32 off; its input the
+    # materialised frames on the unfold route)
+    torch.manual_seed(SEED)
+    lstm = torch.nn.LSTM(x_rows.shape[-1], h, batch_first=True,
+                         bidirectional=dirs == 2).cuda()
+    lstm.flatten_parameters()
+    x_lib = x_rows.contiguous()
+    with torch.inference_mode():
+        cudnn_ms = time_ms(lambda: lstm(x_lib), 1, 5)
+    del lstm, x_lib
+    bounds = f32_forward_bounds(rows, spec.d if xw is None else 0, h, dirs,
+                                x_bytes, with_cs)
+    kernels = {}
+    for kname in F32_FORWARD_NAMES:
+        if kname not in times:
+            continue
+        kernels[kname] = {
+            "max_abs_err": max_abs[kname], "ms": times[kname],
+            "plain_ms": plain[kname], "library_ms": library[kname],
+            "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
+    kernels["lstm_f32_forward_chain"]["cs_max_abs_err"] = cs_err
+    if xw is None:
+        kernels["lstm_f32_project"]["rel_err"] = proj_rel
+    forward = {"ms": whole_ms, "plain_ms": plain_ms, "library_ms": cudnn_ms,
+               "bound_ms": bounds["function"][0],
+               "bound_by": bounds["function"][1]}
+    case = {"route": route, "shape": name, "dtype": "float32", "dirs": dirs,
+            "T": t_len, "B": batch, "D": spec.d if xw is None else 0, "H": h,
+            "rows": rows, "with_cs": with_cs, "rows_per_cluster": per_cluster,
+            "repeats_bit_for_bit": repeats, "whole_err": whole_err,
+            "kernels": kernels, "forward": forward,
+            "own_fma_kernel": {
+                "name": OLD_F32_FORWARD[route], "ms": old_ms,
+                "max_abs_err": old_err["y_max_abs"],
+                "cs_max_abs_err": old_err["cs_max_abs"],
+                "plain_ms": plain_ms, "library_ms": cudnn_ms,
+                "bound_ms": bounds["function"][0],
+                "bound_by": bounds["function"][1]}}
+    log("kernels f32 cluster forward", json.dumps(case))
+    limit = 1e-4
+    ok = (repeats and (xw is not None or proj_rel <= 1e-4)
+          and max_abs["lstm_f32_forward_chain"] <= limit
+          and cs_err <= limit
+          and all(v <= limit for v in whole_err.values())
+          and all(v <= limit for v in old_err.values())
+          and torch.isfinite(y).all()
+          and (cs is None or torch.isfinite(cs).all()))
+    if not ok:
+        raise AssertionError(f"f32 cluster forward disagrees: {case}")
+    return case
+
+
+def f32_refused_path():
+    """f32 layer forwards at a shape the f32 gate refuses (H 96: not whole
+    clusters of 32-unit blocks), through each route's layer function on the
+    card, counts set to 0 just before and read just after: one launch of
+    the route's own FMA forward kernel each and none of any other LSTM
+    kernel; each output against the route's plain version (1e-4 abs).
+    -> {route: counts}."""
+    from wesep_tpu_torch.ops import cuda_lstm, cuda_lstm_fused
+    from wesep_tpu_torch.ops import cuda_lstm_unfold
+    from wesep_tpu_torch.ops.cuda_lstm_f32 import f32_forward_fits
+
+    batch, t_len, d, h, c, ks = 6, 40, 64, 96, 16, 4
+    if f32_forward_fits(torch.float32, d, h, batch * t_len):
+        raise AssertionError("the f32 gate takes the refused shape")
+    gen = torch.Generator().manual_seed(SEED + 50)
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) / 10).cuda()
+
+    x = torch.randn(batch, t_len, d, generator=gen).cuda() * 0.5
+    xu = torch.randn(batch, t_len + ks - 1, c, generator=gen).cuda()
+    bi = [u(d, 4 * h), u(4 * h), u(h, 4 * h)] * 2
+    bi_u = [u(ks * c, 4 * h), u(4 * h), u(h, 4 * h)] * 2
+    runs = {
+        "layer": (lambda p: cuda_lstm.bilstm_layer(x, *bi, plain=p)),
+        "unfold": (lambda p: cuda_lstm_unfold.bilstm_layer_unfold(
+            xu, *bi_u, ks, 1, plain=p)),
+        "two_kernel": (lambda p: cuda_lstm_fused.bilstm_fused(
+            x, *bi, plain=p)),
+        "unidirectional": (lambda p: cuda_lstm_fused.lstm_fused(
+            x, *bi[:3], plain=p)),
+    }
+    out = {}
+    for route, fn in runs.items():
+        with torch.inference_mode():
+            zero_counts()
+            y = fn(False)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = fn(True)
+        err = (y - want).abs().max().item()
+        expect = dict.fromkeys(counts, 0)
+        expect[OLD_F32_FORWARD[route]] = 1
+        log(f"f32 forward at a refused shape ({route} route, B' {batch}, "
+            f"H {h}): launches {({n: v for n, v in counts.items() if v})}, "
+            f"max abs error {err:.3e} against the plain version (limit "
+            "1e-4)")
+        if counts != expect or not err <= 1e-4:
+            raise AssertionError(f"refused f32 shape on the {route} route: "
+                                 f"launches {counts}, error {err}")
+        out[route] = counts
+    return out
+
+
 def write_shard(root, rng, name, seconds):
     """Premixed shard `name`.tar of len(seconds) two-speaker mixtures, with
     its list, 256-d embeddings (scp), utt2spk and enrollment lists, as the
@@ -1285,7 +1636,7 @@ def serve(root, route="layer"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
-        launches = counts[LSTM_ROUTES[route][0]]
+        launches = counts["lstm_f32_forward_chain"]
         audio_s = 2 * sum(lengths) / 16000.0
         log(f"{tag}: {2 * len(lengths)} requests (mixture x target) in "
             f"{steps} forward steps, {wall:.3f} s wall, RTF "
@@ -1293,8 +1644,10 @@ def serve(root, route="layer"):
             f"SI-SNRi {avg_sisnri:.3f} dB (random weights: shows the chain "
             "ran, not quality)")
         per_forward = 2 * V1_MODEL_ARGS["num_repeat"]  # band + comm per BSNet
-        log(f"{tag}: {LSTM_ROUTES[route][0]} launches {launches} (expected "
-            f"{per_forward} x {steps}, no other LSTM kernel)")
+        log(f"{tag}: launches {({n: v for n, v in counts.items() if v})} "
+            f"(expected {per_forward} x {steps} of the f32 cluster chain, "
+            "as many of the f32 projection on the layers that project x, "
+            "no other LSTM kernel)")
         expect_counts(counts, per_forward * steps, 0, route, tag, f32=True)
         if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
             raise AssertionError("non-finite SI-SNR from infer")
@@ -1358,7 +1711,7 @@ def serve(root, route="layer"):
         log(f"{tag}: forward in turns, two-kernel route {step_ms:.3f} ms, "
             f"default (fused layer) route {layer_step_ms:.3f} ms, two-kernel "
             f"route {again_ms:.3f} ms")
-    return launches, summary
+    return counts, summary
 
 
 def rows_loss(text):
@@ -1558,8 +1911,9 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
         f"bin/train in {wall:.3f} s wall; launches "
         f"{ {n: v for n, v in counts.items() if v} } (expected "
         f"{per_pass * TRAIN_STEPS} of each tensor-core forward and backward "
-        f"kernel (bf16 steps), {per_pass * val_steps} {names[0]} (the f32 "
-        f"validation step), no other LSTM kernel)")
+        f"kernel (bf16 steps), {per_pass * val_steps} of the f32 cluster "
+        f"chain (the f32 validation step, and of the f32 projection on the "
+        f"layers that project x), no other LSTM kernel)")
     expect_counts(counts, per_pass * TRAIN_STEPS, per_pass * TRAIN_STEPS,
                   route, tag, f32_forward=per_pass * val_steps)
     with open(os.path.join(config["exp_dir"], "train.log")) as f:
@@ -2500,9 +2854,10 @@ LSTM_ROUTES = {
 
 def lstm_counters():
     """Every LSTM wrapper's counter: K0, K0b x2, K3, K3b x2, K2, K2b x2,
-    K1, K1b x2, the tensor-core forward's two kernels and the tensor-core
-    backward's four."""
+    K1, K1b x2, the tensor-core forward's two kernels, the tensor-core
+    backward's four and the f32 cluster forward's two."""
     from wesep_tpu_torch.ops import cuda_lstm as k0
+    from wesep_tpu_torch.ops import cuda_lstm_f32 as f32
     from wesep_tpu_torch.ops import cuda_lstm_fused as k12
     from wesep_tpu_torch.ops import cuda_lstm_tc as tc
     from wesep_tpu_torch.ops import cuda_lstm_unfold as k3
@@ -2514,6 +2869,7 @@ def lstm_counters():
                 for name in LSTM_ROUTES[route]}
     counters.update({name: getattr(tc, name)
                      for name in TC_NAMES + TC_FORWARD_NAMES})
+    counters.update({name: getattr(f32, name) for name in F32_FORWARD_NAMES})
     return counters
 
 
@@ -2535,18 +2891,22 @@ def expect_counts(got, forward, backward, route, what, f32=False,
     the projection on the layers that project x (K0, K3), and none of the
     route's own forward kernel; a backward one launch each of the gate
     product, the adjoint chain and the dW product, and of the dx product on
-    K0 and K3. In f32 (`f32`: serving and the f32 gradient checks) a
-    forward is one launch of the route's own forward kernel and a backward
-    one of each of its two backward kernels; `f32_forward` counts the f32
-    forwards of a bf16 run (bin/train's validation step)."""
+    K0 and K3. In f32 (`f32`: serving and the f32 gradient checks), at
+    shapes cuda_lstm_f32.f32_forward_fits takes (every f32 run here), a
+    forward is one launch of the f32 cluster chain, and of the f32
+    projection on K0 and K3, and none of the route's own forward kernel; a
+    backward one of each of the route's two backward kernels;
+    `f32_forward` counts the f32 forwards of a bf16 run (bin/train's
+    validation step)."""
     want = dict.fromkeys(got, 0)
-    name, adjoint, wgrad = LSTM_ROUTES[route]
+    _, adjoint, wgrad = LSTM_ROUTES[route]
     projects = route in ("layer", "unfold")
+    f32_forwards = forward if f32 else f32_forward
+    want.update(lstm_f32_forward_chain=f32_forwards,
+                lstm_f32_project=f32_forwards if projects else 0)
     if f32:
-        want[name] = forward
         want.update({adjoint: backward, wgrad: backward})
     else:
-        want[name] = f32_forward
         want.update(lstm_forward_chain=forward,
                     lstm_project=forward if projects else 0,
                     lstm_gates=backward, lstm_adjoint_chain=backward,
@@ -3419,6 +3779,38 @@ def main() -> int:
     log(f"forward chain: clusters of 4 blocks the card runs at once, by H: "
         f"{clusters}")
 
+    # the f32 cluster forward of every LSTM route at every f32 shape that
+    # serving and the validation step run: the pBSRNN's band and comm at
+    # the serving and (with cs) the training sizes on K0, K2 and K1;
+    # TF-GridNet's intra and inter on K3 and on K0 over the materialised
+    # frames
+    from wesep_tpu_torch.ops import cuda_lstm_f32
+
+    f32_clusters = {
+        h: {r: cuda_lstm_f32.f32_forward_clusters(h, r)
+            for r in cuda_lstm_f32.F32_ROWS}
+        for h in cuda_lstm_f32.F32_HIDDEN}
+    log(f"f32 cluster forward: clusters of H / 32 blocks the card runs at "
+        f"once, by H and rows a cluster: {f32_clusters}")
+    f32_cases = [
+        check_f32_forward(route, path + name, t_len, batch,
+                          with_cs=path == "train_")
+        for route in ("layer", "two_kernel", "unidirectional")
+        for path, shapes in (("serve_", MAIN_SHAPES),
+                             ("train_", TRAIN_SHAPES))
+        for name, (t_len, batch) in shapes.items()]
+    for name, (rows, length) in UNFOLD_SHAPES.items():
+        train = name.startswith("train")
+        f32_cases.append(check_f32_forward(
+            "unfold", name, None, rows, grid_d, GRID_H, length=length,
+            with_cs=train))
+        f32_cases.append(check_f32_forward(
+            "layer", "grid_" + name, length - GRID_KS + 1, rows, grid_d,
+            GRID_H, with_cs=train))
+    # and the routes' own FMA forward kernels, at a shape the f32 gate
+    # refuses, through the layers' entry points
+    refused_launches = f32_refused_path()
+
     # the fused Conv2dBlock at DPCCN's six shapes: serving in f32 (2 rows),
     # training in bf16 (8 rows)
     conv_cases = [check_conv2d(name, f, ci, co, batch, dtype)
@@ -3485,8 +3877,14 @@ def main() -> int:
 
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
-    # training bf16)
-    band = cases[0]
+    # training bf16); the routes' own FMA forward kernels, which f32 runs
+    # only at shapes the f32 gate refuses, timed beside the f32 cluster
+    # forward at the serving shapes where that forward takes longest
+    def f32_case(route, shape):
+        return next(c for c in f32_cases
+                    if c["route"] == route and c["shape"] == shape)
+
+    band = f32_case("layer", "serve_band")
     train_band = train_cases[1]
     # and of the fused TCN block: SpEx+'s training shape (16 rows, bf16)
     # at dilation 1
@@ -3500,10 +3898,7 @@ def main() -> int:
          if c["shape"].startswith("train") and c["dtype"] == "bfloat16"),
         key=lambda c: c["forward"]["ms"] + c["backward"]["ms"]
         + c["wgrad"]["ms"])
-    unfold_fwd_head = max(
-        (c for c in unfold_cases
-         if c["shape"].startswith("train") and c["dtype"] == "float32"),
-        key=lambda c: c["forward"]["ms"])
+    unfold_fwd_head = f32_case("unfold", "serve_inter")
     # and of the fused Conv2dBlock: the DPCCN training shape (bf16) whose
     # kernels take longest
     conv_head = max((c for c in conv_cases if c["dtype"] == "bfloat16"),
@@ -3548,10 +3943,10 @@ def main() -> int:
                 "lstm_fused_forward": "wesep_tpu/ops/pallas_lstm.py:157",
                 "lstm_fused_backward": "wesep_tpu/ops/pallas_lstm.py:230",
                 "lstm_fused_wgrad": "wesep_tpu/ops/pallas_lstm.py:230"}
-    headline = {"bilstm_layer": band,
+    headline = {"bilstm_layer": band["own_fma_kernel"],
                 "bilstm_layer_backward": train_band["backward"],
                 "bilstm_layer_wgrad": train_band["wgrad"],
-                "bilstm_layer_unfold": unfold_fwd_head["forward"],
+                "bilstm_layer_unfold": unfold_fwd_head["own_fma_kernel"],
                 "bilstm_layer_unfold_backward": unfold_head["backward"],
                 "bilstm_layer_unfold_wgrad": unfold_head["wgrad"],
                 "tcn_block_gln": tcn_head["forward"],
@@ -3562,10 +3957,12 @@ def main() -> int:
     # (f32) for the forward and the training band (bf16) for the backward
     for dirs in (2, 1):
         fwd, adjoint, wgrad = fused_names(dirs)
-        serve_band, train_band_case = (
-            next(c for c in two_kernel_cases if c["dirs"] == dirs
-                 and c["shape"] == shape) for shape in ("band", "train_band"))
-        headline[fwd] = serve_band["forward"]
+        train_band_case = next(c for c in two_kernel_cases
+                               if c["dirs"] == dirs
+                               and c["shape"] == "train_band")
+        headline[fwd] = f32_case(
+            "two_kernel" if dirs == 2 else "unidirectional",
+            "serve_band")["own_fma_kernel"]
         headline[adjoint] = train_band_case["backward"]
         headline[wgrad] = train_band_case["wgrad"]
     # and of the tensor-core backward: the main path's training band (K0,
@@ -3588,6 +3985,14 @@ def main() -> int:
         sources[name] = "wesep_tpu_torch/csrc/lstm_forward_tc.cu"
         replaces[name] = "wesep_tpu/ops/pallas_lstm.py:834"
         headline[name] = dict(tc_fwd_head["kernels"][name])
+    # and of the f32 cluster forward: the main path's serving band (K0, f32,
+    # what bin/infer runs); the chain alone has no library call (cuDNN's
+    # forward also projects x: it is held against the whole forward, the
+    # cases' "forward")
+    for name in F32_FORWARD_NAMES:
+        sources[name] = "wesep_tpu_torch/csrc/lstm_forward_f32.cu"
+        replaces[name] = "wesep_tpu/ops/pallas_lstm.py:834"
+        headline[name] = dict(band["kernels"][name])
     # launches of each wrapper on each path that ran it: the main-path
     # count of an entry is its training path's (the f32 gradient checks are
     # the paths of the LSTM routes' own backward kernels, which bf16
@@ -3599,7 +4004,7 @@ def main() -> int:
             if n:
                 by_path[name][path] = n
 
-    by_path["bilstm_layer"].update(serve=serve_launches)
+    add_path("serve", serve_launches)
     add_path("train", train_launches["main"])
     add_path("train_f32_grads", train_launches["f32_grads"])
     by_path["tcn_block_gln"].update(serve=spex_serve_launches)
@@ -3615,17 +4020,25 @@ def main() -> int:
     for name, n in dpccn_launches.items():
         by_path[name]["dpccn_train"] = n
     for route, (n_serve, n_train) in route_launches.items():
-        by_path[LSTM_ROUTES[route][0]][f"serve_{route}"] = n_serve
+        add_path(f"serve_{route}", n_serve)
         add_path(f"train_{route}", n_train["main"])
         add_path(f"train_{route}_f32_grads", n_train["f32_grads"])
+    for route, counts in refused_launches.items():
+        add_path(f"f32_refused_shape_{route}", counts)
+    # the main path of a kernel: its training path; for the f32 cluster
+    # forward, serving (phase 4); for the routes' own FMA forward kernels,
+    # which no recipe's shape reaches any more, the layers' forward at a
+    # shape the f32 gate refuses
     main_paths = ("train", "tfgridnet_train", "dpccn_train",
                   "train_two_kernel", "train_unidirectional",
                   "train_f32_grads", "tfgridnet_f32_grads",
                   "train_two_kernel_f32_grads",
-                  "train_unidirectional_f32_grads")
+                  "train_unidirectional_f32_grads") + tuple(
+                      f"f32_refused_shape_{r}" for r in OLD_F32_FORWARD)
     kernels = []
     for name, head in headline.items():
-        main_path = next(p for p in main_paths if p in by_path[name])
+        main_path = "serve" if name in F32_FORWARD_NAMES else next(
+            p for p in main_paths if p in by_path[name])
         entry = {"name": name, "route": "cuda", "source": sources[name],
                  "replaces": replaces[name],
                  "launches": by_path[name][main_path],
@@ -3633,6 +4046,12 @@ def main() -> int:
         entry.update({key: head[key] for key in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")})
+        if name in OLD_F32_FORWARD.values():
+            entry["own_fma_cases"] = [
+                dict(c["own_fma_kernel"], route=c["route"], shape=c["shape"],
+                     T=c["T"], B=c["B"], D=c["D"], H=c["H"])
+                for c in f32_cases
+                if OLD_F32_FORWARD[c["route"]] == name]
         if name == "bilstm_layer":
             entry["cases"] = cases + [
                 dict(c["forward"], shape=c["shape"], dtype=c["dtype"],
@@ -3664,6 +4083,22 @@ def main() -> int:
                 for c in two_kernel_cases
                 if part in c and c["dirs"] == (2 if name.startswith("bilstm")
                                                else 1)]
+        elif name in F32_FORWARD_NAMES:
+            entry["also_replaces"] = [
+                "wesep_tpu/ops/pallas_lstm.py:1236",
+                "wesep_tpu/ops/pallas_lstm.py:460",
+                "wesep_tpu/ops/pallas_lstm.py:157"][
+                    :3 if name == "lstm_f32_forward_chain" else 1]
+            entry["clusters_at_once"] = f32_clusters
+            entry["cases"] = [
+                dict(c["kernels"][name], route=c["route"], shape=c["shape"],
+                     T=c["T"], B=c["B"], D=c["D"], H=c["H"],
+                     with_cs=c["with_cs"],
+                     rows_per_cluster=c["rows_per_cluster"],
+                     repeats_bit_for_bit=c["repeats_bit_for_bit"],
+                     whole_err=c["whole_err"], forward=c["forward"],
+                     own_fma_ms=c["own_fma_kernel"]["ms"])
+                for c in f32_cases if name in c["kernels"]]
         elif name in TC_FORWARD_NAMES:
             entry["also_replaces"] = [
                 "wesep_tpu/ops/pallas_lstm.py:1236",

@@ -16,6 +16,7 @@ from wesep_tpu_torch.ops import (
     _build,
     cuda_conv2d,
     cuda_lstm,
+    cuda_lstm_f32,
     cuda_lstm_fused,
     cuda_lstm_tc,
     cuda_lstm_unfold,
@@ -58,20 +59,29 @@ def _fwd_counts():
             cuda_lstm_tc.lstm_forward_chain.launches)
 
 
+def _f32_counts():
+    """The f32 cluster forward's two kernels: projection, chain."""
+    return (cuda_lstm_f32.lstm_f32_project.launches,
+            cuda_lstm_f32.lstm_f32_forward_chain.launches)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,d,h", [(8, 10, 64, 128), (13, 7, 128, 256),
                                      (1100, 2, 16, 32), (1, 1, 4, 4)])
 def test_bilstm_layer_matches_plain(cuda, dtype, b, t, d, h):
     """One launch of the layer's own forward kernel, or (bf16 shapes
     `forward_fits` takes) one each of the tensor-core projection and
-    chain; y against the plain version."""
+    chain, or (f32 shapes `f32_forward_fits` takes) one each of the f32
+    projection and cluster chain; y against the plain version."""
     args = _args(cuda, b, t, d, h, dtype)
     new = cuda_lstm_tc.forward_fits(dtype, d, h, b * t)
-    before = _fwd_counts()
+    f32 = cuda_lstm_f32.f32_forward_fits(dtype, d, h, b * t)
+    before, f32_before = _fwd_counts(), _f32_counts()
     y = cuda_lstm.bilstm_layer(*args)
     torch.cuda.synchronize()
-    assert _fwd_counts() == (before[0] + (not new), before[1] + new,
-                             before[2] + new)
+    assert _fwd_counts() == (before[0] + (not new and not f32),
+                             before[1] + new, before[2] + new)
+    assert _f32_counts() == (f32_before[0] + f32, f32_before[1] + f32)
     assert y.dtype == dtype and y.shape == (b, t, 2 * h)
     ref = cuda_lstm.bilstm_layer_reference(*args)
     assert (y.float() - ref.float()).abs().max().item() <= _tolerance(ref)
@@ -98,7 +108,8 @@ def test_bilstm_layer_backward_matches_plain(cuda, dtype, b, t, d, h):
     args = _args(cuda, b, t, d, h, dtype)
     tc = cuda_lstm_tc.backward_fits(dtype, d, h, b * t)
     new = cuda_lstm_tc.forward_fits(dtype, d, h, b * t)
-    fwd = _fwd_counts()
+    f32 = cuda_lstm_f32.f32_forward_fits(dtype, d, h, b * t)
+    fwd, f32_before = _fwd_counts(), _f32_counts()
     counts = (cuda_lstm.bilstm_layer.launches,
               cuda_lstm.bilstm_layer_backward.launches,
               cuda_lstm.bilstm_layer_wgrad.launches, _tc_counts())
@@ -118,9 +129,10 @@ def test_bilstm_layer_backward_matches_plain(cuda, dtype, b, t, d, h):
     assert (cuda_lstm.bilstm_layer.launches,
             cuda_lstm.bilstm_layer_backward.launches,
             cuda_lstm.bilstm_layer_wgrad.launches, _tc_counts()) == (
-                counts[0] + (not new), counts[1] + (not tc),
+                counts[0] + (not new and not f32), counts[1] + (not tc),
                 counts[2] + (not tc), tuple(c + tc for c in counts[3]))
     assert _fwd_counts()[1:] == (fwd[1] + new, fwd[2] + new)
+    assert _f32_counts() == (f32_before[0] + f32, f32_before[1] + f32)
     want = cuda_lstm.bilstm_layer_backward_reference(
         *args, ref_ys, ref_cs, dys)
     assert got[0].dtype == dtype
@@ -354,6 +366,95 @@ def test_tc_forward_matches_its_plain_composition(cuda, route, b, t, d, h,
         assert (gcs - rcs).abs().max().item() <= 10 * tol
 
 
+# (route, B, T, D, H, ks, hs): each hidden size the f32 chain takes, ragged
+# row tiles and clusters (B not a multiple of 8, 12, 16, 20 or 32), one step,
+# the two-kernel layers' own xw order, a unidirectional layer walked
+# backwards, the unfold-fused layer at hs 1 and 2
+F32_FORWARD_SHAPES = [("layer", 37, 9, 24, 64, 1, 1),
+                      ("layer", 5, 1, 8, 128, 1, 1),
+                      ("layer", 45, 6, 128, 256, 1, 1),
+                      ("two_kernel", 70, 6, 0, 192, 1, 1),
+                      ("reverse", 33, 7, 0, 256, 1, 1),
+                      ("unfold", 19, 11, 16, 64, 2, 1),
+                      ("unfold", 21, 9, 192, 192, 4, 2)]
+
+
+@pytest.mark.parametrize("route,b,t,d,h,ks,hs", F32_FORWARD_SHAPES)
+def test_f32_forward_matches_its_plain_composition(cuda, route, b, t, d, h,
+                                                   ks, hs):
+    """The f32 cluster forward's two kernels against their plain versions,
+    at every rows a cluster the chain takes at this H: the projection (its
+    chain order undone) within 1e-4 of its largest magnitude (f32 sums in
+    another order); the chain on the projection's own xw (or the layers'
+    xw), y and cs within 1e-4 abs of the plain chain (the same f32 sums of
+    each warp's 32 rows of k, added in the same order, transcendentals of
+    another rounding); one launch of each a run, a second run bit for bit;
+    and the whole split forward (the wrapper's own rows a cluster) against
+    the plain composition."""
+    tc, f = cuda_lstm_tc, cuda_lstm_f32
+    gen = torch.Generator().manual_seed(9)
+    scale = 1.0 / math.sqrt(h)
+
+    def u(*s):
+        return ((torch.rand(*s, generator=gen) * 2 - 1) * scale).to(cuda)
+
+    dirs = 1 if route == "reverse" else 2
+    whs = [u(h, 4 * h) for _ in range(dirs)]
+    x = xw = wxs = biases = None
+    if route in ("two_kernel", "reverse"):
+        spec = tc.RowSpec(tc.ROW_H, 0)
+        xw = (torch.randn(dirs, b, t, 4 * h, generator=gen) * 0.5).to(cuda)
+    else:
+        if route == "unfold":
+            c = d // ks
+            length = (t - 1) * hs + ks
+            x = torch.randn(b, length, c, generator=gen).to(cuda)
+            spec = tc.RowSpec(tc.ROW_UNFOLD, d, length, c, hs)
+        else:
+            x = (torch.randn(b, t, d, generator=gen) * 0.5).to(cuda)
+            spec = tc.RowSpec(tc.ROW_X, d)
+        wxs = [u(d, 4 * h) for _ in range(dirs)]
+        biases = [u(4 * h) for _ in range(dirs)]
+    assert f.f32_forward_fits(torch.float32, spec.d, h, b * t,
+                              c=spec.c or None)
+    rev = route == "reverse"
+    xw_ref = xw if xw is not None else f.lstm_f32_project_reference(
+        x, wxs, biases, spec, t)
+    y_ref, cs_ref = f.lstm_f32_forward_chain_reference(xw_ref, whs, rev, True)
+    for rows in f.F32_ROWS:
+        before = _f32_counts()
+
+        def run():
+            if xw is not None:
+                return (xw, *f.lstm_f32_forward_chain(xw, whs, rev, True,
+                                                      rows=rows))
+            xw_k = f.lstm_f32_project(x, wxs, biases, spec, t, rows)
+            return (xw_k, *f.lstm_f32_forward_chain(xw_k, whs, rev, True,
+                                                    batch=b))
+
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        assert _f32_counts() == (before[0] + 2 * (x is not None),
+                                 before[1] + 2), rows
+        if x is not None:  # the rows of the last tile past B are not written
+            got, again = [(f.from_f32_chain_order(r[0], b, h), *r[1:])
+                          for r in (got, again)]
+        assert all(torch.equal(a, g) for a, g in zip(again, got)), rows
+        xw_k, y, cs = got
+        assert y.dtype == cs.dtype == torch.float32
+        assert y.shape == cs.shape == (b, t, dirs * h)
+        if x is not None:
+            assert ((xw_k - xw_ref).abs().max()
+                    / xw_ref.abs().max()).item() <= 1e-4, rows
+        assert (y - y_ref).abs().max().item() <= 1e-4, rows
+        assert (cs - cs_ref).abs().max().item() <= 1e-4, rows
+    gy, gcs = tc.split_forward(x, spec, wxs, biases, whs, xw, t, rev, True)
+    ry, rcs = tc.split_forward(x, spec, wxs, biases, whs, xw, t, rev, True,
+                               plain=True)
+    assert (gy - ry).abs().max().item() <= 1e-4
+    assert (gcs - rcs).abs().max().item() <= 1e-4
+
+
 def _fused_counts():
     k = cuda_lstm_fused
     return tuple(f.launches for f in (
@@ -370,11 +471,14 @@ def test_fused_layer_matches_plain(cuda, dtype, dirs, reverse, b, t, h):
     forward's saved tensors, so only the adjoint differs) and the
     weight-gradient kernel (on the adjoint's own dxw), each against its
     plain version; each wrapper counts one launch (the forward: the
-    tensor-core chain for bf16 shapes `forward_fits` takes)."""
+    tensor-core chain for bf16 shapes `forward_fits` takes, the f32 cluster
+    chain for f32 shapes `f32_forward_fits` takes)."""
     k = cuda_lstm_fused
     xw, whs = _fused_inputs(cuda, dirs, b, t, h, dtype)
     new = cuda_lstm_tc.forward_fits(dtype, 0, h, b * t)
+    f32 = cuda_lstm_f32.f32_forward_fits(dtype, 0, h, b * t)
     chain = cuda_lstm_tc.lstm_forward_chain.launches
+    f32_before = _f32_counts()
     before = _fused_counts()
     ys, cs = k._forward_cuda(
         k.bilstm_fused_forward if dirs == 2 else k.lstm_fused_forward, xw,
@@ -396,9 +500,11 @@ def test_fused_layer_matches_plain(cuda, dtype, dirs, reverse, b, t, h):
                                         reverse=reverse)
         dwh = k.lstm_fused_wgrad(ref_ys, dxw, reverse=reverse)
     torch.cuda.synchronize()
-    step = (not new, 1, 1, 0, 0, 0) if dirs == 2 else (0, 0, 0, not new, 1, 1)
+    own = not new and not f32
+    step = (own, 1, 1, 0, 0, 0) if dirs == 2 else (0, 0, 0, own, 1, 1)
     assert _fused_counts() == tuple(c + s for c, s in zip(before, step))
     assert cuda_lstm_tc.lstm_forward_chain.launches == chain + new
+    assert _f32_counts() == (f32_before[0], f32_before[1] + f32)
     want_dxw, want_dwh, want_db = k._adjoint_reference(
         xw, whs, reverse, ref_ys, ref_cs, dys)
     assert dxw.dtype == dtype and db.dtype == dwh.dtype == torch.float32
@@ -537,9 +643,11 @@ UNFOLD_SHAPES = [(5, 13, 8, 4, 1, 16), (3, 19, 16, 4, 2, 32),
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,length,c,ks,hs,h", UNFOLD_SHAPES)
 def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
-    """Forward (with and without cell states) and the backward kernels (the
-    layer's own two, or the tensor-core backward's four for bf16 shapes its
-    route gate takes) against their plain versions (unfold + the plain
+    """Forward (with and without cell states: the layer's own kernel, the
+    tensor-core forward in bf16 or the f32 cluster forward where their
+    gates take the shapes) and the backward kernels (the layer's own two,
+    or the tensor-core backward's four for bf16 shapes its route gate
+    takes) against their plain versions (unfold + the plain
     layer + the fold), each from the same saved tensors. Limits as for the
     plain layer: ys 1e-4 or 4 bf16 units in the last place; gradients 1e-4
     (f32) or 2e-2 (bf16) of the plain version's largest magnitude; the
@@ -550,7 +658,8 @@ def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
     frames = (length - ks) // hs + 1
     tc = cuda_lstm_tc.backward_fits(dtype, ks * c, h, b * frames, c=c)
     new = cuda_lstm_tc.forward_fits(dtype, ks * c, h, b * frames, c=c)
-    fwd = _fwd_counts()
+    f32 = cuda_lstm_f32.f32_forward_fits(dtype, ks * c, h, b * frames, c=c)
+    fwd, f32_before = _fwd_counts(), _f32_counts()
     counts = (k.bilstm_layer_unfold.launches,
               k.bilstm_layer_unfold_backward.launches,
               k.bilstm_layer_unfold_wgrad.launches, _tc_counts())
@@ -572,9 +681,11 @@ def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
     assert (k.bilstm_layer_unfold.launches,
             k.bilstm_layer_unfold_backward.launches,
             k.bilstm_layer_unfold_wgrad.launches, _tc_counts()) == (
-                counts[0] + 2 * (not new), counts[1] + (not tc),
+                counts[0] + 2 * (not new and not f32), counts[1] + (not tc),
                 counts[2] + (not tc), tuple(c + tc for c in counts[3]))
     assert _fwd_counts()[1:] == (fwd[1] + 2 * new, fwd[2] + 2 * new)
+    assert _f32_counts() == (f32_before[0] + 2 * f32,
+                             f32_before[1] + 2 * f32)
     want = k.bilstm_layer_unfold_backward_reference(
         *args, ref_ys, ref_cs, dys, ks, hs)
     assert got[0].dtype == dtype and got[0].shape == (b, length, c)
@@ -619,9 +730,12 @@ def test_unfold_gradients_repeat_bit_for_bit(cuda, dtype):
 def test_unfold_function_routes_and_dtypes(cuda, monkeypatch):
     """The Function on a bf16 stream with f32 parameters: dx in bf16,
     weight gradients f32 and within the bf16 limits of the plain route's;
-    no gradient asked, no graph. Through models.common.LSTM, the switch
-    WESEP_LSTM_UNFOLD picks the unfold-fused kernel or the plain layer's,
-    which agree on the same module."""
+    no gradient asked, no graph. Through models.common.LSTM (f32, H 64:
+    the f32 cluster forward's shapes), the switch WESEP_LSTM_UNFOLD picks
+    the unfold-fused layer's forward (its projection over k-major frames)
+    or the plain layer's, each one launch of the f32 projection and chain
+    and none of either layer's own kernel, and the two agree on the same
+    module."""
     from wesep_tpu_torch.models.common import LSTM
 
     k = cuda_lstm_unfold
@@ -641,16 +755,25 @@ def test_unfold_function_routes_and_dtypes(cuda, monkeypatch):
     torch.manual_seed(0)
     module = LSTM(16, 64, unfold_ks=4, unfold_hs=1).to(cuda)
     x = args[0].detach().float()
+    calls = []
+    for name in ("unfold_forward", "layer_forward"):
+        def spy(*a, _name=name, _real=getattr(cuda_lstm_tc, name), **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(cuda_lstm_tc, name, spy)
     outs = {}
     for route in ("1", "0"):
         monkeypatch.setenv("WESEP_LSTM_UNFOLD", route)
         counts = (k.bilstm_layer_unfold.launches,
-                  cuda_lstm.bilstm_layer.launches)
+                  cuda_lstm.bilstm_layer.launches, *_f32_counts())
+        calls.clear()
         outs[route] = module(x)
         fused = route == "1"
         assert (k.bilstm_layer_unfold.launches - counts[0],
-                cuda_lstm.bilstm_layer.launches - counts[1]) == (
-                    int(fused), int(not fused))
+                cuda_lstm.bilstm_layer.launches - counts[1],
+                *(n - c for n, c in zip(_f32_counts(), counts[2:]))) == (
+                    0, 0, 1, 1)
+        assert calls == ["unfold_forward" if fused else "layer_forward"]
     assert (outs["1"] - outs["0"]).abs().max().item() <= 1e-4
 
 

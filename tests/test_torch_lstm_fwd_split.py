@@ -350,11 +350,14 @@ def _stand_in(label):
 
 
 @pytest.mark.parametrize("dtype,hidden,new", [(BF16, 64, True),
-                                              (F32, 64, False),
+                                              (F32, 64, True),
                                               (BF16, 32, False)])
 def test_layer_routes_take_the_forward_gate(monkeypatch, dtype, hidden, new):
-    """Each route's card forward asks the gate before any launch: the
-    tensor-core forward where it fits, the FMA kernels otherwise."""
+    """Each route's card forward asks the gates before any launch: the
+    split forward (cuda_lstm_tc's compositions: the tensor-core kernels in
+    bf16, the f32 cluster kernels of cuda_lstm_f32 in f32) where it fits,
+    the route's own FMA kernel otherwise (f32 shapes the f32 gate refuses:
+    test_torch_lstm_fwd_f32)."""
     for name in ("layer_forward", "unfold_forward", "fused_forward"):
         monkeypatch.setattr(tc, name, _stand_in("new"))
     for module in (cuda_lstm, cuda_lstm_unfold, cuda_lstm_fused):

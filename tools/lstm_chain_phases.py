@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where a step of the LSTM chain kernels spends its time, on a GPU.
 
-    python3 tools/lstm_chain_phases.py [--chain adjoint|forward|both]
+    python3 tools/lstm_chain_phases.py [--chain adjoint|forward|f32|both|all]
 
-Builds csrc/lstm_backward_tc.cu and csrc/lstm_forward_tc.cu with
--DLSTM_CHAIN_PHASES, under which each chain kernel (`lstm_chain_kernel`, the
-adjoint, and `lstm_forward_chain_kernel`, the forward; csrc/lstm_tc.cuh)
-reads clock64() at the borders of each phase of a step. The adjoint's
+Builds csrc/lstm_backward_tc.cu and csrc/lstm_forward_tc.cu (and, for the
+f32 chain, csrc/lstm_forward_f32.cu) with -DLSTM_CHAIN_PHASES, under which
+each chain kernel (`lstm_chain_kernel`, the adjoint, and
+`lstm_forward_chain_kernel`, the bf16 forward, of csrc/lstm_tc.cuh;
+`f32_chain_kernel`, the f32 forward) reads clock64() at the borders of
+each phase of a step. The adjoint's
 phases: the elementwise dgates, the block barrier, the dh product, the
 scatter of the partial sums to the cluster, the barrier's arrive, the next
 step's loads, its wait and the sum of the partials. The forward's: the h
@@ -17,7 +19,12 @@ slices. Threads 0 and the last of the first blocks of direction 0 keep the
 cycles of each phase summed over the steps; the script launches each kernel
 at the pBSRNN's band and comm shapes (bf16, H 256, random inputs; the
 forward from an f32 xw) and prints each phase's cycles per step beside the
-kernel's time (CUDA events) and the card's highest SM clock. The libraries go to
+kernel's time (CUDA events) and the card's highest SM clock. The f32
+chain's phases: the wait for the peers' slices, the h product (FMAs), the
+block barrier, the cell update with the stores of y and cs, the exchange,
+the next step's xw loads and the step's last block barrier; it runs at the
+pBSRNN's serving band and comm shapes (H 256) and TF-GridNet's inter shape
+(H 192), f32, at each of 8, 16 and 32 rows a cluster. The libraries go to
 wesep_tpu_torch/build/chain_phases/ (listed in .gitignore); the libraries
 the port loads are not touched.
 """
@@ -40,6 +47,10 @@ PHASES = ("elementwise", "block barrier", "dh product", "scatter",
 FORWARD_PHASES = ("h product", "cell update", "block barrier", "exchange",
                   "y and cs stores", "next loads", "wait")
 SHAPES = ((376, 512, 256), (32, 6016, 256))  # (T, B', H): band, comm
+F32_PHASES = ("wait", "h product", "block barrier", "cell update",
+              "exchange", "next loads", "step barrier")
+# (T, B', H): pBSRNN serve band, serve comm; TF-GridNet serve inter
+F32_SHAPES = ((376, 64, 256), (32, 752, 256), (754, 142, 192))
 
 
 def build(source: str) -> ctypes.CDLL:
@@ -136,9 +147,37 @@ def forward(gen):
         del xw, y, cs
 
 
+def f32_forward(gen):
+    lib = build("lstm_forward_f32")
+    chain = lib.lstm_f32_forward
+    chain.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    chain.restype = ctypes.c_int
+    launch = _launcher(chain)
+    for t_len, batch, hidden in F32_SHAPES:
+        dirs = 2
+        whs = [(torch.randn(hidden, 4 * hidden, generator=gen) / 16).cuda()
+               for _ in range(dirs)]
+        y = torch.empty(batch, t_len, dirs * hidden, device="cuda")
+        cs = torch.empty_like(y)
+        for rows in (8, 12, 16, 20, 32):
+            # xw in the chain's order for these rows a cluster
+            xw = torch.randn(dirs, -(-batch // rows), t_len,
+                             rows * 4 * hidden, generator=gen).cuda()
+            ptrs = [t.data_ptr() for t in (xw, whs[0], whs[1], y, cs)]
+            print(f"f32 forward chain, T {t_len} B' {batch} H {hidden}, "
+                  f"{rows} rows a cluster:")
+            report(lib, t_len, lambda: launch(*ptrs, batch, t_len, hidden,
+                                              dirs, 0, 1, rows),
+                   F32_PHASES, hidden - 1)
+            del xw
+        del y, cs
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--chain", choices=("adjoint", "forward", "both"),
+    parser.add_argument("--chain",
+                        choices=("adjoint", "forward", "f32", "both", "all"),
                         default="both")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -149,10 +188,12 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(clock.strip())
     gen = torch.Generator().manual_seed(0)
-    if args.chain in ("adjoint", "both"):
+    if args.chain in ("adjoint", "both", "all"):
         adjoint(gen)
-    if args.chain in ("forward", "both"):
+    if args.chain in ("forward", "both", "all"):
         forward(gen)
+    if args.chain in ("f32", "all"):
+        f32_forward(gen)
     return 0
 
 

@@ -11,9 +11,13 @@ kernel (K0) without cell states at pBSRNN's serving shapes, and its forward
 with cell states and its two backward kernels (K0b: serial adjoint, weight
 gradients) at pBSRNN's training shapes, in f32 and bf16 (the shapes of
 chip_smoke.py: band T 376, comm T 32; B' 64 / 752 serving, 512 / 6016
-training; D 128, H 256); then (median of 5 after 1 warm-up) a bf16 train
-step of the full-width v1 pBSRNN on its default LSTM route (16 rows x 3 s)
-and of TF-GridNet on the unfold-fused route (8 rows x 1 s), with the
+training; D 128, H 256); then (median of 5 after 1 warm-up) the f32
+serving forward of the full-width v1 pBSRNN (2 rows x 3 s, what bin/infer
+runs) on its default LSTM route and on WESEP_LSTM_LAYER=0, in turns within
+the process (default, two-kernel, two-kernel, default), and of TF-GridNet
+on its default and unfold-fused (WESEP_LSTM_UNFOLD=1) routes likewise;
+then a bf16 train step of the pBSRNN on its default LSTM route (16 rows x
+3 s) and of TF-GridNet on the unfold-fused route (8 rows x 1 s), with the
 optimizer chain, as chip_smoke.py times them. The wrappers time whatever
 route each checkout's wrappers take for the stream's dtype. Runs go parent,
 change, change, parent, N times, so that a drift of the card's clock falls
@@ -85,7 +89,9 @@ for dtype in (torch.float32, torch.bfloat16):
         del ys, cs, dg
         torch.cuda.empty_cache()
 
-# bf16 train steps at the recipes' sizes, as chip_smoke.py times them
+# f32 serving forwards (2 rows x 3 s, as bin/infer runs them), the routes
+# of a model in turns in this process; then bf16 train steps at the
+# recipes' sizes, as chip_smoke.py times them
 import os
 from chip_smoke import GRID_MODEL_ARGS, V1_MODEL_ARGS
 from wesep_tpu_torch.models.bsrnn import BSRNN
@@ -94,6 +100,25 @@ from wesep_tpu_torch.train.losses import parse_loss
 from wesep_tpu_torch.train.schedulers import exponential_decrease
 from wesep_tpu_torch.train.trainer import (TrainState, make_optimizer,
                                            make_train_step)
+
+
+def serve_ms(model, routes):
+    gen = torch.Generator().manual_seed(0)
+    mix = (torch.randn(2, 48000, generator=gen) * 0.1).cuda()
+    emb = torch.randn(2, 256, generator=gen).cuda()
+    times = {}
+    with torch.inference_mode():
+        for name, env in routes + routes[::-1]:
+            old = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            times.setdefault(name, []).append(
+                time_ms(lambda: model(mix, emb), 1, 5))
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return {name: statistics.median(t) for name, t in times.items()}
 
 
 def step_ms(model, rows, samples):
@@ -111,6 +136,18 @@ def step_ms(model, rows, samples):
     return time_ms(lambda: step(state, batch), 1, 5)
 
 
+torch.manual_seed(0)
+for route, ms in serve_ms(BSRNN(**V1_MODEL_ARGS).cuda().eval(), [
+        ("default", {}), ("WESEP_LSTM_LAYER=0", {"WESEP_LSTM_LAYER": "0"})
+]).items():
+    out[f"pBSRNN serve 2x3s f32 {route}"] = ms
+torch.cuda.empty_cache()
+torch.manual_seed(0)
+for route, ms in serve_ms(TFGridNet(**GRID_MODEL_ARGS).cuda().eval(), [
+        ("default", {}), ("WESEP_LSTM_UNFOLD=1", {"WESEP_LSTM_UNFOLD": "1"})
+]).items():
+    out[f"TF-GridNet serve 2x3s f32 {route}"] = ms
+torch.cuda.empty_cache()
 torch.manual_seed(0)
 out["pBSRNN train step 16x3s bf16"] = step_ms(
     BSRNN(**V1_MODEL_ARGS).cuda().train(), 16, 48000)

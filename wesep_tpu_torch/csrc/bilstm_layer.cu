@@ -35,9 +35,11 @@
 // RNN) over 16 SMs. Rows past B in the last tile are computed on zeros and
 // never stored. When a backward pass will follow, the cell states c_t are
 // written beside y in f32 (the adjoint kernel in bilstm_layer_bwd.cu reads
-// them); serving passes no buffer and writes nothing more. Keeping Wh
-// resident on chip (split over a thread-block cluster) and running the
-// products on the tensor cores is later work.
+// them); serving passes no buffer and writes nothing more. Shapes the
+// route gates of ops/cuda_lstm_tc.py (bf16: lstm_forward_tc.cu) and
+// ops/cuda_lstm_f32.py (f32: lstm_forward_f32.cu, Wh held on chip over a
+// thread-block cluster) take no longer reach this kernel; it runs the
+// shapes they refuse.
 //
 // The kernel is `bilstm_fwd_kernel` in bilstm_common.cuh, shared with the
 // unfold-fused layer (bilstm_unfold.cu), which differs only in where a

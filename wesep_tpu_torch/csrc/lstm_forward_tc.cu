@@ -8,9 +8,9 @@
 // Pallas TPU kernels of wesep_tpu/ops/pallas_lstm.py: `_bi_layer_forward`
 // (of `bilstm_layer`), `_bi_unfold_forward` (of `bilstm_layer_unfold`),
 // `_bi_forward` (of `bilstm_fused`) and `_forward` (of `lstm_fused`). f32
-// streams, and shapes the gate refuses, keep `bilstm_fwd_kernel` of
-// bilstm_common.cuh (f32 is the serving path; TF32 tensor cores would
-// change its result).
+// streams take the FMA forward of lstm_forward_f32.cu (f32 is the serving
+// path; TF32 tensor cores would change its result), and shapes both gates
+// refuse `bilstm_fwd_kernel` of bilstm_common.cuh.
 //
 // A step of the forward (per direction, in its walk's order):
 //   g   = (x_t @ Wx + b) + h_{t-1} @ Wh    in f32, h_{t-1} rounded to bf16

@@ -10,11 +10,13 @@ tensors its forward launches the forward kernel (which also writes the cell
 states when a gradient will be needed) and its backward launches the two
 backward kernels (for a bf16 stream whose shapes `cuda_lstm_tc.forward_fits`
 and `backward_fits` take, the tensor-core kernels of ops/cuda_lstm_tc.py
-instead); on CPU tensors it runs the plain versions
-`bilstm_layer_reference` and `bilstm_layer_backward_reference`. Anything
-else raises: there is no fallback from a failed build or launch. Every
-wrapper counts its launches: `bilstm_layer.launches`,
-`bilstm_layer_backward.launches`, `bilstm_layer_wgrad.launches`.
+instead; for an f32 stream whose shapes `cuda_lstm_f32.f32_forward_fits`
+takes, the forward of ops/cuda_lstm_f32.py); on CPU tensors it runs the
+plain versions `bilstm_layer_reference` and
+`bilstm_layer_backward_reference`. Anything else raises: there is no
+fallback from a failed build or launch. Every wrapper counts its launches:
+`bilstm_layer.launches`, `bilstm_layer_backward.launches`,
+`bilstm_layer_wgrad.launches`.
 """
 
 import ctypes
@@ -240,15 +242,18 @@ def _kernel_args(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, d=None):
 def _forward_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, with_cs):
     """The forward on the card -> (ys, cs or None): where
     `cuda_lstm_tc.forward_fits` takes the shapes (bf16), the tensor-core
-    projection and cluster recurrence of ops/cuda_lstm_tc.py; otherwise the
-    forward kernel of csrc/bilstm_layer.cu."""
-    from wesep_tpu_torch.ops import cuda_lstm_tc
+    projection and cluster recurrence of ops/cuda_lstm_tc.py; where
+    `cuda_lstm_f32.f32_forward_fits` takes them (f32), the FMA projection
+    and cluster recurrence of ops/cuda_lstm_f32.py; otherwise the forward
+    kernel of csrc/bilstm_layer.cu."""
+    from wesep_tpu_torch.ops import cuda_lstm_f32, cuda_lstm_tc
 
     args = _kernel_args(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b)
     x = args[0]
     batch, t_len, d = x.shape
     hidden = wh_f.shape[0]
-    if cuda_lstm_tc.forward_fits(x.dtype, d, hidden, batch * t_len):
+    if cuda_lstm_tc.forward_fits(x.dtype, d, hidden, batch * t_len) or \
+            cuda_lstm_f32.f32_forward_fits(x.dtype, d, hidden, batch * t_len):
         return cuda_lstm_tc.layer_forward(*args, with_cs=with_cs)
     ys = torch.empty(batch, t_len, 2 * hidden, dtype=x.dtype, device=x.device)
     cs = torch.empty(batch, t_len, 2 * hidden, dtype=torch.float32,

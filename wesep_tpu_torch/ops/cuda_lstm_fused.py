@@ -17,7 +17,9 @@ first).
 devices (`BiLSTMFusedFn`, `LSTMFusedFn`). On CUDA tensors they launch the
 kernels (for a bf16 stream whose shapes `cuda_lstm_tc.forward_fits` and
 `backward_fits` take, the tensor-core recurrence and backward of
-ops/cuda_lstm_tc.py); on CPU tensors they run the plain versions
+ops/cuda_lstm_tc.py; for an f32 stream whose shapes
+`cuda_lstm_f32.f32_forward_fits` takes, the recurrence of
+ops/cuda_lstm_f32.py); on CPU tensors they run the plain versions
 `bilstm_fused_reference` and `bilstm_fused_backward_reference`,
 `lstm_fused_reference` and `lstm_fused_backward_reference`. Anything else
 raises: there is no fallback from a failed build or launch. Every wrapper counts its launches:
@@ -239,13 +241,17 @@ def _stream_args(xw, whs):
 
 def _forward_cuda(counter, xw, whs, reverse, with_cs):
     """The recurrence on the card -> (ys, cs or None): where
-    `cuda_lstm_tc.forward_fits` takes the shapes (bf16), the cluster
-    recurrence of ops/cuda_lstm_tc.py; otherwise the route's K1/K2 kernel
+    `cuda_lstm_tc.forward_fits` takes the shapes (bf16), the tensor-core
+    cluster recurrence of ops/cuda_lstm_tc.py; where
+    `cuda_lstm_f32.f32_forward_fits` takes them (f32), the FMA cluster
+    recurrence of ops/cuda_lstm_f32.py; otherwise the route's K1/K2 kernel
     (`counter`)."""
-    from wesep_tpu_torch.ops import cuda_lstm_tc
+    from wesep_tpu_torch.ops import cuda_lstm_f32, cuda_lstm_tc
 
     (dirs, batch, t_len, hidden), whs = _stream_args(xw, whs)
-    if cuda_lstm_tc.forward_fits(xw.dtype, 0, hidden, batch * t_len):
+    rows = batch * t_len
+    if cuda_lstm_tc.forward_fits(xw.dtype, 0, hidden, rows) or \
+            cuda_lstm_f32.f32_forward_fits(xw.dtype, 0, hidden, rows):
         return cuda_lstm_tc.fused_forward(xw, whs, reverse, with_cs)
     ys = torch.empty(batch, t_len, dirs * hidden, dtype=xw.dtype,
                      device=xw.device)

@@ -10,7 +10,10 @@ rounded to bf16), then the recurrence over thread-block clusters, each
 block holding its slice of Wh on chip (`lstm_forward_chain`). A layer takes
 it where `forward_fits` says so (the same shapes as `backward_fits`);
 `split_forward` composes the two as the card does, from the kernels or,
-with `plain`, from their plain versions, on any device.
+with `plain`, from their plain versions, on any device; given f32 operands
+it composes the f32 forward of ops/cuda_lstm_f32.py (FMA kernels, its gate
+`f32_forward_fits`), so `layer_forward`, `unfold_forward` and
+`fused_forward` serve both dtypes.
 
 One backward for all four LSTM layers (`cuda_lstm.bilstm_layer`,
 `cuda_lstm_unfold.bilstm_layer_unfold`, `cuda_lstm_fused.bilstm_fused` and
@@ -461,7 +464,13 @@ def split_forward(x, spec, wxs, biases, whs, xw=None, t_len=None,
     and the recurrence, from the kernels or (`plain`) their plain versions.
     Operands in the stream's dtype and contiguous, biases f32; t_len the
     steps (frames for ROW_UNFOLD) when xw is not given. -> (y [B, T, dirs
-    * H] in whs's dtype, cs [B, T, dirs * H] f32 or None)."""
+    * H] in whs's dtype, cs [B, T, dirs * H] f32 or None). f32 operands
+    take the FMA kernels of ops/cuda_lstm_f32.py (`split_forward_f32`)."""
+    if whs[0].dtype == torch.float32:
+        from wesep_tpu_torch.ops.cuda_lstm_f32 import split_forward_f32
+
+        return split_forward_f32(x, spec, wxs, biases, whs, xw, t_len,
+                                 reverse, with_cs, plain)
     project, chain = (lstm_project_reference, lstm_forward_chain_reference) \
         if plain else (lstm_project, lstm_forward_chain)
     if xw is None:

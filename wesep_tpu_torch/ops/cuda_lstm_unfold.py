@@ -14,7 +14,9 @@ step's input row, and their headers say what bounds them.
 CUDA tensors its forward launches the forward kernel and its backward the
 two backward kernels (for a bf16 stream whose shapes
 `cuda_lstm_tc.forward_fits` and `backward_fits` take, the tensor-core
-forward and backward of ops/cuda_lstm_tc.py instead), then adds the two
+forward and backward of ops/cuda_lstm_tc.py instead; for an f32 stream
+whose shapes `cuda_lstm_f32.f32_forward_fits` takes, the forward of
+ops/cuda_lstm_f32.py), then adds the two
 directions' frame cotangents and folds them back onto x's rows
 (`fold_frames`); on CPU tensors it runs the
 plain versions `bilstm_layer_unfold_reference` and
@@ -132,14 +134,18 @@ def _forward_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ks, hs, with_cs):
     """The forward on the card -> (ys, cs or None): where
     `cuda_lstm_tc.forward_fits` takes the shapes (bf16), the tensor-core
     projection over k-major frames and the cluster recurrence of
-    ops/cuda_lstm_tc.py; otherwise the forward kernel of
+    ops/cuda_lstm_tc.py; where `cuda_lstm_f32.f32_forward_fits` takes them
+    (f32), the FMA projection over k-major frames and cluster recurrence of
+    ops/cuda_lstm_f32.py; otherwise the forward kernel of
     csrc/bilstm_unfold.cu."""
-    from wesep_tpu_torch.ops import cuda_lstm_tc
+    from wesep_tpu_torch.ops import cuda_lstm_f32, cuda_lstm_tc
 
     b, length, c, n = _shape(x, ks, hs)
     args = _kernel_args(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, d=ks * c)
     hidden = wh_f.shape[0]
-    if cuda_lstm_tc.forward_fits(x.dtype, ks * c, hidden, b * n, c=c):
+    if cuda_lstm_tc.forward_fits(x.dtype, ks * c, hidden, b * n, c=c) or \
+            cuda_lstm_f32.f32_forward_fits(x.dtype, ks * c, hidden, b * n,
+                                           c=c):
         return cuda_lstm_tc.unfold_forward(*args, ks, hs, with_cs=with_cs)
     ys = torch.empty(b, n, 2 * hidden, dtype=x.dtype, device=x.device)
     cs = torch.empty(b, n, 2 * hidden, dtype=torch.float32,
