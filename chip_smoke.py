@@ -16,7 +16,10 @@ pass):
    kernel with the cell-state output and the two backward kernels at the
    training shapes; then the fused TCN block, forward and backward, at
    SpEx+'s serving shape (2 rows) and training shape (16 rows) at
-   dilations 1 and 128, and one speaker-fused block through its module;
+   dilations 1 and 128, each run twice bit for bit, with each launch's
+   time (CUDA events between launches) and the time of the block's
+   products alone in torch.matmul (`products_library_ms`, f32 with TF32
+   off), and one speaker-fused block through its module;
    then the unfold-fused BiLSTM layer (forward, serial adjoint, weight
    gradients, with cuDNN's LSTM over the materialised frames as yardstick)
    at TF-GridNet's intra and inter RNN shapes for serving (2 rows x 3 s)
@@ -2115,8 +2118,32 @@ def tcn_limits(dtype):
     return {"y": None, "grad_l2": 2e-2, "grad_max": 5e-2}
 
 
+def tcn_products_library_ms(batch, dtype):
+    """The fused block's products alone, as torch.matmul calls at its
+    shapes and dtype (f32 with TF32 off): forward x @ W1 and (g1w w) @ W2;
+    backward the five of its VJP, s = x @ W1 recomputed, dn1 = dy @ W2^T,
+    dW2 = n1^T @ dy, dx = ds @ W1^T, dW1 = x^T @ ds. The least time a
+    library takes for the products only, not for the block."""
+    gen = torch.Generator().manual_seed(SEED + 40)
+    rows = batch * SPEX_T
+    r = lambda *shape: (torch.randn(*shape, generator=gen) * 0.1).cuda() \
+        .to(dtype)  # noqa: E731
+    x, dy = r(rows, TCN_C), r(rows, TCN_C)
+    wide, ds = r(rows, TCN_H), r(rows, TCN_H)
+    w1, w2 = r(TCN_C, TCN_H), r(TCN_H, TCN_C)
+    fwd = time_ms(lambda: (torch.matmul(x, w1), torch.matmul(wide, w2)), 2,
+                  10)
+    bwd = time_ms(lambda: (torch.matmul(x, w1), torch.matmul(dy, w2.t()),
+                           torch.matmul(wide.t(), dy),
+                           torch.matmul(ds, w1.t()), torch.matmul(x.t(), ds)),
+                  2, 10)
+    return fwd, bwd
+
+
 def check_tcn(name, batch, dtype, dilation):
-    """K4 and K4b against their plain versions at one SpEx+ shape."""
+    """K4 and K4b against their plain versions at one SpEx+ shape; their
+    times, each launch's time (CUDA events between launches) and the time
+    of their products alone in torch.matmul."""
     from wesep_tpu_torch.ops import cuda_tcn as k
 
     args, dy = tcn_args(batch, dtype)
@@ -2130,6 +2157,10 @@ def check_tcn(name, batch, dtype, dilation):
     tol_y = tolerance(ref_y) if limits["y"] is None else \
         limits["y"] * ref_y.float().abs().max().item()
     err_stats = rel_err(stats, ref_stats)
+    y_again, _ = k._forward_cuda(*args, *conf)
+    torch.cuda.synchronize()
+    fwd_same_bits = torch.equal(y, y_again)
+    del y_again
     # the backward from the plain forward's statistics, so that only the
     # adjoint differs
     grads = k.tcn_block_gln_backward(*args, ref_stats, dy, *conf)
@@ -2146,26 +2177,40 @@ def check_tcn(name, batch, dtype, dilation):
     fwd_ms = time_ms(lambda: k._forward_cuda(*args, *conf), 2, 10)
     bwd_ms = time_ms(
         lambda: k.tcn_block_gln_backward(*args, ref_stats, dy, *conf), 2, 10)
+    fwd_launch_ms = k.launch_times(
+        lambda ev: k._forward_cuda(*args, *conf, events=ev),
+        k.FORWARD_LAUNCHES)
+    bwd_launch_ms = k.launch_times(
+        lambda ev: k.tcn_block_gln_backward(*args, ref_stats, dy, *conf,
+                                            events=ev),
+        k.BACKWARD_LAUNCHES)
     fwd_plain_ms = time_ms(
         lambda: k.tcn_block_gln_reference(*args, *conf), 1, 5)
     bwd_plain_ms = time_ms(lambda: k.tcn_block_gln_backward_reference(
         *args, ref_stats, dy, *conf), 1, 5)
+    fwd_products_ms, bwd_products_ms = tcn_products_library_ms(batch, dtype)
     (f_ms, f_by), (b_ms, b_by) = tcn_bounds(batch, dtype)
     case = {
         "shape": name, "dtype": str(dtype).replace("torch.", ""),
         "B": batch, "T": SPEX_T, "C": TCN_C, "H": TCN_H, "k": TCN_K,
         "dilation": dilation, "limits": limits,
         "forward": {"max_abs_err": err_y, "tolerance": tol_y,
-                    "stats_rel_err": err_stats, "ms": fwd_ms,
+                    "stats_rel_err": err_stats,
+                    "same_bits_twice": fwd_same_bits, "ms": fwd_ms,
                     "plain_ms": fwd_plain_ms, "library_ms": None,
-                    "bound_ms": f_ms, "bound_by": f_by},
+                    "products_library_ms": fwd_products_ms,
+                    "bound_ms": f_ms, "bound_by": f_by,
+                    "launches_ms": fwd_launch_ms},
         "backward": {"max_abs_err": err_dx, "rel_l2": l2, "rel_max": mx,
                      "same_bits_twice": same_bits, "ms": bwd_ms,
                      "plain_ms": bwd_plain_ms, "library_ms": None,
-                     "bound_ms": b_ms, "bound_by": b_by},
+                     "products_library_ms": bwd_products_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "launches_ms": bwd_launch_ms},
     }
     log("kernel tcn_block_gln", json.dumps(case))
     ok = (err_y <= tol_y and err_stats <= 1e-4 and same_bits
+          and fwd_same_bits
           and all(v <= limits["grad_l2"] for v in l2.values())
           and all(v <= limits["grad_max"] for v in mx.values())
           and all(torch.isfinite(t).all() for t in (y, *grads)))
@@ -4125,6 +4170,9 @@ def main() -> int:
                 for c in tc_cases if name in c["kernels"]]
         elif name.startswith("tcn_block_gln"):
             part = "backward" if name.endswith("backward") else "forward"
+            # the products and the column walks both passes share
+            entry["also_sources"] = ["wesep_tpu_torch/csrc/tcn_common.cuh",
+                                     "wesep_tpu_torch/csrc/tc_common.cuh"]
             if part == "forward":
                 entry["fused_block_cases"] = fused_cases
             entry["large_grid_cases"] = [c for c in large_cases

@@ -6,10 +6,10 @@ dimension), so their wrappers run a larger batch as slices
 (`cuda_tcn.run_in_batch_chunks`): every statistic is per sample, so the
 per-sample results of the slices are the whole batch's and the weight
 gradients are their sum. Here the slicing arithmetic, and the plain
-versions run slice by slice against the whole batch at once. K4's
-elementwise kernels walk the chunks of kChunkRows rows of a sample in a
-grid-stride loop over at most 65535 blocks; the loop's cover is checked
-with the constants read from csrc/tcn_common.cuh.
+versions run slice by slice against the whole batch at once. K4's walks
+take the chunks of kTile rows of a sample as a grid dimension, each
+chunk's rows in row groups; their cover is checked with the constants
+read from csrc/tcn_common.cuh.
 """
 
 import os
@@ -38,22 +38,31 @@ def test_batch_chunks_cover_the_batch_in_order(batch, most, want):
 
 
 def test_grid_stride_loop_covers_every_chunk_once():
-    """K4's elementwise blocks take chunks blockIdx.y, blockIdx.y +
-    gridDim.y, ... with gridDim.y = min(chunks, kMaxGridY)."""
+    """K4's walks (the dconv, dn0 and colsum passes and the products'
+    column epilogues) take chunk blockIdx.x of kTile rows of a sample, a
+    grid dimension of up to 2^31 - 1 blocks, and within it each row group
+    of 64 threads kRows rows: every row of every chunk is walked once."""
     path = os.path.join(os.path.dirname(cuda_tcn.__file__), os.pardir,
                         "csrc", "tcn_common.cuh")
     with open(path) as f:
         src = f.read()
-    rows = int(re.search(r"kChunkRows = (\d+);", src).group(1))
-    most = int(re.search(r"kMaxGridY = (\d+);", src).group(1))
-    assert most == 65535
-    for t_len in (1, rows, 65535 * rows, 65535 * rows + 1, 70000 * rows + 5):
-        chunks = -(-t_len // rows)
-        grid_y = min(chunks, most)
-        seen = np.zeros(chunks, dtype=np.int64)
-        for by in range(grid_y):
-            seen[by::grid_y] += 1
-        assert (seen == 1).all(), t_len
+    tile = int(re.search(r"kTile = (\d+);", src).group(1))
+    rows = int(re.search(r"kRows = (\d+);", src).group(1))
+    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
+    groups = threads // 64  # Walk: 64 pairs of channels a row group
+    for t_len in (1, rows, tile, 65535 * tile, 65535 * tile + 1,
+                  70000 * tile + 5):
+        chunks = -(-t_len // tile)
+        assert chunks <= 2 ** 31 - 1
+        seen = np.zeros(t_len, dtype=np.int64)
+        for cy in {0, chunks // 2, chunks - 1}:
+            m0 = cy * tile
+            for g in range(groups):
+                r0 = g * rows
+                r1 = min(r0 + rows, t_len - m0)
+                seen[m0 + r0:m0 + max(r1, r0)] += 1
+            covered = seen[m0:min(m0 + tile, t_len)]
+            assert (covered == 1).all(), (t_len, cy)
 
 
 def _tcn_args(rng, b, t=11, c=8, h=16, k=3):

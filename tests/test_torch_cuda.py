@@ -843,9 +843,14 @@ def _rel_l2(got, ref):
 
 
 # small and ragged shapes (tiles and chunks partly empty, k = 2, causal,
-# a dilation past the length), then SpEx+'s full width at 2 rows
+# a dilation past the length), then SpEx+'s full width at 2 rows; then the
+# tensor-core products' edges: the narrowest block (C = H = 8) at B 1 with
+# dilation 128 and T not a multiple of the 128-row tile, T shorter than a
+# tile with the most taps (k 8, causal), and H a tile and a half
 TCN_SHAPES = [(2, 301, 40, 72, 3, 4, True), (3, 130, 64, 128, 2, 3, False),
-              (1, 50, 8, 8, 3, 64, False), (2, 4799, 256, 512, 3, 128, False)]
+              (1, 50, 8, 8, 3, 64, False), (2, 4799, 256, 512, 3, 128, False),
+              (1, 601, 8, 8, 3, 128, False), (1, 5, 8, 16, 8, 1, True),
+              (2, 257, 24, 192, 3, 16, False)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -902,6 +907,60 @@ def test_tcn_block_gradients_repeat_bit_for_bit(cuda, dtype):
         again = cuda_tcn.tcn_block_gln_backward(*args, stats, dy, *conf)
         for name, a, b in zip(TCN_GRADS, first, again):
             assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tcn_fused_block_with_embedding_matches_plain(cuda, dtype):
+    """A speaker-fused block (the embedding folded into the per-sample
+    bias) through its module on the kernels against its plain version: y
+    and the gradients of x, the embedding and every parameter, at the
+    limits of test_tcn_block_matches_plain."""
+    from wesep_tpu_torch.models.convtasnet import FuseTCNBlock
+
+    torch.manual_seed(3)
+    block = FuseTCNBlock(64, 32, 128, 3, dilation=4, norm="gLN").to(cuda)
+    gen = torch.Generator().manual_seed(4)
+    x = (torch.randn(2, 333, 64, generator=gen) * 0.5).to(cuda).to(dtype) \
+        .requires_grad_()
+    emb = torch.randn(2, 32, generator=gen).to(cuda).to(dtype) \
+        .requires_grad_()
+    dy = (torch.randn(2, 333, 64, generator=gen) * 0.1).to(cuda).to(dtype)
+    params = tuple(block.parameters())
+
+    def run():
+        y = block(x, emb)
+        return y, torch.autograd.grad(y, (x, emb) + params, dy)
+
+    before = cuda_tcn.tcn_block_gln.launches
+    y, grads = run()
+    assert cuda_tcn.tcn_block_gln.launches == before + 1
+    block.plain = True
+    ref_y, ref = run()
+    tol = 1e-4 * ref_y.float().abs().max().item() \
+        if dtype == torch.float32 else _tolerance(ref_y)
+    assert (y.float() - ref_y.float()).abs().max().item() <= tol
+    l2_limit = 2e-3 if dtype == torch.float32 else 2e-2
+    for i, (g, w) in enumerate(zip(grads, ref)):
+        assert torch.isfinite(g).all(), i
+        assert _rel_l2(g, w) <= l2_limit, (i, _rel_l2(g, w))
+
+
+def test_tcn_launch_times_cover_each_launch(cuda):
+    """launch_times: one CUDA event between each pair of launches of a
+    pass, every named launch timed, their sum within the pass's span."""
+    args, dy = _tcn_args(cuda, 2, 700, 64, 128, 3, torch.bfloat16)
+    conf = (2, 3, False, 1e-5)
+    _, stats = cuda_tcn._forward_cuda(*args, *conf)
+    fwd = cuda_tcn.launch_times(
+        lambda ev: cuda_tcn._forward_cuda(*args, *conf, events=ev),
+        cuda_tcn.FORWARD_LAUNCHES)
+    bwd = cuda_tcn.launch_times(
+        lambda ev: cuda_tcn.tcn_block_gln_backward(*args, stats, dy, *conf,
+                                                   events=ev),
+        cuda_tcn.BACKWARD_LAUNCHES)
+    assert set(fwd) == set(cuda_tcn.FORWARD_LAUNCHES)
+    assert set(bwd) == set(cuda_tcn.BACKWARD_LAUNCHES)
+    assert all(v > 0 for v in (*fwd.values(), *bwd.values()))
 
 
 def test_tcn_function_bf16_returns_f32_parameter_gradients(cuda):

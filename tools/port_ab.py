@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's BiLSTM kernels of two checkouts on one GPU, in
-turns.
+"""Time the PyTorch port's BiLSTM and fused TCN kernels of two checkouts on
+one GPU, in turns.
 
     python3 tools/port_ab.py PARENT_DIR CHANGE_DIR [--rounds N]
 
@@ -18,15 +18,22 @@ the process (default, two-kernel, two-kernel, default), and of TF-GridNet
 on its default and unfold-fused (WESEP_LSTM_UNFOLD=1) routes likewise;
 then a bf16 train step of the pBSRNN on its default LSTM route (16 rows x
 3 s) and of TF-GridNet on the unfold-fused route (8 rows x 1 s), with the
-optimizer chain, as chip_smoke.py times them. The wrappers time whatever
+optimizer chain, as chip_smoke.py times them; then the fused gLN TCN block
+(K4 `_forward_cuda`, K4b `tcn_block_gln_backward`) at SpEx+'s serving (2
+rows) and training (16 rows) shapes in f32 and bf16 (C 256, H 512, k 3, T
+4799, dilation 1, chip_smoke.py's `tcn_args`), the f32 serving forward of
+the full-width SpEx+ (2 rows x 3 s, 6 s enrollments) and its bf16 train
+step (16 rows, multi-task loss), as chip_smoke.py times them. The wrappers
+time whatever
 route each checkout's wrappers take for the stream's dtype. Runs go parent,
 change, change, parent, N times, so that a drift of the card's clock falls
 on both sides. Each run prints a JSON line; the last line holds the median
 per checkout and case. Only the API common to every slice of the port
 since TF-GridNet was ported is used (`cuda_lstm.bilstm_layer`,
-`_forward_cuda`, `bilstm_layer_backward`, `bilstm_layer_wgrad`, the models,
-`train.trainer` and chip_smoke.py's model arguments). Needs one GPU; exits
-non-zero without one.
+`_forward_cuda`, `bilstm_layer_backward`, `bilstm_layer_wgrad`,
+`cuda_tcn._forward_cuda`, `cuda_tcn.tcn_block_gln_backward`, the models,
+`train.trainer` and chip_smoke.py's model arguments and `tcn_args`). Needs
+one GPU; exits non-zero without one.
 """
 
 import argparse
@@ -156,6 +163,51 @@ os.environ["WESEP_LSTM_UNFOLD"] = "1"
 torch.manual_seed(0)
 out["TF-GridNet train step 8x1s bf16"] = step_ms(
     TFGridNet(**GRID_MODEL_ARGS).cuda().train(), 8, 16000)
+del os.environ["WESEP_LSTM_UNFOLD"]
+torch.cuda.empty_cache()
+
+# the fused gLN TCN block (K4, K4b) at SpEx+'s shapes, then SpEx+ itself
+from chip_smoke import SPEX_MODEL_ARGS, tcn_args
+from wesep_tpu_torch.models.convtasnet import ConvTasNet
+from wesep_tpu_torch.ops import cuda_tcn
+
+for name, batch in (("serve", 2), ("train", 16)):
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).replace("torch.", "")
+        args, dy = tcn_args(batch, dtype)
+        conf = (1, 3, False, 1e-5)
+        _, stats = cuda_tcn._forward_cuda(*args, *conf)
+        out[f"K4 spex_{name} B{batch} {tag}"] = time_ms(
+            lambda: cuda_tcn._forward_cuda(*args, *conf))
+        out[f"K4b spex_{name} B{batch} {tag}"] = time_ms(
+            lambda: cuda_tcn.tcn_block_gln_backward(*args, stats, dy, *conf))
+        del args, dy, stats
+        torch.cuda.empty_cache()
+
+gen = torch.Generator().manual_seed(0)
+torch.manual_seed(0)
+spex = ConvTasNet(**SPEX_MODEL_ARGS).cuda().eval()
+mix = (torch.randn(2, 48000, generator=gen) * 0.1).cuda()
+enr = (torch.randn(2, 96000, generator=gen) * 0.1).cuda()
+with torch.inference_mode():
+    out["SpEx+ serve 2x3s f32"] = time_ms(lambda: spex(mix, enr), 1, 5)
+del spex
+torch.cuda.empty_cache()
+torch.manual_seed(0)
+spex = ConvTasNet(**SPEX_MODEL_ARGS).cuda().train()
+criterion = parse_loss(["SISDR", "CE"])
+table = {"loss_posi": [[0, 1, 2], [3]], "loss_weight": [[0.8, 0.1, 0.1], [0.5]]}
+batch = {"wav_mix": (torch.randn(16, 48000, generator=gen) * 0.1).cuda(),
+         "wav_targets": (torch.randn(16, 48000, generator=gen) * 0.1).cuda(),
+         "spk_embeds": (torch.randn(16, 96000, generator=gen) * 0.1).cuda(),
+         "spk_label": torch.randint(0, 251, (16,), generator=gen).cuda()}
+opt = make_optimizer(spex, exponential_decrease(
+    num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+    warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0)
+state = TrainState(model=spex, optimizer=opt)
+step = make_train_step(criterion, table["loss_posi"], table["loss_weight"],
+                       multi_task=True, compute_dtype=torch.bfloat16)
+out["SpEx+ train step 16x3s bf16"] = time_ms(lambda: step(state, batch), 1, 5)
 print("RESULT " + json.dumps(out))
 '''
 
@@ -163,7 +215,7 @@ print("RESULT " + json.dumps(out))
 def run(tree):
     env = dict(os.environ, PYTHONPATH=os.path.abspath(tree))
     proc = subprocess.run([sys.executable, "-c", CHILD], cwd=tree, env=env,
-                          capture_output=True, text=True, timeout=900)
+                          capture_output=True, text=True, timeout=1200)
     if proc.returncode != 0:
         raise RuntimeError(f"run in {tree} failed:\n{proc.stderr[-4000:]}")
     line = [ln for ln in proc.stdout.splitlines()

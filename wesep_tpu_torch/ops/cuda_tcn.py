@@ -2,8 +2,14 @@
 
 Counterpart of wesep_tpu/ops/pallas_tcn.py `tcn_block_gln`, forward and
 backward. The kernels live in csrc/tcn_block.cu (forward) and
-csrc/tcn_block_bwd.cu (backward); their headers say what bounds them and
-how they are laid out.
+csrc/tcn_block_bwd.cu (backward), their products in csrc/tcn_common.cuh
+(bf16 on the tensor cores, f32 on the FMA units); their headers say what
+bounds them and how they are laid out. What the kernels need from
+the host is planned here, from the shapes alone: the scratch of each pass
+(`forward_plan`, `backward_plan`) and the rows per split of the weight
+gradients (`wgrad_rows`); the C entry points refuse scratch smaller than
+their own layout. `launch_times` runs one pass with a CUDA event after
+each launch.
 
     y = x + conv2(gLN1(PReLU(dconv(gLN0(PReLU(x @ w1 + b1_eff))))))
 
@@ -40,10 +46,31 @@ from wesep_tpu_torch.ops.cuda_lstm import _launch
 __all__ = ["kernel_fits", "tcn_block_gln", "tcn_block_gln_reference",
            "tcn_block_gln_backward", "tcn_block_gln_backward_reference",
            "TCNBlockFn", "MAX_GRID_BATCH", "batch_chunks",
-           "run_in_batch_chunks"]
+           "run_in_batch_chunks", "wgrad_rows", "forward_plan",
+           "backward_plan", "FORWARD_LAUNCHES", "BACKWARD_LAUNCHES",
+           "launch_times"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_TAPS = 8  # csrc/tcn_common.cuh kMaxTaps
+# csrc/tcn_common.cuh: kMaxTaps; kTile, the rows and columns of a product's
+# tile and of an elementwise pass's block, whose sums are the partials;
+# kShortTile, the rows of an f32 product's tile where tiles of 128 are few
+_MAX_TAPS = 8
+_TILE = 128
+_SHORT_TILE = 64
+# a weight-gradient product aims at two blocks on each of the H100's 132
+# SMs, over splits of at least 512 rows, each a multiple of 32 (a stage's
+# depth)
+_WGRAD_BLOCKS = 264
+_WGRAD_MIN_ROWS = 512
+_WGRAD_ROW_STEP = 32
+# the launches of each pass in order, as the C entry points mark them
+FORWARD_LAUNCHES = ("u product", "u stats", "dconv", "w stats", "corr",
+                    "out product")
+BACKWARD_LAUNCHES = (
+    "u product", "gln1 product", "gln1 sums", "gln1 sums", "dv product",
+    "dv sums", "dv sums", "dW2 product", "dW2 sum", "db2 colsum", "db2 sum",
+    "dn0", "dn0 sums", "dn0 sums", "ds product", "ds sums", "ds sums",
+    "dx product", "dW1 product", "dW1 sum")
 # samples a launch of the TCN or Conv2dBlock kernels takes: the batch is a
 # grid dimension (csrc/tcn_common.cuh, csrc/conv2d_common.cuh)
 MAX_GRID_BATCH = 65535
@@ -75,6 +102,50 @@ def run_in_batch_chunks(run, batch: int, summed=(), most=MAX_GRID_BATCH):
         else:
             out.append(torch.cat([part[i] for part in parts]))
     return tuple(out)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wgrad_rows(rows: int, c: int, h: int) -> int:
+    """Rows of the B * T rows per split of the weight-gradient products
+    dW1 [C, H] and dW2 [H, C]: enough splits that the 128 x 128 tiles times
+    the splits fill _WGRAD_BLOCKS blocks, none shorter than
+    _WGRAD_MIN_ROWS rows (a product's partials are summed in order, so
+    every split costs a [C, H] partial), rounded up to a multiple of 32."""
+    tiles = _cdiv(c, _TILE) * _cdiv(h, _TILE)
+    splits = max(1, min(_cdiv(rows, _WGRAD_MIN_ROWS),
+                        _cdiv(_WGRAD_BLOCKS, tiles)))
+    return _cdiv(_cdiv(rows, splits), _WGRAD_ROW_STEP) * _WGRAD_ROW_STEP
+
+
+def forward_plan(batch: int, t_len: int, c: int, h: int):
+    """(elements of the stream's dtype, floats) of the forward's scratch
+    for one batch slice: u and g1w * w; the two sums (f64, two floats
+    each) of u of each tile of the u product (of 64 rows at most, the f32
+    short tiles) and of w of each 128 x 128 block of the dconv pass; and
+    corr."""
+    columns = _cdiv(h, _TILE)
+    u_tiles = _cdiv(t_len, _SHORT_TILE) * columns
+    w_blocks = _cdiv(t_len, _TILE) * columns
+    return 2 * batch * t_len * h, 4 * batch * (u_tiles + w_blocks) + batch * c
+
+
+def backward_plan(batch: int, t_len: int, c: int, h: int, k: int):
+    """(wgrad_rows, elements of the stream's dtype, floats) of the
+    backward for one batch slice. Stream scratch: u, round(n1) (reused for
+    dn0, then round(ds)), round(dv). f32 scratch: the scalar partials (two per
+    128 x 128 block) and two pairs of per-sample sums, all f64 (two floats
+    each); the per-channel partials of the widest sum (1 + k vectors of H,
+    or db2's C, per chunk of 128 rows); the weight gradients' split
+    partials."""
+    chunks = batch * _cdiv(t_len, _TILE)
+    per = wgrad_rows(batch * t_len, c, h)
+    splits = _cdiv(batch * t_len, per)
+    n_f32 = (4 * chunks * _cdiv(h, _TILE) + 8 * batch
+             + chunks * max((1 + k) * h, c) + splits * h * c)
+    return per, 3 * batch * t_len * h, n_f32
 
 
 def _pads(dilation: int, k: int, causal: bool):
@@ -212,35 +283,34 @@ def tcn_block_gln_backward_reference(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1,
             dp1.reshape(1), dw2, db2, dg1, dbe1)
 
 
+def _argtypes(entry: str):
+    """ctypes types of a C entry point's arguments, in order."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return {
+        "tcn_block_forward":
+            [ptr] * 18 + [i32] * 9 + [i64] * 2 + [ctypes.c_float, ptr],
+        "tcn_block_backward": [ptr] * 27 + [i32] * 9 + [i64] * 3 + [ptr],
+    }[entry]
+
+
 @functools.lru_cache(maxsize=None)
 def _library(name: str):
-    """The library of csrc/<name>.cu with its entry points' signatures,
+    """The library of csrc/<name>.cu with its entry point's signature,
     built and loaded at first use."""
     from wesep_tpu_torch.ops._build import load_library
 
     lib = load_library(name)
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    sizes = [ctypes.POINTER(ctypes.c_longlong)] * 2
-    if name == "tcn_block":
-        lib.tcn_block_forward.argtypes = [ptr] * 17 + [i32] * 8 \
-            + [ctypes.c_float, ptr]
-        lib.tcn_block_forward.restype = i32
-        lib.tcn_block_forward_scratch.argtypes = [i32] * 4 + sizes
-        lib.tcn_block_forward_scratch.restype = None
-    else:
-        lib.tcn_block_backward.argtypes = [ptr] * 26 + [i32] * 8 + [ptr]
-        lib.tcn_block_backward.restype = i32
-        lib.tcn_block_backward_scratch.argtypes = [i32] * 5 + sizes
-        lib.tcn_block_backward_scratch.restype = None
+    entry = "tcn_block_forward" if name == "tcn_block" else \
+        "tcn_block_backward"
+    getattr(lib, entry).argtypes = _argtypes(entry)
+    getattr(lib, entry).restype = ctypes.c_int
     return lib
 
 
-def _scratch(query, dims, dtype, device):
+def _scratch(n_stream, n_f32, dtype, device):
     """The two scratch buffers a pass needs (stream dtype, f32)."""
-    n_stream, n_f32 = ctypes.c_longlong(), ctypes.c_longlong()
-    query(*dims, ctypes.byref(n_stream), ctypes.byref(n_f32))
-    return (torch.empty(n_stream.value, dtype=dtype, device=device),
-            torch.empty(n_f32.value, dtype=torch.float32, device=device))
+    return (torch.empty(n_stream, dtype=dtype, device=device),
+            torch.empty(n_f32, dtype=torch.float32, device=device))
 
 
 def kernel_fits(c: int, h: int, k: int) -> bool:
@@ -293,42 +363,47 @@ def _kernel_args(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w, g1b,
 
 
 def _forward_cuda(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w, g1b,
-                  dilation, k, causal, eps):
+                  dilation, k, causal, eps, events=None):
     """Launch the forward kernels -> (y, stats [B, 4]), in slices of at
-    most MAX_GRID_BATCH samples."""
+    most MAX_GRID_BATCH samples; `events` (one batch slice only): CUDA
+    event handles, as `launch_times` makes them."""
     x, b1_eff, *rest = _kernel_args(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1,
                                     w2, b2, g1w, g1b, k)
     return run_in_batch_chunks(
         lambda b0, b1: _forward_slice(x[b0:b1], b1_eff[b0:b1], *rest,
-                                      dilation, k, causal, eps),
+                                      dilation, k, causal, eps, events),
         x.shape[0])
 
 
 def _forward_slice(*args):
     """The forward kernels over a batch they take, operands as
-    `_kernel_args` returns them, then (dilation, k, causal, eps)."""
-    *args, dilation, k, causal, eps = args
+    `_kernel_args` returns them, then (dilation, k, causal, eps,
+    events)."""
+    *args, dilation, k, causal, eps, events = args
     x, w1 = args[0], args[2]
     batch, t_len, c = x.shape
     h = w1.shape[1]
     lib = _library("tcn_block")
     y = torch.empty_like(x)
     stats = torch.empty(batch, 4, dtype=torch.float32, device=x.device)
-    stream_ws, f32_ws = _scratch(lib.tcn_block_forward_scratch,
-                                 (batch, t_len, c, h), x.dtype, x.device)
+    n_stream, n_f32 = forward_plan(batch, t_len, c, h)
+    stream_ws, f32_ws = _scratch(n_stream, n_f32, x.dtype, x.device)
     _launch(tcn_block_gln, lib.tcn_block_forward,
-          (*args, y, stats, stream_ws, f32_ws),
-          (batch, t_len, c, h, k, dilation, _pads(dilation, k, causal)[0],
-           _DTYPE_CODES[x.dtype], float(eps)), x.device)
+            (*args, y, stats, stream_ws, f32_ws, events),
+            (batch, t_len, c, h, k, dilation, _pads(dilation, k, causal)[0],
+             _DTYPE_CODES[x.dtype], 0 if events is None else len(events),
+             n_stream, n_f32, float(eps)), x.device)
     return y, stats
 
 
 def tcn_block_gln_backward(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2,
-                           g1w, g1b, stats, dy, dilation, k, causal, eps):
+                           g1w, g1b, stats, dy, dilation, k, causal, eps,
+                           events=None):
     """The backward kernels on CUDA tensors; arguments and results as
     `tcn_block_gln_backward_reference`. The transposes of w1 and w2 the
-    products read are made here once per call; the scratch streams (five of
-    [B, T, H] in x's dtype, two in f32) live only for the call."""
+    products read are made here once per call; the scratch (three streams
+    of [B, T, H] in x's dtype and the f32 partials, `backward_plan`) lives
+    only for the call. `events` as `_forward_cuda` takes them."""
     del eps  # the statistics are given
     args = _kernel_args(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w,
                         g1b, k)
@@ -345,12 +420,13 @@ def tcn_block_gln_backward(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2,
     return run_in_batch_chunks(
         lambda b0, b1: _backward_slice(
             x[b0:b1], stats[b0:b1], dy[b0:b1], b1_eff[b0:b1], w1, w1t, p0,
-            kd, bd, g0w, g0b, p1, w2t, g1w, g1b, dilation, k, causal),
+            kd, bd, g0w, g0b, p1, w2t, g1w, g1b, dilation, k, causal,
+            events),
         batch, summed=range(2, 13))
 
 
 def _backward_slice(x, stats, dy, b1_eff, w1, w1t, p0, kd, bd, g0w, g0b, p1,
-                    w2t, g1w, g1b, dilation, k, causal):
+                    w2t, g1w, g1b, dilation, k, causal, events):
     """The backward kernels over a batch they take, operands prepared."""
     batch, t_len, c = x.shape
     h = w1.shape[1]
@@ -365,19 +441,41 @@ def _backward_slice(x, stats, dy, b1_eff, w1, w1t, p0, kd, bd, g0w, g0b, p1,
     dvec_g1 = torch.empty(2, h, **f32)      # dg1w, dg1b
     db2 = torch.empty(c, **f32)
     dscal = torch.empty(2, **f32)           # dp0, dp1
-    stream_ws, f32_ws = _scratch(lib.tcn_block_backward_scratch,
-                                 (batch, t_len, c, h, k), x.dtype, x.device)
+    per, n_stream, n_f32 = backward_plan(batch, t_len, c, h, k)
+    stream_ws, f32_ws = _scratch(n_stream, n_f32, x.dtype, x.device)
     _launch(tcn_block_gln_backward, lib.tcn_block_backward,
-          (x, dy, stats, b1_eff, w1, w1t, p0, kd, bd, g0w, g0b, p1, w2t, g1w,
-           g1b, dx, db1e, dw1, dw2, dvec_dv, dvec_g0, dvec_g1, db2, dscal,
-           stream_ws, f32_ws),
-          (batch, t_len, c, h, k, dilation, _pads(dilation, k, causal)[0],
-           _DTYPE_CODES[x.dtype]), x.device)
+            (x, dy, stats, b1_eff, w1, w1t, p0, kd, bd, g0w, g0b, p1, w2t,
+             g1w, g1b, dx, db1e, dw1, dw2, dvec_dv, dvec_g0, dvec_g1, db2,
+             dscal, stream_ws, f32_ws, events),
+            (batch, t_len, c, h, k, dilation, _pads(dilation, k, causal)[0],
+             _DTYPE_CODES[x.dtype], 0 if events is None else len(events),
+             per, n_stream, n_f32), x.device)
     return (dx, db1e, dw1, dscal[0:1], dvec_dv[1:], dvec_dv[0], dvec_g0[0],
             dvec_g0[1], dscal[1:2], dw2, db2, dvec_g1[0], dvec_g1[1])
 
 
 tcn_block_gln_backward.launches = 0
+
+
+def launch_times(run, names):
+    """One pass on the card with CUDA events between its launches: run(
+    events) calls `_forward_cuda` or `tcn_block_gln_backward` with
+    `events`, whose C entry point records the first before its first
+    launch and one after each. -> {name: ms}, the launches of one name
+    (FORWARD_LAUNCHES, BACKWARD_LAUNCHES) summed."""
+    marks = [torch.cuda.Event(enable_timing=True)
+             for _ in range(len(names) + 1)]
+    for mark in marks:
+        mark.record()  # the handle exists once the event is recorded
+    events = torch.tensor([mark.cuda_event for mark in marks],
+                          dtype=torch.int64)
+    torch.cuda.synchronize()
+    run(events)
+    torch.cuda.synchronize()
+    times = {}
+    for name, before, after in zip(names, marks, marks[1:]):
+        times[name] = times.get(name, 0.0) + before.elapsed_time(after)
+    return times
 
 
 def _on_kernel_path(plain: bool, x) -> bool:
