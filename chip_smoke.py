@@ -130,8 +130,11 @@ pass):
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
-serving (2 rows, f32) and training (8 rows, bf16) size, with cuDNN's conv
-alone timed beside it as a note; and the two-kernel layers, both
+serving (2 rows, f32) and training (8 rows, bf16) size, each pass twice
+bit for bit, with each launch's time (CUDA events between launches), and
+as notes DPCCN's "xla" Conv2dBlock at the same shape (`xla_route_ms`:
+forward alone, forward + autograd backward; cuDNN with TF32 off) and
+cuDNN's conv alone, forward and backward; and the two-kernel layers, both
 directions (K2, K2b) and one (K1, K1b), at the pBSRNN's band and comm
 shapes: the forward at the serving size in f32, the forward, serial
 adjoint and weight gradients at the training size in bf16, with cuDNN's
@@ -139,6 +142,11 @@ LSTM and a cuBLAS product as yardsticks.
 
 The last lines are the card line of nvidia-smi, one JSON object describing
 the kernels, and {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --only-conv2d
+
+runs phases 1 and 2 for the Conv2dBlock's two sources and phase 3's K5/K5b
+cases only, one JSON line each, and prints no final line.
 """
 
 import io
@@ -3314,11 +3322,47 @@ def conv_limits(dtype):
     return {"y": None, "grad_l2": 2e-2, "grad_max": 5e-2}
 
 
+def xla_route_ms(x, w, b, dy):
+    """The yardstick of K5/K5b: DPCCN's "xla" Conv2dBlock (cuDNN's conv,
+    ELU, instance_norm; TF32 off for f32) at the same shape, dtype and
+    weights -> (forward alone, forward + autograd backward to x, K and the
+    bias) ms."""
+    from wesep_tpu_torch.models.dpccn import Conv2dBlock
+
+    block = Conv2dBlock(x.shape[-1], w.shape[-1], conv_impl="xla").cuda()
+    with torch.no_grad():
+        block.conv.kernel.copy_(w)
+        block.conv.bias.copy_(b)
+    leaf = x.detach().clone().requires_grad_()
+    params = (leaf, block.conv.kernel, block.conv.bias)
+    with torch.no_grad():
+        forward = time_ms(lambda: block(x), 2, 10)
+    both = time_ms(lambda: torch.autograd.grad(block(leaf), params, dy), 2,
+                   10)
+    return forward, both
+
+
+def cudnn_backward_ms(x, w, dy):
+    """cuDNN's conv backward alone (dx and dK of the 3x3 conv,
+    torch.nn.grad.conv2d_input + conv2d_weight), a note beside K5b: it
+    leaves out the recompute of e, ELU, the norm's adjoint and db."""
+    xn = x.permute(0, 3, 1, 2)
+    wn = w.to(x.dtype).permute(3, 2, 0, 1)
+    dyn = dy.permute(0, 3, 1, 2)
+    return time_ms(lambda: (
+        torch.nn.grad.conv2d_input(xn.shape, wn, dyn, padding=1),
+        torch.nn.grad.conv2d_weight(xn, wn.shape, dyn, padding=1)), 2, 10)
+
+
 def check_conv2d(name, f, ci, co, batch, dtype):
-    """K5 and K5b against their plain versions at one DPCCN shape."""
+    """K5 and K5b against their plain versions at one DPCCN shape; their
+    times, each launch's time (CUDA events between launches), DPCCN's "xla"
+    Conv2dBlock at the same shape (`xla_route_ms`) and cuDNN's conv alone,
+    forward and backward, as notes."""
     from torch.nn import functional as F
 
     from wesep_tpu_torch.ops import cuda_conv2d as k
+    from wesep_tpu_torch.ops.cuda_tcn import launch_times
 
     gen = torch.Generator().manual_seed(SEED)
     r = lambda *shape: torch.randn(*shape, generator=gen)  # noqa: E731
@@ -3335,6 +3379,11 @@ def check_conv2d(name, f, ci, co, batch, dtype):
     tol_y = tolerance(ref_y) if limits["y"] is None else \
         limits["y"] * ref_y.float().abs().max().item()
     err_stats = rel_err(stats, ref_stats)
+    y_again, stats_again = k._forward_cuda(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    fwd_same_bits = torch.equal(y, y_again) and torch.equal(stats,
+                                                            stats_again)
+    del y_again, stats_again
     # the backward from the plain forward's statistics, so that only the
     # adjoint differs
     grads = k.conv2d_block_in_backward(x, w, b, ref_stats, dy)
@@ -3354,32 +3403,51 @@ def check_conv2d(name, f, ci, co, batch, dtype):
     fwd_host_ms = host_ms(lambda: k._forward_cuda(x, w, b, 1e-5))
     bwd_host_ms = host_ms(
         lambda: k.conv2d_block_in_backward(x, w, b, ref_stats, dy))
+    fwd_launch_ms = launch_times(
+        lambda ev: k._forward_cuda(x, w, b, 1e-5, events=ev),
+        k.FORWARD_LAUNCHES[dtype])
+    bwd_launch_ms = launch_times(
+        lambda ev: k.conv2d_block_in_backward(x, w, b, ref_stats, dy,
+                                              events=ev),
+        k.BACKWARD_LAUNCHES[dtype])
     fwd_plain_ms = time_ms(lambda: k.conv2d_block_in_reference(x, w, b), 1, 5)
     bwd_plain_ms = time_ms(lambda: k.conv2d_block_in_backward_reference(
         x, w, b, ref_stats, dy), 1, 5)
-    # a note, not a yardstick: no single PyTorch call computes conv -> ELU
-    # -> instance norm; this is cuDNN's conv alone on the same input
+    # notes, not yardsticks: no single PyTorch call computes conv -> ELU
+    # -> instance norm or its backward; these are cuDNN's conv alone on the
+    # same input, forward and backward, and the "xla" route's whole block
     xn, wn = x.permute(0, 3, 1, 2), w.to(dtype).permute(3, 2, 0, 1)
     cudnn_conv_ms = time_ms(lambda: F.conv2d(xn, wn, b.to(dtype), padding=1))
+    cudnn_bwd_ms = cudnn_backward_ms(x, w, dy)
+    xla_fwd_ms, xla_both_ms = xla_route_ms(x, w, b, dy)
     (f_ms, f_by), (b_ms, b_by) = conv_bounds(batch, f, ci, co, dtype)
+    dk_blocks = k.backward_plan(batch, CONV_T, f, ci, co, dtype,
+                                k._slots(ci, co, dtype, x.device))[0]
     case = {
         "shape": name, "dtype": str(dtype).replace("torch.", ""),
         "B": batch, "T": CONV_T, "F": f, "Ci": ci, "Co": co,
-        "limits": limits,
+        "limits": limits, "dk_blocks": dk_blocks,
+        "xla_route_ms": {"forward": xla_fwd_ms,
+                         "forward_backward": xla_both_ms},
         "forward": {"max_abs_err": err_y, "tolerance": tol_y,
-                    "stats_rel_err": err_stats, "ms": fwd_ms,
+                    "stats_rel_err": err_stats,
+                    "same_bits_twice": fwd_same_bits, "ms": fwd_ms,
                     "plain_ms": fwd_plain_ms, "library_ms": None,
                     "cudnn_conv_only_ms": cudnn_conv_ms,
                     "host_ms": fwd_host_ms,
-                    "bound_ms": f_ms, "bound_by": f_by},
+                    "bound_ms": f_ms, "bound_by": f_by,
+                    "launches_ms": fwd_launch_ms},
         "backward": {"max_abs_err": err_dx, "rel_l2": l2, "rel_max": mx,
                      "same_bits_twice": same_bits, "ms": bwd_ms,
                      "host_ms": bwd_host_ms,
                      "plain_ms": bwd_plain_ms, "library_ms": None,
-                     "bound_ms": b_ms, "bound_by": b_by},
+                     "cudnn_conv_backward_only_ms": cudnn_bwd_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "launches_ms": bwd_launch_ms},
     }
     log("kernel conv2d_block_in", json.dumps(case))
     ok = (err_y <= tol_y and err_stats <= 1e-4 and same_bits
+          and fwd_same_bits
           and all(v <= limits["grad_l2"] for v in l2.values())
           and all(v <= limits["grad_max"] for v in mx.values())
           and all(torch.isfinite(t).all() for t in (y, *grads)))
@@ -3723,6 +3791,25 @@ def train_dpccn(root):
     }
 
 
+def conv2d_only() -> int:
+    """`--only-conv2d`: phases 1 and 2 for the Conv2dBlock's sources and
+    phase 3's K5/K5b cases and batch-slice case, printed one JSON line each;
+    no path is driven and no final line is printed."""
+    from wesep_tpu_torch.ops import _build
+
+    log(card_line())
+    libs = _build.build_all(("conv2d_block", "conv2d_block_bwd"))
+    for lib in libs.values():
+        with open(lib + ".log") as f:
+            log(f.read().strip())
+    for batch, dtype in ((ROWS_PER_STEP, torch.float32),
+                         (2 * DPCCN_BATCH, torch.bfloat16)):
+        for name, f, ci, co in CONV_SHAPES:
+            check_conv2d(name, f, ci, co, batch, dtype)
+    log(card_line())
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
@@ -3733,6 +3820,8 @@ def main() -> int:
     # numbers are compared in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--only-conv2d"]:
+        return conv2d_only()
 
     # 1. device
     card = card_line()
@@ -4118,6 +4207,11 @@ def main() -> int:
                 for c in conv_cases]
             entry["large_grid_cases"] = [c for c in large_cases
                                          if c["shape"].startswith("conv2d")]
+            # bf16: the tensor-core passes; f32: the FMA kernels
+            entry["also_sources"] = [
+                "wesep_tpu_torch/csrc/conv2d_tc.cuh",
+                "wesep_tpu_torch/csrc/conv2d_common.cuh",
+                "wesep_tpu_torch/csrc/tc_common.cuh"]
         elif name in fused_names(2) + fused_names(1):
             part = ("forward", "backward", "wgrad")[
                 fused_names(2 if name.startswith("bilstm") else 1)

@@ -12,6 +12,7 @@ channels. Losses use a random target (that file's note: the block's output
 is normalised, so a sum of its squares barely depends on the parameters).
 """
 
+import ctypes
 import math
 import os
 import re
@@ -178,8 +179,8 @@ def test_block_routes_by_the_gates(monkeypatch):
 
 
 def _c_signature(library, name, ret="int"):
-    """(pointers, ints, floats) of a C entry point in csrc/<library>.cu,
-    before a trailing stream argument."""
+    """(pointers, ints, long longs, floats) of a C entry point in
+    csrc/<library>.cu, before a trailing stream argument."""
     path = os.path.join(os.path.dirname(k.__file__), os.pardir, "csrc",
                         library + ".cu")
     with open(path) as f:
@@ -189,42 +190,47 @@ def _c_signature(library, name, ret="int"):
     params = [p.strip() for p in found.group(1).split(",")]
     if params[-1] == "void* stream":
         params = params[:-1]
-    kinds = ["ptr" if "*" in p else p.split()[0] for p in params]
-    assert set(kinds) <= {"ptr", "int", "float"}, name
-    return kinds.count("ptr"), kinds.count("int"), kinds.count("float")
+    kinds = ["ptr" if "*" in p else " ".join(p.split()[:-1]) for p in params]
+    assert set(kinds) <= {"ptr", "int", "long long", "float"}, name
+    return (kinds.count("ptr"), kinds.count("int"), kinds.count("long long"),
+            kinds.count("float"))
 
 
 def test_ctypes_declarations_match_the_c_entry_points(monkeypatch):
-    """Both wrappers declare, and pass, as many pointers, ints and floats
-    as their C entry points take, and size the scratch through queries of
-    the right shape (ctypes would refuse another count only on the
-    card)."""
-    calls, queries = [], []
+    """Both wrappers declare, and pass, as many pointers, ints, long longs
+    and floats as their C entry points take, and size the scratch as the
+    plans of the C `_scratch` queries do (ctypes would refuse another count
+    only on the card)."""
+    calls = []
 
-    def entry(library, name, n_pointers, n_ints, n_floats=0):
-        return (library, name, n_pointers, n_ints, n_floats)
+    class Lib:
+        conv2d_block_forward = ("conv2d_block", "conv2d_block_forward")
+        conv2d_block_backward = ("conv2d_block_bwd", "conv2d_block_backward")
 
     def launch(counter, fn, tensors, ints, device):
         n_floats = sum(isinstance(v, float) for v in ints)
         calls.append((fn, len(tensors), len(ints) - n_floats, n_floats))
 
-    def scratch(library, name, dims, dtype, device):
-        queries.append((library, name, len(dims)))
-        return torch.zeros(1), torch.zeros(1)
-
-    monkeypatch.setattr(k, "_entry", entry)
+    monkeypatch.setattr(k, "_library", lambda name: Lib)
     monkeypatch.setattr(k, "_launch", launch)
-    monkeypatch.setattr(k, "_scratch", scratch)
+    monkeypatch.setattr(k, "_slots", lambda ci, co, dtype, device: 132)
     monkeypatch.setattr(k, "_on_kernel_path", lambda plain, x: True)
     x, w, b, _ = _inputs(9, 11, 8, 16, seed=1)
     args = [torch.from_numpy(a) for a in (x, w, b)]
     y, stats = k._forward_cuda(*args, 1e-5)
     k.conv2d_block_in_backward(*args, stats, y)
     assert len(calls) == 2
-    for (library, name, *declared), *passed in calls:
-        assert tuple(declared) == tuple(passed) \
-            == _c_signature(library, name), name
-    assert len(queries) == 2
-    for library, name, n_dims in queries:
-        # the query's two size pointers (stream's dtype, f32) and its ints
-        assert (2, n_dims, 0) == _c_signature(library, name, ret="void"), name
+    for (library, name), n_tensors, n_ints, n_floats in calls:
+        ptrs, ints, longs, floats = _c_signature(library, name)
+        assert (n_tensors, n_ints, n_floats) == (ptrs, ints + longs, floats)
+        kinds = k._argtypes(name)[:-1]
+        assert tuple(kinds.count(t) for t in (
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_float)) == (ptrs, ints, longs, floats), name
+    for library, name in (("conv2d_block", "conv2d_block_forward_scratch"),
+                          ("conv2d_block_bwd",
+                           "conv2d_block_backward_scratch")):
+        # the queries take the shapes and the dtype (and the dK blocks)
+        # and write the two sizes (stream's dtype, f32)
+        ptrs, ints, longs, floats = _c_signature(library, name, ret="void")
+        assert (ptrs, longs, floats) == (2, 0, 0) and ints in (6, 7), name

@@ -1028,6 +1028,13 @@ CONV_GRADS = ("dx", "dK", "db")
 CONV_SHAPES = [(2, 50, 37, 8, 16), (3, 130, 65, 48, 32),
                (1, 33, 17, 96, 32), (2, 40, 33, 16, 64),
                (2, 23, 11, 16, 48), (2, 376, 257, 32, 16)]
+# the edges of the bf16 passes' 128-position tiles and of their segments:
+# T 1, F 1 (both f-edges at every position), T * F a multiple of 128, less
+# than one tile, Ci 24 (a chunk of 32 half zero), Co 8 and 40 (a slab of 16
+# or 32 half used), a tile's segments past both ends of the sample
+CONV_EDGE_SHAPES = [(3, 1, 300, 16, 16), (2, 200, 1, 16, 8),
+                    (2, 64, 2, 24, 16), (1, 7, 17, 32, 32),
+                    (5, 11, 13, 8, 40), (2, 3, 129, 32, 32)]
 
 
 def _conv_args(device, b, t, f, ci, co, dtype, seed=0):
@@ -1041,7 +1048,7 @@ def _conv_args(device, b, t, f, ci, co, dtype, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,f,ci,co", CONV_SHAPES)
+@pytest.mark.parametrize("b,t,f,ci,co", CONV_SHAPES + CONV_EDGE_SHAPES)
 def test_conv2d_block_matches_plain(cuda, dtype, b, t, f, ci, co):
     """K5 and K5b against their plain versions. y: 1e-4 of the largest
     magnitude in f32, 4 bf16 units in the last place in bf16; stats 1e-4.
@@ -1122,3 +1129,40 @@ def test_conv2d_block_rejects_what_it_cannot_run(cuda):
         cuda_conv2d.conv2d_block_in(*bad)
     with pytest.raises(ValueError):  # a parameter left on the host
         cuda_conv2d.conv2d_block_in(args[0], args[1].cpu(), args[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv2d_plans_match_the_c_scratch_queries(cuda, dtype):
+    """The wrapper's plans equal what the C `_scratch` entry points return
+    at DPCCN's six shapes and the edge shapes, for the dK blocks the card's
+    wave gives."""
+    import ctypes
+
+    from wesep_tpu_torch.ops._build import load_library
+
+    code = 0 if dtype == torch.float32 else 1
+    queries = {
+        "fwd": load_library("conv2d_block").conv2d_block_forward_scratch,
+        "bwd": load_library("conv2d_block_bwd")
+        .conv2d_block_backward_scratch}
+    shapes = [(2 if dtype == torch.float32 else 8, 376, f, ci, co)
+              for f, ci, co in ((257, 16, 16), (257, 32, 16), (129, 32, 32),
+                                (65, 32, 32), (33, 32, 32), (17, 32, 32))]
+    for b, t, f, ci, co in shapes + CONV_EDGE_SHAPES:
+        n_stream, n_f32 = ctypes.c_longlong(), ctypes.c_longlong()
+        query = queries["fwd"]
+        query.argtypes = [ctypes.c_int] * 6 \
+            + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        query(b, t, f, ci, co, code, ctypes.byref(n_stream),
+              ctypes.byref(n_f32))
+        assert (n_stream.value, n_f32.value) == cuda_conv2d.forward_plan(
+            b, t, f, ci, co, dtype)
+        slots = cuda_conv2d._slots(ci, co, dtype, cuda)
+        blocks, *plan = cuda_conv2d.backward_plan(b, t, f, ci, co, dtype,
+                                                  slots)
+        query = queries["bwd"]
+        query.argtypes = [ctypes.c_int] * 7 \
+            + [ctypes.POINTER(ctypes.c_longlong)] * 2
+        query(b, t, f, ci, co, code, blocks, ctypes.byref(n_stream),
+              ctypes.byref(n_f32))
+        assert [n_stream.value, n_f32.value] == plan, (b, t, f, ci, co)

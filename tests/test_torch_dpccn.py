@@ -177,7 +177,7 @@ def test_padded_rows_do_not_reach_the_kept_rows():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    with pytest.raises(NotImplementedError, match="the joint speaker branch"):
         DPCCN(**dict(SMALL, joint_training=True, spk_model="ResNet34"))
     # the JAX class's speaker-branch options are accepted
     DPCCN(**SMALL, multi_task=True, spksInTrain=10, spk_args={},

@@ -139,7 +139,7 @@ def test_padded_rows_do_not_reach_the_kept_rows():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    with pytest.raises(NotImplementedError, match="the joint speaker branch"):
         TFGridNet(**dict(SMALL, joint_training=True, spk_model="ResNet34"))
     with pytest.raises(NotImplementedError, match="concat"):
         TFGridNet(**dict(SMALL, scan_layers=True, spk_fuse_type="concat"))

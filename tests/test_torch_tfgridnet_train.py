@@ -223,5 +223,5 @@ def test_joint_training_raises_with_its_roadmap_item(tmp_path):
                      model_args={"tse_model": dict(
                          MODEL_ARGS, joint_training=True,
                          spk_model="ResNet34")})
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
+    with pytest.raises(NotImplementedError, match="the joint speaker branch"):
         train(config)

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's BiLSTM and fused TCN kernels of two checkouts on
-one GPU, in turns.
+"""Time the PyTorch port's BiLSTM, fused TCN and fused Conv2dBlock kernels
+of two checkouts on one GPU, in turns.
 
     python3 tools/port_ab.py PARENT_DIR CHANGE_DIR [--rounds N]
 
@@ -23,17 +23,26 @@ optimizer chain, as chip_smoke.py times them; then the fused gLN TCN block
 rows) and training (16 rows) shapes in f32 and bf16 (C 256, H 512, k 3, T
 4799, dilation 1, chip_smoke.py's `tcn_args`), the f32 serving forward of
 the full-width SpEx+ (2 rows x 3 s, 6 s enrollments) and its bf16 train
-step (16 rows, multi-task loss), as chip_smoke.py times them. The wrappers
-time whatever
-route each checkout's wrappers take for the stream's dtype. Runs go parent,
+step (16 rows, multi-task loss), as chip_smoke.py times them; then the fused
+Conv2dBlock (K5 `cuda_conv2d._forward_cuda`, K5b
+`cuda_conv2d.conv2d_block_in_backward`) at DPCCN's six shapes (T 376,
+chip_smoke.py's CONV_SHAPES) in f32 at 2 rows and bf16 at 8, with the sum
+over a step's 7 blocks (enc0.conv2 counted twice) and the 7 calls timed
+back to back as one (the host's work overlapping the card's), DPCCN's f32
+serving
+forward (2 rows x 3 s) on conv_impl "pallas" and "xla" in turns within the
+process (TF32 off for cuDNN), and its bf16 train step (8 rows x 3 s) on
+both. The wrappers time whatever route each checkout's wrappers take for
+the stream's dtype. Runs go parent,
 change, change, parent, N times, so that a drift of the card's clock falls
 on both sides. Each run prints a JSON line; the last line holds the median
 per checkout and case. Only the API common to every slice of the port
-since TF-GridNet was ported is used (`cuda_lstm.bilstm_layer`,
+since DPCCN was ported is used (`cuda_lstm.bilstm_layer`,
 `_forward_cuda`, `bilstm_layer_backward`, `bilstm_layer_wgrad`,
-`cuda_tcn._forward_cuda`, `cuda_tcn.tcn_block_gln_backward`, the models,
-`train.trainer` and chip_smoke.py's model arguments and `tcn_args`). Needs
-one GPU; exits non-zero without one.
+`cuda_tcn._forward_cuda`, `cuda_tcn.tcn_block_gln_backward`,
+`cuda_conv2d._forward_cuda`, `cuda_conv2d.conv2d_block_in_backward`, the
+models, `train.trainer` and chip_smoke.py's model arguments, `tcn_args`,
+`CONV_SHAPES` and `CONV_T`). Needs one GPU; exits non-zero without one.
 """
 
 import argparse
@@ -208,6 +217,76 @@ state = TrainState(model=spex, optimizer=opt)
 step = make_train_step(criterion, table["loss_posi"], table["loss_weight"],
                        multi_task=True, compute_dtype=torch.bfloat16)
 out["SpEx+ train step 16x3s bf16"] = time_ms(lambda: step(state, batch), 1, 5)
+del spex, opt, state, step, batch
+torch.cuda.empty_cache()
+
+# the fused Conv2dBlock (K5, K5b) at DPCCN's six shapes, then DPCCN itself
+from chip_smoke import CONV_SHAPES, CONV_T, DPCCN_MODEL_ARGS
+from wesep_tpu_torch.models.dpccn import DPCCN
+from wesep_tpu_torch.ops import cuda_conv2d
+
+torch.backends.cudnn.allow_tf32 = False
+for batch, dtype in ((2, torch.float32), (8, torch.bfloat16)):
+    tag = str(dtype).replace("torch.", "")
+    steps = {"K5": 0.0, "K5b": 0.0}
+    blocks = []
+    for name, f, ci, co in CONV_SHAPES:
+        gen = torch.Generator().manual_seed(0)
+        r = lambda *s: torch.randn(*s, generator=gen)
+        x = (r(batch, CONV_T, f, ci) * 0.5).cuda().to(dtype)
+        w, b = (r(3, 3, ci, co) * 0.1).cuda(), (r(co) * 0.1).cuda()
+        dy = (r(batch, CONV_T, f, co) * 0.1).cuda().to(dtype)
+        _, stats = cuda_conv2d._forward_cuda(x, w, b, 1e-5)
+        fwd = time_ms(lambda: cuda_conv2d._forward_cuda(x, w, b, 1e-5))
+        bwd = time_ms(lambda: cuda_conv2d.conv2d_block_in_backward(
+            x, w, b, stats, dy))
+        out[f"K5 {name} B{batch} {tag}"] = fwd
+        out[f"K5b {name} B{batch} {tag}"] = bwd
+        # a step's 7 blocks: enc0.conv2 runs twice (dec7.conv1 too)
+        times = 2 if name == "enc0.conv2" else 1
+        steps["K5"] += times * fwd
+        steps["K5b"] += times * bwd
+        blocks += [(x, w, b, dy, stats)] * times
+    for kernel, ms in steps.items():
+        out[f"{kernel} a step's 7 blocks B{batch} {tag}"] = ms
+    # the same 7 calls enqueued back to back in one timed call, as a step
+    # enqueues them: the host's work for one block overlaps the card's
+    # work for the one before
+    out[f"K5 a step's 7 blocks back to back B{batch} {tag}"] = time_ms(
+        lambda: [cuda_conv2d._forward_cuda(x, w, b, 1e-5)
+                 for x, w, b, _, _ in blocks])
+    out[f"K5b a step's 7 blocks back to back B{batch} {tag}"] = time_ms(
+        lambda: [cuda_conv2d.conv2d_block_in_backward(x, w, b, stats, dy)
+                 for x, w, b, dy, stats in blocks])
+    del blocks, x, w, b, dy, stats
+torch.cuda.empty_cache()
+state = DPCCN(**DPCCN_MODEL_ARGS).state_dict()
+
+
+def dpccn(route):
+    model = DPCCN(**DPCCN_MODEL_ARGS, conv_impl=route)
+    model.load_state_dict(state)
+    return model.cuda()
+
+
+gen = torch.Generator().manual_seed(0)
+mix = (torch.randn(2, 48000, generator=gen) * 0.1).cuda()
+emb = torch.randn(2, 256, generator=gen).cuda()
+models = {route: dpccn(route).eval() for route in ("pallas", "xla")}
+times = {}
+with torch.inference_mode():
+    for route in ("pallas", "xla", "xla", "pallas"):
+        times.setdefault(route, []).append(
+            time_ms(lambda: models[route](mix, emb), 1, 5))
+for route, t in times.items():
+    out[f"DPCCN serve 2x3s f32 {route}"] = statistics.median(t)
+del models
+torch.cuda.empty_cache()
+for route in ("pallas", "xla"):
+    torch.manual_seed(0)
+    out[f"DPCCN train step 8x3s bf16 {route}"] = step_ms(
+        dpccn(route).train(), 8, 48000)
+    torch.cuda.empty_cache()
 print("RESULT " + json.dumps(out))
 '''
 

@@ -93,7 +93,7 @@ def infer(config, overrides=None, **kwargs):
         raise NotImplementedError(
             f"joint_training inference of {model_name} (an external speaker "
             "encoder on fbank features) is not ported yet; see ROADMAP.md "
-            "queue A item 4 (the joint v2 BSRNN and TF-GridNet)")
+            "queue A, the joint speaker branch")
     model = get_model(model_name)(**model_args)
     model_path = configs["checkpoint"]
 

@@ -16,28 +16,36 @@
 // before both products, as the TPU kernel rounds it (unlike the BiLSTM
 // kernels, whose db sums the unrounded values).
 //
-// Six launches on one stream:
-//
-//   1. conv3x3_kernel<kBackward>  e recomputed -> f32 scratch; per-tile sums
-//                                 of dy and round(dy * e_hat)
-//   2. conv_reduce_kernel         S_a, S_b in a fixed order
-//   3. conv_dout_kernel           dout (stream dtype scratch), per-block db
-//   4. conv3x3_kernel<kTransposed>  dx: the conv of dout with K flipped in
-//                                 (T, F) and transposed in (Ci, Co), which
-//                                 the wrapper passes as w_flip
-//   5. conv_dk_kernel             per-block dK from x and dout tiles, each
-//                                 block walking its own fixed set of tiles
-//   6. tcn::sum_partials (x2)     dK and db from the partials, in order
-//
 // What bounds it on this card. The adjoint's two products (dx and dK), 4 *
 // 9 * Ci * Co operations per position, against x and dy read and dx written
 // once: at enc0.conv2 (B 8, T 376, F 257, Ci 32, Co 16, bf16) 1.4e10
 // operations, 14 us at 989 TFLOP/s, against 124 MB, 37 us at 3.35 TB/s:
-// bytes bound it. The products, and the recompute of e (a third conv),
-// run on the f32 FMA units; e and dout make one round trip each through
-// device memory.
+// bytes bound it.
+//
+// bf16: six launches, three passes over x on the tensor cores
+// (conv2d_tc.cuh):
+//   A. conv_tc_kernel<kSums>   e recomputed; f64 sums of dy and
+//                              round(dy * e_hat) per warp of a tile
+//      conv_reduce64_kernel    S_a, S_b in a fixed order
+//   B. conv_tc_kernel<kDout>   e recomputed; dout written once, f64 db
+//                              partials, and the dK partial from the x
+//                              segments and dout in shared memory, each of
+//                              a wave of blocks walking its fixed set of
+//                              tiles (`dk_blocks` of them, planned by the
+//                              caller from conv2d_block_backward_slots)
+//      tcn::sum_slices (x2)    dK (f32) and db (f64) in order
+//   C. conv_tc_kernel<kOut>    dx: the conv of dout with K flipped in
+//                              (T, F) and transposed in (Ci, Co), read so
+//                              from w as it is staged
+// No f32 [B, T, F, Co] stream is kept: e is recomputed twice.
+//
+// f32: seven launches on the FMA units (conv2d_common.cuh): the conv with
+// e to an f32 scratch and the sums, their reduce, dout and db partials
+// from e (conv_dout_kernel), the transposed conv (dx), the dK partials
+// (conv_dk_kernel, each of `dk_blocks` blocks walking its own fixed set of
+// tiles), and the two ordered sums.
 
-#include "conv2d_common.cuh"
+#include "conv2d_tc.cuh"
 
 namespace {
 
@@ -48,14 +56,14 @@ constexpr int kKThreads = 192;   // 3 (df) x 16 (ci) x 4 (groups of 8 co)
 constexpr int kKTT = 4;          // rows of a dK tile (x kTF columns)
 constexpr int kKPos = kKTT * kTF;
 constexpr int kKCo = 32;         // output channels per dK block
-constexpr int kKBlocks = 256;    // most blocks over the dK tiles
+constexpr int kKBlocks = 256;    // most blocks over the f32 dK tiles
+constexpr int kKPlane = halo_plane(kKTT + 2);
 
 // dout and the per-block sums of dout (db), eight channels per thread.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    conv_dout_kernel(const float* __restrict__ e, const T* __restrict__ dy,
+    conv_dout_kernel(const float* __restrict__ e, const float* __restrict__ dy,
                      const float* __restrict__ stats,
-                     const float* __restrict__ sums, T* __restrict__ dout,
+                     const float* __restrict__ sums, float* __restrict__ dout,
                      float* __restrict__ part_db, int positions, int Co,
                      float n) {
   __shared__ float red[kThreads][8];
@@ -91,7 +99,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < 8; ++j) {
         const float eh = (ev[j] - mu[j]) * rs[j];
         const float de = rs[j] * (g[j] - sa[j] - eh * sb[j]);
-        o[j] = rnd<T>(de * (ev[j] > 0.0f ? 1.0f : ev[j] + 1.0f));
+        o[j] = de * (ev[j] > 0.0f ? 1.0f : ev[j] + 1.0f);
         db[j] += o[j];
       }
       store8(dout + idx, o);
@@ -115,12 +123,11 @@ __global__ void __launch_bounds__(kThreads)
 // channels blockIdx.y * 16 .. + 16 and output channels blockIdx.z * 32 ..
 // + 32: thread (df, ci, group) holds the 3 (dt) x 8 sums of
 // x[t + dt - 1, f + df - 1, ci] * dout[t, f, c]. part [G, 3, 3, Ci, Co].
-template <typename T>
 __global__ void __launch_bounds__(kKThreads)
-    conv_dk_kernel(const T* __restrict__ x, const T* __restrict__ dout,
-                   float* __restrict__ part, int B, int T_len, int F_len,
-                   int Ci, int Co) {
-  __shared__ __align__(16) float xs[kCiChunk][kKTT + 2][kHaloW];
+    conv_dk_kernel(const float* __restrict__ x,
+                   const float* __restrict__ dout, float* __restrict__ part,
+                   int B, int T_len, int F_len, int Ci, int Co) {
+  __shared__ __align__(16) float xs[kCiChunk * kKPlane];
   __shared__ __align__(16) float ds[kKPos][kKCo];
   const int ci0 = blockIdx.y * kCiChunk;
   const int co0 = blockIdx.z * kKCo;
@@ -142,46 +149,35 @@ __global__ void __launch_bounds__(kKThreads)
     const int rem = k % per_sample;
     const int t0 = (rem / n_ft) * kKTT;
     const int f0 = (rem % n_ft) * kTF;
-    for (int i = threadIdx.x; i < kCiChunk * (kKTT + 2) * kHaloW;
-         i += kKThreads) {
-      const int c_in = i % kCiChunk;
-      const int rc = i / kCiChunk;
-      const int c = rc % kHaloW;
-      const int r = rc / kHaloW;
-      const int gt = t0 + r - 1;
-      const int gf = f0 + c - 1;
-      float v = 0.0f;
-      if (ci0 + c_in < Ci && gt >= 0 && gt < T_len && gf >= 0 &&
-          gf < F_len) {
-        v = to_f32(x[((static_cast<size_t>(b) * T_len + gt) * F_len + gf) *
-                         Ci + ci0 + c_in]);
-      }
-      xs[c_in][r][c] = v;
-    }
-    for (int i = threadIdx.x; i < kKPos * kKCo; i += kKThreads) {
-      const int co = i % kKCo;
-      const int p = i / kKCo;
+    stage_halo<kKThreads>(x, xs, kKTT + 2, b, t0, f0, ci0, T_len, F_len,
+                          Ci);
+    // 16-byte loads of 4 output channels of one position
+    for (int i = threadIdx.x; i < kKPos * kKCo / 4; i += kKThreads) {
+      const int co = 4 * (i % (kKCo / 4));
+      const int p = i / (kKCo / 4);
       const int gt = t0 + p / kTF;
       const int gf = f0 + p % kTF;
-      float v = 0.0f;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (co0 + co < Co && gt < T_len && gf < F_len) {
-        v = to_f32(dout[((static_cast<size_t>(b) * T_len + gt) * F_len + gf) *
-                            Co + co0 + co]);
+        v = *reinterpret_cast<const float4*>(
+            dout + ((static_cast<size_t>(b) * T_len + gt) * F_len + gf) * Co +
+            co0 + co);
       }
-      ds[p][co] = v;
+      *reinterpret_cast<float4*>(&ds[p][co]) = v;
     }
     __syncthreads();
     if (active) {
+      const float* xc = xs + ci * kKPlane + df;
       for (int p = 0; p < kKPos; ++p) {
         const int r = p / kTF;
-        const int c = p % kTF + df;
+        const int c = p % kTF;
         const float4 d0 = *reinterpret_cast<const float4*>(&ds[p][cg * 8]);
         const float4 d1 =
             *reinterpret_cast<const float4*>(&ds[p][cg * 8 + 4]);
         const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
 #pragma unroll
         for (int dt = 0; dt < 3; ++dt) {
-          const float xv = xs[ci][r + dt][c];
+          const float xv = xc[(r + dt) * kHaloW + c];
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             acc[dt][j] = fmaf(xv, dv[j], acc[dt][j]);
@@ -202,56 +198,119 @@ __global__ void __launch_bounds__(kKThreads)
   }
 }
 
-int dk_blocks(int B, int T_len, int F_len) {
-  const int tiles = B * ((T_len + kKTT - 1) / kKTT) * conv_ft(F_len);
-  return tiles < kKBlocks ? tiles : kKBlocks;
-}
-
 int dout_chunks(int T_len, int F_len) {
   return (T_len * F_len + kChunk - 1) / kChunk;
 }
 
-template <typename T>
-cudaError_t backward(const void* x, const void* w, const void* w_flip,
-                     const void* bias, const void* stats, const void* dy,
-                     void* dx, void* dk, void* db, void* stream_ws,
-                     void* f32_ws, int B, int T_len, int F_len, int Ci,
-                     int Co, cudaStream_t stream) {
+// The units the dK blocks share out (tiles: f32, of 4 x 32 positions; bf16,
+// of kM positions) and the blocks one wave of the dK pass holds at Ci, Co:
+// at most `units`, at least 1.
+long long dk_units(int B, int T_len, int F_len, int dtype) {
+  if (dtype == 0) {
+    return static_cast<long long>(B) * ((T_len + kKTT - 1) / kKTT) *
+           conv_ft(F_len);
+  }
+  return static_cast<long long>(B) * tc_tiles(T_len, F_len);
+}
+
+// Floats of the f32 scratch (f64 sections first, two floats each) and
+// elements of the stream scratch, for `G` dK blocks.
+void scratch(int B, int T_len, int F_len, int Ci, int Co, int dtype, int G,
+             long long* n_stream, long long* n_f32) {
+  const long long elems =
+      static_cast<long long>(stream_elems(B, T_len, F_len, Co));
+  *n_stream = elems;  // dout
+  if (dtype == 0) {
+    // e, the per-tile sums, S_a and S_b, db per chunk, dK per block
+    *n_f32 = elems + 2LL * B * conv_tiles(T_len, F_len, Co) * Co +
+             2LL * B * Co + 1LL * B * dout_chunks(T_len, F_len) * Co +
+             9LL * G * Ci * Co;
+  } else {
+    // f64: the sums of each warp of each tile, S_a and S_b, db per block;
+    // f32: dK per block
+    *n_f32 = 2 * (2LL * B * tc_tiles(T_len, F_len) * kTcWarps * Co +
+                  2LL * B * Co + 1LL * G * Co) +
+             9LL * G * Ci * Co;
+  }
+}
+
+cudaError_t backward_f32(const float* x, const float* w,
+                         const float* w_flip, const float* bias,
+                         const float* st, const float* dy, float* dx,
+                         float* dk, float* db, float* dout, float* f32_ws,
+                         int B, int T_len, int F_len, int Ci, int Co, int G,
+                         tcn::Marks& mk, cudaStream_t stream) {
   const int positions = T_len * F_len;
   const int n_tiles = conv_tiles(T_len, F_len, Co);
   const int chunks = dout_chunks(T_len, F_len);
-  const int G = dk_blocks(B, T_len, F_len);
-  float* e = static_cast<float*>(f32_ws);
+  float* e = f32_ws;
   float* part_s = e + stream_elems(B, T_len, F_len, Co);
   float* sums = part_s + 2ULL * B * n_tiles * Co;
   float* part_db = sums + 2ULL * B * Co;
   float* part_dk = part_db + 1ULL * B * chunks * Co;
-  T* dout = static_cast<T*>(stream_ws);
-  const T* xt = static_cast<const T*>(x);
-  const float* st = static_cast<const float*>(stats);
 
-  TCN_CHECK((launch_conv<T, kBackward>(
-      xt, static_cast<const T*>(w), static_cast<const float*>(bias), st,
-      static_cast<const T*>(dy), e, nullptr, part_s, B, T_len, F_len, Ci, Co,
-      stream)));
-  TCN_CHECK(reduce_tiles(part_s, sums, B, n_tiles, Co, 0.0f, 0.0f, 0,
-                         stream));
+  TCN_CHECK(mk.done(cudaSuccess, stream));
+  TCN_CHECK(mk.done(launch_conv<kBackward>(x, w, bias, st, dy, e, nullptr,
+                                           part_s, B, T_len, F_len, Ci, Co,
+                                           stream),
+                    stream));
+  TCN_CHECK(mk.done(reduce_tiles(part_s, sums, B, n_tiles, Co, 0.0f, 0.0f, 0,
+                                 stream),
+                    stream));
   const float n = static_cast<float>(T_len) * static_cast<float>(F_len);
-  conv_dout_kernel<T><<<dim3(chunks, B), kThreads, 0, stream>>>(
-      e, static_cast<const T*>(dy), st, sums, dout, part_db, positions, Co,
-      n);
-  TCN_CHECK(cudaGetLastError());
-  TCN_CHECK((launch_conv<T, kTransposed>(
-      dout, static_cast<const T*>(w_flip), nullptr, nullptr, nullptr, nullptr,
-      static_cast<T*>(dx), nullptr, B, T_len, F_len, Co, Ci, stream)));
+  conv_dout_kernel<<<dim3(chunks, B), kThreads, 0, stream>>>(
+      e, dy, st, sums, dout, part_db, positions, Co, n);
+  TCN_CHECK(mk.done(cudaGetLastError(), stream));
+  TCN_CHECK(mk.done(launch_conv<kTransposed>(dout, w_flip, nullptr, nullptr,
+                                             nullptr, nullptr, dx, nullptr, B,
+                                             T_len, F_len, Co, Ci, stream),
+                    stream));
   const dim3 kgrid(G, (Ci + kCiChunk - 1) / kCiChunk, (Co + kKCo - 1) / kKCo);
-  conv_dk_kernel<T><<<kgrid, kKThreads, 0, stream>>>(xt, dout, part_dk, B,
-                                                     T_len, F_len, Ci, Co);
-  TCN_CHECK(cudaGetLastError());
-  TCN_CHECK(tcn::sum_partials(part_dk, static_cast<float*>(dk), 1, G,
-                              9 * Ci * Co, 9 * Ci * Co, stream));
-  return tcn::sum_partials(part_db, static_cast<float*>(db), 1, B * chunks,
-                           Co, Co, stream);
+  conv_dk_kernel<<<kgrid, kKThreads, 0, stream>>>(x, dout, part_dk, B, T_len,
+                                                  F_len, Ci, Co);
+  TCN_CHECK(mk.done(cudaGetLastError(), stream));
+  TCN_CHECK(mk.done(tcn::sum_partials(part_dk, dk, 1, G, 9 * Ci * Co,
+                                      9 * Ci * Co, stream),
+                    stream));
+  return mk.done(tcn::sum_partials(part_db, db, 1, B * chunks, Co, Co,
+                                   stream),
+                 stream);
+}
+
+cudaError_t backward_bf16(const __nv_bfloat16* x, const float* w,
+                          const float* bias,
+                          const float* st, const __nv_bfloat16* dy,
+                          __nv_bfloat16* dx, float* dk, float* db,
+                          __nv_bfloat16* dout, float* f32_ws, int B,
+                          int T_len, int F_len, int Ci, int Co, int G,
+                          tcn::Marks& mk, cudaStream_t stream) {
+  const int tiles = tc_tiles(T_len, F_len) * kTcWarps;  // warp partials
+  double* part_s = reinterpret_cast<double*>(f32_ws);
+  double* sums = part_s + 2LL * B * tiles * Co;
+  double* part_db = sums + 2LL * B * Co;
+  float* part_dk = reinterpret_cast<float*>(part_db + 1LL * G * Co);
+  TcArgs a{x, w, bias, st, sums, dy, dout, part_s, part_dk,
+           B, T_len, F_len, Ci, Co};
+
+  TCN_CHECK(mk.done(cudaSuccess, stream));
+  TCN_CHECK(mk.done(launch_tc<kSums>(a, 0, stream), stream));
+  TCN_CHECK(mk.done(reduce64(part_s, nullptr, sums, B, tiles, Co, 0.0, 0.0f,
+                             stream),
+                    stream));
+  a.part = part_db;
+  TCN_CHECK(mk.done(launch_tc<kDout>(a, G, stream), stream));
+  TCN_CHECK(mk.done(tcn::sum_slices<float, float>(part_dk, dk, 1, G,
+                                                  9 * Ci * Co, 9 * Ci * Co,
+                                                  stream),
+                    stream));
+  TCN_CHECK(mk.done(tcn::sum_slices<double, float>(part_db, db, 1, G, Co, Co,
+                                                   stream),
+                    stream));
+  // dx: the conv of dout [B, T, F, Co] with K flipped and transposed, which
+  // the kOut pass reads from w itself
+  const TcArgs c{dout, w, nullptr, nullptr, nullptr, nullptr, dx,
+                 nullptr, nullptr, B, T_len, F_len, Co, Ci};
+  return mk.done(launch_tc<kOut>(c, 0, stream), stream);
 }
 
 }  // namespace
@@ -259,45 +318,76 @@ cudaError_t backward(const void* x, const void* w, const void* w_flip,
 // Plain C entry points, bound with ctypes by
 // wesep_tpu_torch/ops/cuda_conv2d.py. dtype: 0 = f32, 1 = bf16.
 
-// Elements of the two scratch buffers the backward needs: n_stream of the
-// stream's dtype (dout) and n_f32 floats (e and the partial sums).
-extern "C" void conv2d_block_backward_scratch(int B, int T_len, int F_len,
-                                              int Ci, int Co,
-                                              long long* n_stream,
-                                              long long* n_f32) {
-  const size_t elems = conv2d::stream_elems(B, T_len, F_len, Co);
-  *n_stream = static_cast<long long>(elems);
-  *n_f32 = static_cast<long long>(
-      elems + 2ULL * B * conv2d::conv_tiles(T_len, F_len, Co) * Co +
-      2ULL * B * Co + 1ULL * B * dout_chunks(T_len, F_len) * Co +
-      9ULL * dk_blocks(B, T_len, F_len) * Ci * Co);
+// The blocks one wave of the dK pass holds at Ci, Co (bf16: the occupancy
+// of conv_tc_kernel<kDout> times the SMs; f32: kKBlocks); 0 if the card
+// cannot be asked. The caller plans dk_blocks from it.
+extern "C" int conv2d_block_backward_slots(int Ci, int Co, int dtype) {
+  return dtype == 0 ? kKBlocks : conv2d::tc_slots<conv2d::kDout>(Ci, Co);
 }
 
-// x [B, T, F, Ci], w [3, 3, Ci, Co] (HWIO), w_flip [3, 3, Co, Ci] (w
-// flipped in both spatial axes, its channel axes swapped) and dy
-// [B, T, F, Co] in the stream's dtype; bias [Co] and stats [B, 2, Co] (mu,
-// rs) f32. Writes dx [B, T, F, Ci] in the stream's dtype, dk [3, 3, Ci, Co]
-// and db [Co] f32. Limits as the forward's. Returns the CUDA error code of
-// the first launch that failed (0 on success) and never synchronises.
+// Elements of the two scratch buffers the backward needs for dk_blocks
+// blocks of the dK pass: n_stream of the stream's dtype (dout) and n_f32
+// floats (see scratch).
+extern "C" void conv2d_block_backward_scratch(int B, int T_len, int F_len,
+                                              int Ci, int Co, int dtype,
+                                              int dk_blocks,
+                                              long long* n_stream,
+                                              long long* n_f32) {
+  scratch(B, T_len, F_len, Ci, Co, dtype, dk_blocks, n_stream, n_f32);
+}
+
+// x [B, T, F, Ci] and dy [B, T, F, Co] in the stream's dtype; w
+// [3, 3, Ci, Co] (HWIO), bias [Co] and stats [B, 2, Co] (mu, rs) f32 (a
+// bf16 stream rounds w as it reads it); for an f32 stream w_flip
+// [3, 3, Co, Ci] f32, w flipped in both spatial axes with its channel axes
+// swapped (a bf16 stream reads w so and takes no w_flip). Writes dx [B, T, F, Ci] in the stream's dtype, dk [3, 3, Ci, Co]
+// and db [Co] f32. dk_blocks: blocks of the dK pass, 1 to the units it
+// shares out (dk_units); stream_ws and f32_ws hold n_stream and n_f32
+// elements, at least what conv2d_block_backward_scratch asks. Limits as the
+// forward's. events: null, or n_events CUDA events, recorded before the
+// first launch (7 f32, 6 bf16) and after each in turn. Returns the CUDA
+// error code of the first launch that failed (0 on success) and never
+// synchronises.
 extern "C" int conv2d_block_backward(const void* x, const void* w,
                                      const void* w_flip, const void* bias,
                                      const void* stats, const void* dy,
                                      void* dx, void* dk, void* db,
-                                     void* stream_ws, void* f32_ws, int B,
-                                     int T_len, int F_len, int Ci, int Co,
-                                     int dtype, void* stream) {
-  if (conv2d::bad_shape(B, T_len, F_len, Ci, Co)) {
+                                     void* stream_ws, void* f32_ws,
+                                     void* events, int B, int T_len,
+                                     int F_len, int Ci, int Co, int dtype,
+                                     int n_events, int dk_blocks,
+                                     long long n_stream, long long n_f32,
+                                     void* stream) {
+  if (conv2d::bad_shape(B, T_len, F_len, Ci, Co) || (dtype != 0 && dtype != 1)
+      || dk_blocks < 1 || dk_blocks > dk_units(B, T_len, F_len, dtype)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long need_stream = 0, need_f32 = 0;
+  scratch(B, T_len, F_len, Ci, Co, dtype, dk_blocks, &need_stream, &need_f32);
+  if (n_stream < need_stream || n_f32 < need_f32) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
+  tcn::Marks mk{static_cast<void* const*>(events), n_events, 0};
+  cudaError_t err;
   if (dtype == 0) {
-    err = backward<float>(x, w, w_flip, bias, stats, dy, dx, dk, db,
-                          stream_ws, f32_ws, B, T_len, F_len, Ci, Co, s);
-  } else if (dtype == 1) {
-    err = backward<__nv_bfloat16>(x, w, w_flip, bias, stats, dy, dx, dk, db,
-                                  stream_ws, f32_ws, B, T_len, F_len, Ci, Co,
-                                  s);
+    err = backward_f32(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(w_flip), static_cast<const float*>(bias),
+        static_cast<const float*>(stats), static_cast<const float*>(dy),
+        static_cast<float*>(dx), static_cast<float*>(dk),
+        static_cast<float*>(db), static_cast<float*>(stream_ws),
+        static_cast<float*>(f32_ws), B, T_len, F_len, Ci, Co, dk_blocks, mk,
+        s);
+  } else {
+    err = backward_bf16(
+        static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(bias), static_cast<const float*>(stats),
+        static_cast<const __nv_bfloat16*>(dy),
+        static_cast<__nv_bfloat16*>(dx), static_cast<float*>(dk),
+        static_cast<float*>(db), static_cast<__nv_bfloat16*>(stream_ws),
+        static_cast<float*>(f32_ws), B, T_len, F_len, Ci, Co, dk_blocks, mk,
+        s);
   }
   return static_cast<int>(err);
 }

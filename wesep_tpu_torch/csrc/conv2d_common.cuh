@@ -1,16 +1,15 @@
 // Device code shared by the fused DPCCN Conv2dBlock kernels
-// (conv2d_block.cu forward, conv2d_block_bwd.cu backward): a tiled 3x3
-// stride-1 pad-1 convolution over channels-last [B, T, F, C] streams whose
-// epilogue is the forward's ELU with its instance-norm sums, the backward's
-// recompute of e with the adjoint's sums, or a plain rounded output (the
-// transposed convolution that gives dx); the ordered reduction of per-tile
-// sums; and shape limits.
+// (conv2d_block.cu forward, conv2d_block_bwd.cu backward) on f32 streams: a
+// tiled 3x3 stride-1 pad-1 convolution on the FMA units over channels-last
+// [B, T, F, C] streams whose epilogue is the forward's ELU with its
+// instance-norm sums, the backward's recompute of e with the adjoint's sums,
+// or a plain output (the transposed convolution that gives dx); the
+// ordered reduction of per-tile sums; and shape limits. bf16 streams take
+// the tensor-core passes of conv2d_tc.cuh.
 //
-// Streams are in the stream's dtype T (float or __nv_bfloat16); every
-// product accumulates in f32 and every sum is f32. Operands are widened to
-// f32 when staged in shared memory, which is exact. Nothing uses atomics:
-// each block writes its own partial sums, and a second launch adds them in
-// a fixed order, so a run repeats bit for bit.
+// Every product accumulates in f32 and every sum is f32. Nothing uses
+// atomics: each block writes its own partial sums, and a second launch adds
+// them in a fixed order, so a run repeats bit for bit.
 
 #pragma once
 
@@ -18,10 +17,7 @@
 
 namespace conv2d {
 
-using bilstm::from_f32;
-using bilstm::to_f32;
 using tcn::load8;
-using tcn::rnd;
 
 constexpr int kThreads = 256;    // threads of a conv or elementwise block
 constexpr int kTF = 32;          // F columns of a conv tile, one per lane
@@ -30,11 +26,50 @@ constexpr int kCiChunk = 16;     // input channels staged per pass
 constexpr int kMaxC = 256;       // most channels on either side
 constexpr size_t kOptIn = 32 * 1024;  // dynamic smem above this opts in
 
-// Epilogues of the conv kernel.
-constexpr int kForward = 0;     // e = ELU(conv + b) -> f32 scratch; sums of
-                                // round(e), round(e^2) per tile
-constexpr int kBackward = 1;    // the same e; sums of dy, round(dy * e_hat)
-constexpr int kTransposed = 2;  // out = round(conv), no bias (dx)
+// Epilogues of the conv kernel (f32: every rounding is the identity).
+constexpr int kForward = 0;     // e = ELU(conv + b) -> scratch; sums of e,
+                                // e^2 per tile
+constexpr int kBackward = 1;    // the same e; sums of dy, dy * e_hat
+constexpr int kTransposed = 2;  // out = conv, no bias (dx)
+
+// Floats of one input channel's plane of a staged x halo of `rows` rows:
+// padded to 2 mod 32, so that the four channels one thread stages from a
+// 16-byte load land in four different bank octets.
+__host__ __device__ constexpr int halo_plane(int rows) {
+  return (rows * kHaloW + 31) / 32 * 32 + 2;
+}
+
+// Stage x[b, t0 - 1 .. t0 + rows, f0 - 1 .. f0 + 32, ci0 .. ci0 + 16] into
+// xs [16][halo_plane(rows)] (channel planes of rows x kHaloW floats), zero
+// outside the stream: 16-byte loads of four channels of one position, four
+// threads a position, so a warp reads 8 positions' 64 contiguous bytes.
+template <int kThreadsN>
+__device__ __forceinline__ void stage_halo(const float* __restrict__ x,
+                                           float* __restrict__ xs, int rows,
+                                           int b, int t0, int f0, int ci0,
+                                           int T_len, int F_len, int Ci) {
+  const int plane = halo_plane(rows);
+  const int n_quads = (kCiChunk / 4) * rows * kHaloW;
+  for (int i = threadIdx.x; i < n_quads; i += kThreadsN) {
+    const int q = i % (kCiChunk / 4);
+    const int pos = i / (kCiChunk / 4);
+    const int c = pos % kHaloW;
+    const int r = pos / kHaloW;
+    const int gt = t0 + r - 1;
+    const int gf = f0 + c - 1;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (ci0 + 4 * q < Ci && gt >= 0 && gt < T_len && gf >= 0 && gf < F_len) {
+      v = *reinterpret_cast<const float4*>(
+          x + ((static_cast<size_t>(b) * T_len + gt) * F_len + gf) * Ci + ci0 +
+          4 * q);
+    }
+    float* o = xs + 4 * q * plane + pos;
+    o[0] = v.x;
+    o[plane] = v.y;
+    o[2 * plane] = v.z;
+    o[3 * plane] = v.w;
+  }
+}
 
 // A block computes a tile of TT x 32 positions of one sample for CB output
 // channels with 256 threads: each warp owns one group of 8 channels and 4
@@ -44,8 +79,9 @@ struct ConvTile {
   static constexpr int kGroups = CB / 8;
   static constexpr int kRowGroups = 8 / kGroups;
   static constexpr int kTT = 4 * kRowGroups;
-  static constexpr int kXs = kCiChunk * (kTT + 2) * kHaloW;  // floats
-  static constexpr int kWs = 9 * kCiChunk * CB;               // floats
+  static constexpr int kPlane = halo_plane(kTT + 2);
+  static constexpr int kXs = kCiChunk * kPlane;  // floats
+  static constexpr int kWs = 9 * kCiChunk * CB;  // floats
   static constexpr size_t kSmem = (kXs + kWs) * sizeof(float);
   static_assert(kGroups * kRowGroups == kThreads / 32, "8 warps");
   static_assert(kXs % 4 == 0, "the weight tile starts 16-byte aligned");
@@ -67,35 +103,25 @@ __device__ __forceinline__ void store8(float* __restrict__ p,
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
 }
-__device__ __forceinline__ void store8(__nv_bfloat16* __restrict__ p,
-                                       const float (&v)[8]) {
-  uint4 raw;
-  __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    pairs[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-  }
-  *reinterpret_cast<uint4*>(p) = raw;
-}
 
-// The 3x3 convolution of x [B, T, F, Ci] with w [3, 3, Ci, Co] (HWIO, in
-// the stream's dtype), zero outside [0, T) x [0, F), for the tile
-// blockIdx.x (row-major over T tiles x F tiles), the output channels
-// blockIdx.y * CB .. + CB and the sample blockIdx.z; then the epilogue
-// MODE (see above). e_out [B, T, F, Co] f32; part [B, tiles, 2, Co] f32;
-// stats [B, 2, Co] (mu, rs) f32; dy and out [B, T, F, Co] in T.
-template <typename T, int CB, int MODE>
+// The 3x3 convolution of x [B, T, F, Ci] with w [3, 3, Ci, Co] (HWIO),
+// zero outside [0, T) x [0, F), for the tile blockIdx.x (row-major over T
+// tiles x F tiles), the output channels blockIdx.y * CB .. + CB and the
+// sample blockIdx.z; then the epilogue MODE (see above). e_out
+// [B, T, F, Co]; part [B, tiles, 2, Co]; stats [B, 2, Co] (mu, rs); dy and
+// out [B, T, F, Co]. All f32.
+template <int CB, int MODE>
 __global__ void __launch_bounds__(kThreads)
-    conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias,
-                   const float* __restrict__ stats, const T* __restrict__ dy,
-                   float* __restrict__ e_out, T* __restrict__ out,
-                   float* __restrict__ part, int T_len, int F_len, int Ci,
-                   int Co) {
+                   const float* __restrict__ stats,
+                   const float* __restrict__ dy, float* __restrict__ e_out,
+                   float* __restrict__ out, float* __restrict__ part,
+                   int T_len, int F_len, int Ci, int Co) {
   using Tile = ConvTile<CB>;
   constexpr int kTT = Tile::kTT;
   extern __shared__ __align__(16) float smem[];
-  float* xs = smem;              // [kCiChunk][kTT + 2][kHaloW]
+  float* xs = smem;              // [kCiChunk][Tile::kPlane]
   float* ws = smem + Tile::kXs;  // [9][kCiChunk][CB]
   __shared__ float red[kThreads / 32][2][8];
 
@@ -117,35 +143,23 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int ci0 = 0; ci0 < Ci; ci0 += kCiChunk) {
     const int nci = min(kCiChunk, Ci - ci0);
-    for (int i = threadIdx.x; i < Tile::kXs; i += kThreads) {
-      const int ci = i % kCiChunk;
-      const int rc = i / kCiChunk;
-      const int c = rc % kHaloW;
-      const int r = rc / kHaloW;
-      const int gt = t0 + r - 1;
-      const int gf = f0 + c - 1;
-      float v = 0.0f;
-      if (ci < nci && gt >= 0 && gt < T_len && gf >= 0 && gf < F_len) {
-        v = to_f32(x[((static_cast<size_t>(b) * T_len + gt) * F_len + gf) *
-                         Ci + ci0 + ci]);
-      }
-      xs[(ci * (kTT + 2) + r) * kHaloW + c] = v;
-    }
-    for (int i = threadIdx.x; i < Tile::kWs; i += kThreads) {
-      const int co = i % CB;
-      const int rest = i / CB;
+    stage_halo<kThreads>(x, xs, kTT + 2, b, t0, f0, ci0, T_len, F_len, Ci);
+    // 16-byte loads of 4 output channels; Co % 8 == 0
+    for (int i = threadIdx.x; i < Tile::kWs / 4; i += kThreads) {
+      const int co = 4 * (i % (CB / 4));
+      const int rest = i / (CB / 4);
       const int ci = rest % kCiChunk;
       const int k9 = rest / kCiChunk;
-      float v = 0.0f;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       if (ci < nci && co0 + co < Co) {
-        v = to_f32(w[(static_cast<size_t>(k9) * Ci + ci0 + ci) * Co + co0 +
-                     co]);
+        v = *reinterpret_cast<const float4*>(
+            w + (static_cast<size_t>(k9) * Ci + ci0 + ci) * Co + co0 + co);
       }
-      ws[i] = v;
+      reinterpret_cast<float4*>(ws)[i] = v;
     }
     __syncthreads();
     for (int ci = 0; ci < nci; ++ci) {
-      const float* xc = xs + (ci * (kTT + 2) + rg * 4) * kHaloW + lane;
+      const float* xc = xs + ci * Tile::kPlane + rg * 4 * kHaloW + lane;
 #pragma unroll
       for (int df = 0; df < 3; ++df) {
         float xv[6];
@@ -224,8 +238,8 @@ __global__ void __launch_bounds__(kThreads)
     if (MODE == kForward) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        s0[j] += rnd<T>(e[j]);
-        s1[j] += rnd<T>(e[j] * e[j]);
+        s0[j] += e[j];
+        s1[j] += e[j] * e[j];
       }
     } else {
       float g[8];
@@ -233,7 +247,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         s0[j] += g[j];
-        s1[j] += rnd<T>(g[j] * ((e[j] - mu[j]) * rs[j]));
+        s1[j] += g[j] * ((e[j] - mu[j]) * rs[j]);
       }
     }
   }
@@ -268,13 +282,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int CB, int MODE>
-cudaError_t launch_conv_cb(const T* x, const T* w, const float* bias,
-                           const float* stats, const T* dy, float* e_out,
-                           T* out, float* part, int B, int T_len, int F_len,
-                           int Ci, int Co, cudaStream_t stream) {
+template <int CB, int MODE>
+cudaError_t launch_conv_cb(const float* x, const float* w, const float* bias,
+                           const float* stats, const float* dy, float* e_out,
+                           float* out, float* part, int B, int T_len,
+                           int F_len, int Ci, int Co, cudaStream_t stream) {
   using Tile = ConvTile<CB>;
-  auto kernel = conv3x3_kernel<T, CB, MODE>;
+  auto kernel = conv3x3_kernel<CB, MODE>;
   if (Tile::kSmem > kOptIn) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -288,24 +302,21 @@ cudaError_t launch_conv_cb(const T* x, const T* w, const float* bias,
 }
 
 // The conv kernel with the tile width for Co output channels.
-template <typename T, int MODE>
-cudaError_t launch_conv(const T* x, const T* w, const float* bias,
-                        const float* stats, const T* dy, float* e_out, T* out,
-                        float* part, int B, int T_len, int F_len, int Ci,
-                        int Co, cudaStream_t stream) {
+template <int MODE>
+cudaError_t launch_conv(const float* x, const float* w, const float* bias,
+                        const float* stats, const float* dy, float* e_out,
+                        float* out, float* part, int B, int T_len, int F_len,
+                        int Ci, int Co, cudaStream_t stream) {
   switch (conv_cb(Co)) {
     case 16:
-      return launch_conv_cb<T, 16, MODE>(x, w, bias, stats, dy, e_out, out,
-                                         part, B, T_len, F_len, Ci, Co,
-                                         stream);
+      return launch_conv_cb<16, MODE>(x, w, bias, stats, dy, e_out, out, part,
+                                      B, T_len, F_len, Ci, Co, stream);
     case 32:
-      return launch_conv_cb<T, 32, MODE>(x, w, bias, stats, dy, e_out, out,
-                                         part, B, T_len, F_len, Ci, Co,
-                                         stream);
+      return launch_conv_cb<32, MODE>(x, w, bias, stats, dy, e_out, out, part,
+                                      B, T_len, F_len, Ci, Co, stream);
     default:
-      return launch_conv_cb<T, 64, MODE>(x, w, bias, stats, dy, e_out, out,
-                                         part, B, T_len, F_len, Ci, Co,
-                                         stream);
+      return launch_conv_cb<64, MODE>(x, w, bias, stats, dy, e_out, out, part,
+                                      B, T_len, F_len, Ci, Co, stream);
   }
 }
 

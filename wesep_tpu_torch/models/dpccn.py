@@ -216,7 +216,7 @@ class DPCCN(nn.Module):
             raise NotImplementedError(
                 f"joint_training=True (DPCCN with the speaker encoder "
                 f"{spk_model!r} on fbank features) is not ported yet; see "
-                "ROADMAP.md queue A item 4")
+                "ROADMAP.md queue A, the joint speaker branch")
         self.win, self.stride = win, stride
         self.paddings = tuple(paddings)
         self.pool_size = tuple(pool_size)

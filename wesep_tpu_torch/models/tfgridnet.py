@@ -205,7 +205,7 @@ class TFGridNet(nn.Module):
             raise NotImplementedError(
                 "joint_training=True (TF-GridNet v2: an external speaker "
                 "encoder on fbank features) is not ported yet; see "
-                "ROADMAP.md queue A item 4")
+                "ROADMAP.md queue A, the joint speaker branch")
         if scan_layers and spk_fuse_type == "concat":
             raise NotImplementedError(
                 "scan_layers supports elementwise fuse types "

@@ -52,10 +52,11 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str):
-    """(source path, library path) of csrc/<name>.cu."""
+def _target(name: str, extra=()):
+    """(source path, library path) of csrc/<name>.cu built with NVCC_FLAGS
+    and the flags `extra`."""
     src = os.path.join(CSRC_DIR, name + ".cu")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(extra)).encode())
     headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
     for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
         with open(path, "rb") as f:
@@ -64,13 +65,13 @@ def _target(name: str):
     return src, out
 
 
-def _start(src: str):
+def _start(src: str, extra=()):
     """Start nvcc on `src` -> (process, temporary output path)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     proc = subprocess.Popen(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, src],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
     return proc, tmp
@@ -90,12 +91,13 @@ def _finish(proc, tmp: str, src: str, out: str) -> str:
     return out
 
 
-def build(name: str) -> str:
-    """Compile csrc/<name>.cu into a shared library; return its path."""
-    src, out = _target(name)
+def build(name: str, extra=()) -> str:
+    """Compile csrc/<name>.cu into a shared library (with the nvcc flags
+    `extra` beside NVCC_FLAGS, e.g. a register cap); return its path."""
+    src, out = _target(name, extra)
     if os.path.exists(out):
         return out
-    return _finish(*_start(src), src, out)
+    return _finish(*_start(src, extra), src, out)
 
 
 def build_all(names=SOURCES) -> dict:

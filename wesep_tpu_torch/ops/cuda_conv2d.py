@@ -2,8 +2,11 @@
 
 Counterpart of wesep_tpu/ops/pallas_conv2d.py `conv2d_block_in`, forward
 and backward. The kernels live in csrc/conv2d_block.cu (forward) and
-csrc/conv2d_block_bwd.cu (backward); their headers say what bounds them and
-how they are laid out. Channels-last, stride 1, pad 1:
+csrc/conv2d_block_bwd.cu (backward): bf16 streams take implicit-GEMM
+convolutions on the tensor cores with the block's elementwise work in their
+epilogues (csrc/conv2d_tc.cuh), f32 streams tiled convolutions on the FMA
+units (csrc/conv2d_common.cuh); their headers say what bounds them and how
+they are laid out. Channels-last, stride 1, pad 1:
 
     y = InstanceNorm(ELU(conv3x3(x) + bias)),  x [B, T, F, Ci], y [B, T, F, Co]
 
@@ -16,9 +19,16 @@ versions `conv2d_block_in_reference` and
 fallback from a failed build or launch. Each wrapper counts its launches:
 `conv2d_block_in.launches`, `conv2d_block_in_backward.launches`.
 
+What the kernels need from the host is planned here, from the shapes: the
+scratch of each pass (`forward_plan`, `backward_plan`, mirrors of the C
+`_scratch` entry points, which refuse less) and the blocks of the backward's
+dK pass (`dk_blocks`: one wave of the card, block g walking the tiles g,
+g + blocks, ...). `cuda_tcn.launch_times` runs one pass with a CUDA
+event after each launch (`FORWARD_LAUNCHES`, `BACKWARD_LAUNCHES`).
+
 Rounding points (they matter for a bf16 stream; for f32 every rounding is
-the identity). x and the kernel are in the stream's dtype, the products
-accumulate in f32, the bias and e = ELU(conv + b) are f32. The statistics
+the identity). x is in the stream's dtype and the kernel is rounded to it
+where the products take it, the products accumulate in f32, the bias and e = ELU(conv + b) are f32. The statistics
 sum round(e) and round(e * e); y rounds (e - mu) * rs from the unrounded e.
 Backward: S_b sums round(dy * e_hat); dout is rounded before db's sum and
 before both products (dK in f32, dx rounded once).
@@ -31,20 +41,111 @@ statistics are per sample). DPCCN's gated convs have Ci <= 32, Co 16 or
 """
 
 import ctypes
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
 from torch.nn import functional as F
 
-from wesep_tpu_torch.ops.cuda_lstm import _entry, _launch
+from wesep_tpu_torch.ops.cuda_lstm import _launch
 from wesep_tpu_torch.ops.cuda_tcn import _aligned, run_in_batch_chunks
 
 __all__ = ["kernel_fits", "conv2d_block_in", "conv2d_block_in_reference",
            "conv2d_block_in_backward", "conv2d_block_in_backward_reference",
-           "Conv2dBlockFn"]
+           "Conv2dBlockFn", "forward_plan", "backward_plan", "dk_units",
+           "dk_blocks", "FORWARD_LAUNCHES", "BACKWARD_LAUNCHES"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHANNELS = 256  # csrc/conv2d_common.cuh kMaxC
+# csrc/conv2d_tc.cuh (bf16): positions of a tile; csrc/conv2d_common.cuh
+# and conv2d_block_bwd.cu (f32): columns of a conv tile, rows of a dK tile,
+# positions of a dout block, most dK blocks
+_TC_TILE = 128
+_TC_WARPS = 4  # warps of a bf16 tile, each writing its own partial sums
+_F32_COLS = 32
+_F32_DK_ROWS = 4
+_F32_DOUT_CHUNK = 1024
+# the launches of each pass in order, as the C entry points mark them
+FORWARD_LAUNCHES = {
+    torch.float32: ("conv", "reduce", "norm"),
+    torch.bfloat16: ("conv stats", "reduce", "conv norm")}
+BACKWARD_LAUNCHES = {
+    torch.float32: ("conv", "reduce", "dout", "dx conv", "dK", "dK sum",
+                    "db sum"),
+    torch.bfloat16: ("conv sums", "reduce", "conv dout dK", "dK sum",
+                     "db sum", "dx conv")}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _f32_conv_tiles(t_len: int, f_len: int, co: int) -> int:
+    """Tiles per sample of the f32 conv kernel: 16, 8 or 4 rows (Co <= 16,
+    <= 32, more) x 32 columns (conv_tiles)."""
+    rows = 16 if co <= 16 else 8 if co <= 32 else 4
+    return _cdiv(t_len, rows) * _cdiv(f_len, _F32_COLS)
+
+
+def _tc_tiles(t_len: int, f_len: int) -> int:
+    """Tiles per sample of the bf16 passes: 128 consecutive positions
+    t * F + f each (tc_tiles)."""
+    return _cdiv(t_len * f_len, _TC_TILE)
+
+
+def forward_plan(batch, t_len, f_len, ci, co, dtype):
+    """(elements of the stream's dtype, floats) of the forward's scratch,
+    as conv2d_block_forward_scratch gives them: f32, e [B, T, F, Co] and
+    the per-tile sums (two per channel); bf16, only the sums of each warp of
+    each tile, f64 (two floats each)."""
+    del ci
+    if dtype == torch.float32:
+        return 0, (batch * t_len * f_len * co
+                   + 2 * batch * _f32_conv_tiles(t_len, f_len, co) * co)
+    return 0, 2 * (2 * batch * _tc_tiles(t_len, f_len) * _TC_WARPS * co)
+
+
+def dk_units(batch, t_len, f_len, dtype) -> int:
+    """Tiles the backward's dK blocks share out: f32, of 4 rows x 32
+    columns; bf16, of 128 positions (dk_units)."""
+    if dtype == torch.float32:
+        return batch * _cdiv(t_len, _F32_DK_ROWS) * _cdiv(f_len, _F32_COLS)
+    return batch * _tc_tiles(t_len, f_len)
+
+
+def dk_blocks(units, ci, co, dtype, slots) -> int:
+    """Blocks of the dK pass: the `slots` that one wave of the card holds
+    (conv2d_block_backward_slots), shared by the bf16 grid's chunks of 32
+    input channels (16 at Ci <= 16) and slabs of 32 output channels (16
+    at Co <= 16); at most one block a tile, at least one."""
+    if dtype == torch.float32:
+        per_block = 1
+    else:
+        kc, nb = (16 if ci <= 16 else 32), (16 if co <= 16 else 32)
+        per_block = _cdiv(ci, kc) * _cdiv(co, nb)
+    return max(1, min(units, slots // per_block))
+
+
+def backward_plan(batch, t_len, f_len, ci, co, dtype, slots):
+    """(dK blocks, elements of the stream's dtype, floats) of the
+    backward's scratch, as conv2d_block_backward_scratch gives them. Stream:
+    dout. f32: e, the per-tile sums, S_a and S_b, db per 1024 positions of
+    a sample, dK per block. bf16, f64 first (two floats each): the sums of
+    each warp of each tile, S_a and S_b, db per block; then dK per block,
+    f32."""
+    blocks = dk_blocks(dk_units(batch, t_len, f_len, dtype), ci, co, dtype,
+                       slots)
+    elems = batch * t_len * f_len * co
+    if dtype == torch.float32:
+        n_f32 = (elems + 2 * batch * _f32_conv_tiles(t_len, f_len, co) * co
+                 + 2 * batch * co
+                 + batch * _cdiv(t_len * f_len, _F32_DOUT_CHUNK) * co
+                 + 9 * blocks * ci * co)
+    else:
+        n_f32 = (2 * (2 * batch * _tc_tiles(t_len, f_len) * _TC_WARPS * co
+                      + 2 * batch * co + blocks * co)
+                 + 9 * blocks * ci * co)
+    return blocks, elems, n_f32
 
 
 def _conv3x3(x32, k32):
@@ -111,19 +212,42 @@ def conv2d_block_in_backward_reference(x, kernel, bias, stats, dy):
     return dx, dk, db
 
 
-def _scratch(library: str, name: str, dims, dtype, device):
-    """The two scratch buffers a pass needs, as its C query `name` sizes
-    them: (stream's dtype, f32)."""
+def _argtypes(entry: str):
+    """ctypes types of a C entry point's arguments, in order."""
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return {
+        "conv2d_block_forward":
+            [ptr] * 7 + [i32] * 7 + [i64, ctypes.c_float, ptr],
+        "conv2d_block_backward": [ptr] * 12 + [i32] * 8 + [i64] * 2 + [ptr],
+        "conv2d_block_backward_slots": [i32] * 3,
+    }[entry]
+
+
+@functools.lru_cache(maxsize=None)
+def _library(name: str):
+    """The library of csrc/<name>.cu with its entry points' signatures,
+    built and loaded at first use."""
     from wesep_tpu_torch.ops._build import load_library
 
-    query = getattr(load_library(library), name)
-    query.argtypes = [ctypes.c_int] * len(dims) \
-        + [ctypes.POINTER(ctypes.c_longlong)] * 2
-    query.restype = None
-    n_stream, n_f32 = ctypes.c_longlong(), ctypes.c_longlong()
-    query(*dims, ctypes.byref(n_stream), ctypes.byref(n_f32))
-    return (torch.empty(n_stream.value, dtype=dtype, device=device),
-            torch.empty(n_f32.value, dtype=torch.float32, device=device))
+    lib = load_library(name)
+    entries = ("conv2d_block_forward",) if name == "conv2d_block" else (
+        "conv2d_block_backward", "conv2d_block_backward_slots")
+    for entry in entries:
+        getattr(lib, entry).argtypes = _argtypes(entry)
+        getattr(lib, entry).restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _slots(ci: int, co: int, dtype, device) -> int:
+    """Blocks of the dK pass one wave of the card holds."""
+    with torch.cuda.device(device):
+        n = _library("conv2d_block_bwd").conv2d_block_backward_slots(
+            ci, co, _DTYPE_CODES[dtype])
+    if n <= 0:
+        raise RuntimeError("conv2d_block_in_backward: the card's occupancy "
+                           "query failed")
+    return n
 
 
 def kernel_fits(ci: int, co: int) -> bool:
@@ -135,8 +259,9 @@ def kernel_fits(ci: int, co: int) -> bool:
 
 def _kernel_args(x, kernel, bias):
     """Check what the kernels take and return (x, kernel, bias) as they
-    take them: x and the kernel in the stream's dtype, the bias f32, all
-    contiguous and 16-byte aligned."""
+    take them: x in the stream's dtype, the kernel and the bias f32 (a
+    bf16 stream's kernels round K as they stage it), all contiguous and
+    16-byte aligned."""
     if x.dim() != 4:
         raise ValueError(f"x must be [B, T, F, Ci], got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODES:
@@ -155,41 +280,44 @@ def _kernel_args(x, kernel, bias):
             f"and a non-empty x; got x {tuple(x.shape)}, Co={co}")
     if kernel.device != x.device or bias.device != x.device:
         raise ValueError("all tensors must be on x's device")
-    return (_aligned(x.detach()), _aligned(kernel.detach().to(x.dtype)),
+    return (_aligned(x.detach()), _aligned(kernel.detach().float()),
             _aligned(bias.detach().float()))
 
 
-def _forward_cuda(x, kernel, bias, eps):
+def _forward_cuda(x, kernel, bias, eps, events=None):
     """Launch the forward kernels -> (y, stats [B, 2, Co]), in slices of at
-    most cuda_tcn.MAX_GRID_BATCH samples (the statistics are per sample)."""
+    most cuda_tcn.MAX_GRID_BATCH samples (the statistics are per sample);
+    `events` (one batch slice only): CUDA event handles, as
+    `cuda_tcn.launch_times` makes them."""
     x, kernel, bias = _kernel_args(x, kernel, bias)
     return run_in_batch_chunks(
-        lambda b0, b1: _forward_slice(x[b0:b1], kernel, bias, eps),
+        lambda b0, b1: _forward_slice(x[b0:b1], kernel, bias, eps, events),
         x.shape[0])
 
 
-def _forward_slice(x, kernel, bias, eps):
+def _forward_slice(x, kernel, bias, eps, events):
     """The forward kernels over a batch they take, operands prepared."""
     batch, t_len, f_len, ci = x.shape
     co = kernel.shape[-1]
-    dims = (batch, t_len, f_len, ci, co)
     y = torch.empty(batch, t_len, f_len, co, dtype=x.dtype, device=x.device)
     stats = torch.empty(batch, 2, co, dtype=torch.float32, device=x.device)
-    _, f32_ws = _scratch("conv2d_block", "conv2d_block_forward_scratch", dims,
-                         x.dtype, x.device)
+    _, n_f32 = forward_plan(batch, t_len, f_len, ci, co, x.dtype)
+    f32_ws = torch.empty(n_f32, dtype=torch.float32, device=x.device)
     _launch(conv2d_block_in,
-            _entry("conv2d_block", "conv2d_block_forward", 6, 6, 1),
-            (x, kernel, bias, y, stats, f32_ws),
-            (*dims, _DTYPE_CODES[x.dtype], float(eps)), x.device)
+            _library("conv2d_block").conv2d_block_forward,
+            (x, kernel, bias, y, stats, f32_ws, events),
+            (batch, t_len, f_len, ci, co, _DTYPE_CODES[x.dtype],
+             _n_events(events), n_f32, float(eps)), x.device)
     return y, stats
 
 
-def conv2d_block_in_backward(x, kernel, bias, stats, dy):
+def conv2d_block_in_backward(x, kernel, bias, stats, dy, events=None):
     """The backward; arguments and results as
     `conv2d_block_in_backward_reference`. On CUDA tensors it launches the
-    kernels (the flipped, transposed kernel the dx conv reads is made here
-    once per call; the scratch lives only for the call), on CPU tensors it
-    runs the plain version."""
+    kernels (the scratch lives only for the call), on CPU tensors it runs
+    the plain version. `events` as `_forward_cuda` takes them. An f32
+    stream's dx conv reads K flipped and transposed, made here once a call;
+    a bf16 stream's reads K so as it stages it."""
     if not _on_kernel_path(False, x):
         return conv2d_block_in_backward_reference(x, kernel, bias, stats, dy)
     x, kernel, bias = _kernel_args(x, kernel, bias)
@@ -201,35 +329,42 @@ def conv2d_block_in_backward(x, kernel, bias, stats, dy):
         raise ValueError(f"stats must be [B, 2, Co], got {tuple(stats.shape)}")
     stats = _aligned(stats.float())
     dy = _aligned(dy.detach().to(x.dtype))
-    flipped = _aligned(kernel.flip(0, 1).transpose(2, 3))
+    flipped = _aligned(kernel.flip(0, 1).transpose(2, 3)) \
+        if x.dtype == torch.float32 else None
     # dx per sample; dK and db summed over the slices
     return run_in_batch_chunks(
         lambda b0, b1: _backward_slice(x[b0:b1], kernel, flipped, bias,
-                                       stats[b0:b1], dy[b0:b1]),
+                                       stats[b0:b1], dy[b0:b1], events),
         batch, summed=(1, 2))
 
 
-def _backward_slice(x, kernel, flipped, bias, stats, dy):
+def _backward_slice(x, kernel, flipped, bias, stats, dy, events):
     """The backward kernels over a batch they take, operands prepared."""
     batch, t_len, f_len, ci = x.shape
     co = kernel.shape[-1]
-    dims = (batch, t_len, f_len, ci, co)
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     dk = torch.empty(3, 3, ci, co, **f32)
     db = torch.empty(co, **f32)
-    stream_ws, f32_ws = _scratch("conv2d_block_bwd",
-                                 "conv2d_block_backward_scratch", dims,
-                                 x.dtype, x.device)
+    blocks, n_stream, n_f32 = backward_plan(
+        batch, t_len, f_len, ci, co, x.dtype,
+        _slots(ci, co, x.dtype, x.device))
+    stream_ws = torch.empty(n_stream, dtype=x.dtype, device=x.device)
+    f32_ws = torch.empty(n_f32, **f32)
     _launch(conv2d_block_in_backward,
-            _entry("conv2d_block_bwd", "conv2d_block_backward", 11, 6),
+            _library("conv2d_block_bwd").conv2d_block_backward,
             (x, kernel, flipped, bias, stats, dy, dx, dk, db, stream_ws,
-             f32_ws),
-            (*dims, _DTYPE_CODES[x.dtype]), x.device)
+             f32_ws, events),
+            (batch, t_len, f_len, ci, co, _DTYPE_CODES[x.dtype],
+             _n_events(events), blocks, n_stream, n_f32), x.device)
     return dx, dk, db
 
 
 conv2d_block_in_backward.launches = 0
+
+
+def _n_events(events) -> int:
+    return 0 if events is None else len(events)
 
 
 def _on_kernel_path(plain: bool, x) -> bool:

@@ -88,9 +88,9 @@ def run_in_batch_chunks(run, batch: int, summed=(), most=MAX_GRID_BATCH):
     per sample, so a batch the grid does not take runs exactly as slices.
     Results with an index in `summed` (weight gradients) are added over
     the slices in order, the others (per sample) joined along axis 0."""
-    chunks = batch_chunks(batch, most)
-    if len(chunks) == 1:
+    if batch <= most:
         return run(0, batch)
+    chunks = batch_chunks(batch, most)
     parts = [run(b0, b1) for b0, b1 in chunks]
     out = []
     for i, first in enumerate(parts[0]):
