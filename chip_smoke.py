@@ -127,6 +127,28 @@ pass):
    with 12 launches of the f32 cluster chain per forward (none of K1) and
    12 of the gates, chain and dW kernels per bf16 train step (K1b's own on
    the f32 gradient check).
+14. the joint v2 recipes (examples/librimix/tse/v2/confs: ResNet34 on the
+   enrollment's 80-bin fbank, whose f32 embedding promotes everything
+   after the speaker fuse to f32 in a bf16 step, as in the JAX package):
+   (a) the speaker branch's ops on the card against the same calls on the
+   CPU (Kaldi fbank of 16 x 3 s, the consistent frontend of 2 x 6 s,
+   ResNet34 on fbank [2, 598, 80] in eval mode and [16, 598, 80] in train
+   mode with its statistics), with cuDNN's TF32 off and on, each timed;
+   (b) the full-width v2 BSRNN decodes a shard with 6 s enrollment wavs
+   through bin/infer (fbank on the host): 12 f32 cluster chains and 12 f32
+   projections per forward, the forward's time and the speaker branch's
+   share of it, kernels against the plain LSTM; (c) it trains through
+   bin/train (bf16 compute dtype, 16 rows x 3 s, a few steps and one
+   validation step): per train step 12 f32 forwards with cs and 12 of each
+   f32 FMA backward kernel, the encoder's statistics move, average_model
+   -> bin/infer decodes, spk_model_freeze keeps the encoder bit for bit;
+   the host data plane's rate; the whole joint model's f32 gradients
+   (encoder included) against the plain LSTM's; a step's time, peak memory
+   and its f32 LSTM wrappers' device time; (d) one step with
+   SSA_enroll_prob 1, its BatchNorm buffers moved once; (e) the v2
+   TF-GridNet (4 rows x 3 s) and DPCCN (12 rows x 3 s): a served forward
+   and a train step each, with launch counts. Phase 3 also holds the f32
+   K0 with cs, K0b and K3/K3b at the v2 TF-GridNet's training shapes.
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
@@ -140,8 +162,9 @@ shapes: the forward at the serving size in f32, the forward, serial
 adjoint and weight gradients at the training size in bf16, with cuDNN's
 LSTM and a cuBLAS product as yardsticks.
 
-The last lines are the card line of nvidia-smi, one JSON object describing
-the kernels, and {"ok": true, "device": {...}}.
+The last lines are the script's wall time, the card line of nvidia-smi,
+one JSON object describing the kernels, and {"ok": true, "device":
+{...}}.
 
     python3 chip_smoke.py --only-conv2d
 
@@ -236,6 +259,49 @@ CONV_SHAPES = [("enc0.conv1", 257, 16, 16), ("enc0.conv2", 257, 32, 16),
 DPCCN_NOISE_ONLY = ("dconv1.bias", "deconv2d.bias")
 DPCCN_NEAR_CANCELLING = ("conv.bias",)
 
+# The joint v2 recipes (examples/librimix/tse/v2/confs/{bsrnn,tfgridnet,
+# dpccn}.yaml): ResNet34 (m_channels 32) embeds the enrollment's 80-bin
+# fbank (speaker_feat, 6 s: 598 frames), and its f32 embedding promotes the
+# separator after the speaker fuse to f32 in a bf16 step
+V2_SPK_ARGS = dict(feat_dim=80, embed_dim=256, pooling_func="TSTP",
+                   two_emb_layer=False)
+V2_JOINT = dict(joint_training=True, spk_model="ResNet34",
+                spk_args=V2_SPK_ARGS, spk_feat=True, feat_type="consistent",
+                multi_task=False, spksInTrain=251)
+V2_BSRNN_ARGS = dict(V1_MODEL_ARGS, **V2_JOINT, spk_model_freeze=False,
+                     remat=False)
+V2_GRID_ARGS = dict(GRID_MODEL_ARGS, **V2_JOINT, remat=False)
+V2_DPCCN_ARGS = dict(DPCCN_MODEL_ARGS, **V2_JOINT)
+V2_FBANK = {"num_mel_bins": 80, "frame_shift": 10, "frame_length": 25,
+            "dither": 1.0}
+ENROLL_FRAMES = int(ENROLL_SECONDS * 1000 / V2_FBANK["frame_shift"]) - 2
+V2_GRID_BATCH, V2_DPCCN_BATCH = 2, 6  # the confs' batch_size (rows 2x)
+# the speaker ops on the card against the CPU: fbank relative to its
+# largest value, ResNet34's embedding and statistics relative L2; with
+# cuDNN's TF32 (10-bit significands in every product of 36 convolutions)
+SPEAKER_OPS_LIMIT = 1e-4
+SPEAKER_TF32_LIMIT = 5e-2
+
+
+def resnet_flops(frames, feat=80, m=32, blocks=(3, 4, 6, 3), embed=256):
+    """2 x the multiply-adds of a BasicBlock ResNet's convolutions and its
+    embedding layer on one [frames, feat] fbank (TSTP: 2 F' C inputs)."""
+    f, t, cin = feat, frames, m
+    macs = f * t * m * 9
+    for stage, (n, stride) in enumerate(zip(blocks, (1, 2, 2, 2))):
+        planes = m * 2 ** stage
+        for i in range(n):
+            s = stride if i == 0 else 1
+            f, t = -(-f // s), -(-t // s)
+            macs += f * t * (cin + planes) * planes * 9
+            if s != 1 or cin != planes:
+                macs += f * t * cin * planes
+            cin = planes
+    return 2 * (macs + 2 * f * cin * embed)
+
+
+RESNET34_FLOPS_PER_ROW = resnet_flops(ENROLL_FRAMES)
+
 
 def grid_rnn_shapes(rows, samples):
     """(B', L) of the intra (frequency) and inter (time) RNNs of a
@@ -254,6 +320,9 @@ UNFOLD_SHAPES = {
     for path, rows, samples in (("serve", ROWS_PER_STEP, CHUNK),
                                 ("train", 2 * GRID_BATCH, GRID_CHUNK))
     for rnn, shape in grid_rnn_shapes(rows, samples).items()}
+# and the joint v2 TF-GridNet's training shapes: 4 rows x 3 s, in f32
+V2_GRID_SHAPES = {f"v2_train_{rnn}": shape for rnn, shape in
+                  grid_rnn_shapes(2 * V2_GRID_BATCH, CHUNK).items()}
 
 
 def log(*args):
@@ -2367,7 +2436,8 @@ def write_enrollments(root, rng, name, paths, keys):
     return paths
 
 
-def spex_shard(root, rng, name, seconds):
+def enroll_shard(root, rng, name, seconds):
+    """A shard with 6 s enrollment wavs, as the v2 recipes lay it out."""
     paths, lengths = write_shard(root, rng, name, seconds)
     keys = [f"{name}{i:02d}" for i in range(len(lengths))]
     return write_enrollments(root, rng, name, paths, keys), lengths
@@ -2394,7 +2464,7 @@ def serve_spex(root):
     from wesep_tpu_torch.train.checkpoint import save_checkpoint, split_state
 
     rng = np.random.default_rng(SEED + 5)
-    paths, lengths = spex_shard(root, rng, "spextest", SHARD_SECONDS)
+    paths, lengths = enroll_shard(root, rng, "spextest", SHARD_SECONDS)
     torch.manual_seed(SEED)
     model = ConvTasNet(**SPEX_MODEL_ARGS)
     ckpt = os.path.join(root, "spex_avg_model.pt")
@@ -2514,8 +2584,8 @@ def train_spex(root):
     )
 
     rng = np.random.default_rng(SEED + 7)
-    tr, _ = spex_shard(root, rng, "spextrain", [4.0] * (2 * TRAIN_BATCH))
-    va, va_lengths = spex_shard(root, rng, "spexdev", [3.5] * TRAIN_BATCH)
+    tr, _ = enroll_shard(root, rng, "spextrain", [4.0] * (2 * TRAIN_BATCH))
+    va, va_lengths = enroll_shard(root, rng, "spexdev", [3.5] * TRAIN_BATCH)
     torch.manual_seed(SEED)
     init = ConvTasNet(**SPEX_MODEL_ARGS)
     init_state = {n: v.clone() for n, v in init.state_dict().items()}
@@ -3791,6 +3861,729 @@ def train_dpccn(root):
     }
 
 
+# --- the joint v2 models: examples/librimix/tse/v2/confs/{bsrnn,tfgridnet,
+# dpccn}.yaml at full width, ResNet34 (m_channels 32) on 80-bin fbank ------
+
+
+def resnet34():
+    """The v2 confs' ResNet34, weights from SEED and its BatchNorm
+    statistics seeded too (so that eval mode normalises)."""
+    from wesep_tpu_torch.models.speaker import speaker_encoder
+
+    torch.manual_seed(SEED)
+    model = speaker_encoder("ResNet34", V2_SPK_ARGS)
+    seed_statistics(model)
+    return model
+
+
+def seed_statistics(model, seed=SEED):
+    """BatchNorm means ~ N(0, 0.1), variances ~ U(0.5, 1.5), from `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, b in model.named_buffers():
+            if name.endswith(".mean"):
+                b.copy_(torch.randn(b.shape, generator=gen) * 0.1)
+            elif name.endswith(".var"):
+                b.copy_(torch.rand(b.shape, generator=gen) + 0.5)
+
+
+def voices(rows, samples, gen):
+    """Harmonic voices with noise, [rows, samples] f32 on the host."""
+    t = torch.arange(samples, dtype=torch.float64) / 16000.0
+    f0 = 90 + 160 * torch.rand(rows, 1, generator=gen, dtype=torch.float64)
+    s = sum(torch.sin(2 * math.pi * f0 * k * t) / k for k in range(1, 6))
+    s = 0.1 * s + 0.02 * torch.randn(rows, samples, generator=gen,
+                                     dtype=torch.float64)
+    return s.float()
+
+
+def enroll_fbank(rows, gen):
+    """Enrollment cues as the v2 data chain gives them: the Kaldi fbank
+    (int16 scale, dither 0) of 6 s wavs after CMVN, [rows, 598, 80]."""
+    from wesep_tpu_torch.ops.fbank import apply_cmvn, kaldi_fbank
+
+    wav = voices(rows, int(ENROLL_SECONDS * 16000), gen)
+    return apply_cmvn(kaldi_fbank(wav, input_scale=32768.0))
+
+
+def check_speaker_ops():
+    """Phase 14 (a): the speaker branch's ops on the card against the same
+    calls on the CPU: Kaldi fbank of 16 estimates of 3 s (the SSA route),
+    the consistent frontend of two 6 s enrollments, and ResNet34 on fbank
+    [2, 598, 80] in eval mode and [16, 598, 80] in train mode (the updated
+    statistics too), with cuDNN's TF32 off (what this script compares in)
+    and on (PyTorch's default, which bin/train and bin/infer keep); the
+    times of the ops and of ResNet34's forward at 2 rows and forward +
+    backward at 16 rows, each with TF32 off and on."""
+    from wesep_tpu_torch.ops.fbank import kaldi_fbank, speaker_feat
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    out = {}
+    est = voices(2 * TRAIN_BATCH, CHUNK, gen)
+    cpu = kaldi_fbank(est, input_scale=32768.0)
+    est_card = est.cuda()
+    card = kaldi_fbank(est_card, input_scale=32768.0)
+    out["kaldi_fbank"] = {
+        "shape": list(est.shape), "rel_err": rel_err(card.cpu(), cpu),
+        "limit": SPEAKER_OPS_LIMIT,
+        "ms": time_ms(lambda: kaldi_fbank(est_card, input_scale=32768.0)),
+        "frames": cpu.shape[1]}
+    wav = voices(ROWS_PER_STEP, int(ENROLL_SECONDS * 16000), gen)
+    cpu = speaker_feat(wav)
+    wav_card = wav.cuda()
+    err = (speaker_feat(wav_card).cpu() - cpu).abs()
+    out["speaker_feat"] = {
+        "shape": list(wav.shape), "max_abs_err": err.max().item(),
+        "q999_abs_err": torch.quantile(err.flatten(), 0.999).item(),
+        "limits": [1e-2, 2e-4],
+        "ms": time_ms(lambda: speaker_feat(wav_card))}
+
+    model = resnet34()
+    feats = enroll_fbank(2 * TRAIN_BATCH, gen)
+    small = feats[:ROWS_PER_STEP]
+    with torch.no_grad():
+        want = model.eval()(small)
+        trained = resnet34().train()
+        want_train = trained(feats)
+    want_stats = dict(trained.named_buffers())
+    model = model.cuda()
+    small_card, feats_card = small.cuda(), feats.cuda()
+    res = {"rows_eval": ROWS_PER_STEP, "rows_train": 2 * TRAIN_BATCH,
+           "frames": ENROLL_FRAMES, "limit_tf32_off": SPEAKER_OPS_LIMIT,
+           "limit_tf32_on": SPEAKER_TF32_LIMIT}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        tag = "tf32_on" if tf32 else "tf32_off"
+        state = {n: v.clone() for n, v in model.state_dict().items()}
+        with torch.no_grad():
+            got = model.eval()(small_card)
+            got_train = model.train()(feats_card)
+        stats = dict(model.named_buffers())
+        res[f"eval_rel_l2_{tag}"] = rel_l2(got.cpu(), want)
+        res[f"train_rel_l2_{tag}"] = rel_l2(got_train.cpu(), want_train)
+        res[f"stats_rel_err_{tag}"] = max(
+            rel_err(stats[n].cpu(), w) for n, w in want_stats.items())
+        model.load_state_dict(state)
+        model.eval()
+        with torch.inference_mode():
+            res[f"forward_2_rows_ms_{tag}"] = time_ms(
+                lambda: model(small_card), 2, 10)
+        model.train()
+
+        def fwd_bwd():
+            model.zero_grad(set_to_none=True)
+            model(feats_card).square().mean().backward()
+
+        torch.cuda.reset_peak_memory_stats()
+        res[f"fwd_bwd_16_rows_ms_{tag}"] = time_ms(fwd_bwd, 1, 5)
+        res[f"fwd_bwd_peak_bytes_{tag}"] = torch.cuda.max_memory_allocated()
+        model.load_state_dict(state)
+    torch.backends.cudnn.allow_tf32 = False
+    flops = RESNET34_FLOPS_PER_ROW
+    res["flops_per_row"] = flops
+    res["bound_ms_2_rows"] = ROWS_PER_STEP * flops / PEAK_FLOPS[
+        torch.float32] * 1e3
+    out["resnet34"] = res
+    log("speaker ops", json.dumps(out))
+    log(f"speaker ops: kaldi_fbank [16 x 3 s] card vs CPU "
+        f"{out['kaldi_fbank']['rel_err']:.3e} of the largest (limit "
+        f"{SPEAKER_OPS_LIMIT}), {out['kaldi_fbank']['ms']:.3f} ms; "
+        f"speaker_feat [2 x 6 s] max {out['speaker_feat']['max_abs_err']:.3e}"
+        f" / 99.9 % {out['speaker_feat']['q999_abs_err']:.3e} (limits 1e-2 /"
+        f" 2e-4), {out['speaker_feat']['ms']:.3f} ms")
+    for tag in ("tf32_off", "tf32_on"):
+        log(f"speaker ops: ResNet34 ({tag}) embedding card vs CPU rel L2 "
+            f"eval {res['eval_rel_l2_' + tag]:.3e}, train "
+            f"{res['train_rel_l2_' + tag]:.3e}, statistics "
+            f"{res['stats_rel_err_' + tag]:.3e} (limit "
+            f"{res['limit_' + tag]}); forward [2 x 598] "
+            f"{res['forward_2_rows_ms_' + tag]:.3f} ms, forward + backward "
+            f"[16 x 598] {res['fwd_bwd_16_rows_ms_' + tag]:.3f} ms")
+    bad = [k for k in ("eval_rel_l2", "train_rel_l2", "stats_rel_err")
+           for tag in ("tf32_off", "tf32_on")
+           if not res[f"{k}_{tag}"] <= res[f"limit_{tag}"]]
+    sf = out["speaker_feat"]
+    if bad or not (out["kaldi_fbank"]["rel_err"] <= SPEAKER_OPS_LIMIT
+                   and sf["max_abs_err"] <= 1e-2
+                   and sf["q999_abs_err"] <= 2e-4):
+        raise AssertionError(f"speaker ops disagree: {bad} {out}")
+    return out
+
+
+def v2_dataset_args(steps):
+    """dataset_args of the v2 confs; an epoch of `steps` batches."""
+    return {"resample_rate": 16000, "sample_num_per_epoch":
+            steps * TRAIN_BATCH, "shuffle": True,
+            "shuffle_args": {"shuffle_size": 2500}, "chunk_len": CHUNK,
+            "speaker_feat": True, "enroll_sec": ENROLL_SECONDS,
+            "fbank_args": dict(V2_FBANK), "noise_prob": 0,
+            "specaug_enroll_prob": 0, "reverb_enroll_prob": 0,
+            "noise_enroll_prob": 0, "SSA_enroll_prob": 0}
+
+
+def v2_infer_dataset_args():
+    """dataset_args that bin/infer reads of the v2 confs (no shuffle)."""
+    return {"resample_rate": 16000, "speaker_feat": True,
+            "enroll_sec": ENROLL_SECONDS, "fbank_args": dict(V2_FBANK)}
+
+
+def v2_bsrnn(seed=SEED):
+    from wesep_tpu_torch.models.bsrnn import BSRNN
+
+    torch.manual_seed(seed)
+    model = BSRNN(**V2_BSRNN_ARGS)
+    seed_statistics(model, seed)
+    return model
+
+
+def save_model(path, model):
+    from wesep_tpu_torch.train.checkpoint import save_checkpoint, split_state
+
+    params, buffers = split_state(model)
+    save_checkpoint(path, [params], batch_stats=[buffers])
+
+
+def serve_v2_bsrnn(root):
+    """Phase 14 (b): the librimix v2 BSRNN (ResNet34 on fbank) through
+    bin/infer on the card: launch counts, outputs, the forward's time, the
+    speaker branch's share of it, the kernels against the plain LSTM."""
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.data.wav_io import read_wav
+    from wesep_tpu_torch.models.common import LSTM
+
+    rng = np.random.default_rng(SEED + 21)
+    paths, lengths = enroll_shard(root, rng, "v2test", SHARD_SECONDS)
+    model = v2_bsrnn()
+    ckpt = os.path.join(root, "v2_avg_model.pt")
+    save_model(ckpt, model)
+    config = {
+        "model": {"tse_model": "BSRNN"},
+        "model_args": {"tse_model": dict(V2_BSRNN_ARGS)},
+        "data_type": "shard", "dataset_args": v2_infer_dataset_args(),
+        "exp_dir": os.path.join(root, "exp_v2"), "checkpoint": ckpt,
+        "length_bucket": BUCKET, "infer_batch_size": ROWS_PER_STEP,
+        "device": "cuda", "test_data": paths["data"],
+        "test_spk2utt": paths["spk2utt"],
+        "test_spk1_enroll": paths["spk1_enroll"],
+        "test_spk2_enroll": paths["spk2_enroll"],
+    }
+    tag = "serve v2 BSRNN"
+    steps = forward_steps(lengths)
+    per_forward = 2 * V2_BSRNN_ARGS["num_repeat"]
+    zero_counts()
+    t0 = time.perf_counter()
+    avg_sisnr, avg_sisnri = infer(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    audio_s = 2 * sum(lengths) / 16000.0
+    log(f"{tag}: {2 * len(lengths)} requests in {steps} forward steps, "
+        f"{wall:.3f} s wall (fbank on the host included), RTF "
+        f"{wall / audio_s:.5f}, avg SI-SNR {avg_sisnr:.3f} dB, avg SI-SNRi "
+        f"{avg_sisnri:.3f} dB (random weights); launches "
+        f"{ {n: v for n, v in counts.items() if v} } (expected "
+        f"{per_forward} x {steps} of the f32 cluster chain and of the f32 "
+        "projection)")
+    expect_counts(counts, per_forward * steps, 0, "layer", tag, f32=True)
+    if not (math.isfinite(avg_sisnr) and math.isfinite(avg_sisnri)):
+        raise AssertionError("non-finite SI-SNR from infer")
+    audio = os.path.join(root, "exp_v2", "audio")
+    wavs = sorted(n for n in os.listdir(audio) if n.endswith(".wav"))
+    if len(wavs) != 2 * len(lengths):
+        raise AssertionError(f"{len(wavs)} outputs for {2 * len(lengths)}")
+    for name, n in zip(wavs[::2], lengths):
+        wav, _ = read_wav(os.path.join(audio, name))
+        if wav.shape != (1, n) or not np.isfinite(wav).all():
+            raise AssertionError(f"bad output {name}: {wav.shape}")
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    model = model.cuda().eval()
+    mix = voices(ROWS_PER_STEP, CHUNK, gen).cuda()
+    enr = enroll_fbank(ROWS_PER_STEP, gen).cuda()
+    lstms = [m for m in model.modules() if isinstance(m, LSTM)]
+    with torch.inference_mode():
+        zero_counts()
+        est = model(mix, enr)[0]
+        expect_counts(read_counts(), per_forward, 0, "layer",
+                      f"{tag}: one forward", f32=True)
+        step_ms = time_ms(lambda: model(mix, enr), 2, 10)
+        branch_ms = time_ms(lambda: model.spk_model_net(enr), 2, 10)
+        # PyTorch's default, which bin/infer keeps: cuDNN convs on TF32
+        torch.backends.cudnn.allow_tf32 = True
+        tf32_step_ms = time_ms(lambda: model(mix, enr), 2, 10)
+        tf32_branch_ms = time_ms(lambda: model.spk_model_net(enr), 2, 10)
+        torch.backends.cudnn.allow_tf32 = False
+        for m in lstms:
+            m.plain = True
+        est_plain = model(mix, enr)[0]
+        for m in lstms:
+            m.plain = False
+    rel = rel_l2(est, est_plain)
+    if not (torch.isfinite(est).all() and est.dtype == torch.float32
+            and rel <= 1e-3):
+        raise AssertionError(f"{tag}: kernel forward vs plain {rel}")
+    summary = {
+        "requests": 2 * len(lengths), "steps": steps, "wall_s": wall,
+        "rtf_wall": wall / audio_s, "step_ms": step_ms,
+        "audio_s_per_s": 2 * 3.0 / (step_ms / 1e3),
+        "rtf": step_ms / 1e3 / 6.0, "speaker_branch_ms": branch_ms,
+        "speaker_branch_share": branch_ms / step_ms,
+        "tf32_step_ms": tf32_step_ms, "tf32_speaker_branch_ms":
+        tf32_branch_ms, "rel_l2_vs_plain": rel, "avg_sisnri": avg_sisnri,
+        "launches_per_forward": per_forward,
+    }
+    log(f"{tag}: forward [2 x 3 s, fbank 2 x 598] {step_ms:.3f} ms/step, "
+        f"{summary['audio_s_per_s']:.1f} audio-s/s, RTF "
+        f"{summary['rtf']:.5f}; the speaker branch (ResNet34) "
+        f"{branch_ms:.3f} ms, {100 * branch_ms / step_ms:.1f} % of it; "
+        f"with cuDNN's TF32 (the default) {tf32_step_ms:.3f} ms, the branch "
+        f"{tf32_branch_ms:.3f} ms; kernels vs plain LSTM rel L2 {rel:.3e} "
+        "(limit 1e-3)")
+    return counts, summary
+
+
+# the f32 LSTM wrappers a joint v2 step runs (the promotion after the fuse)
+V2_F32_WRAPPERS = (("cuda_lstm_f32", "lstm_f32_project"),
+                   ("cuda_lstm_f32", "lstm_f32_forward_chain"),
+                   ("cuda_lstm", "bilstm_layer_backward"),
+                   ("cuda_lstm", "bilstm_layer_wgrad"))
+
+
+def wrapper_times(fn, wrappers=V2_F32_WRAPPERS):
+    """Device ms of each wrapper's calls (its kernels and the small copies
+    around them) within one fn(), by CUDA events recorded around each
+    call; and the ms of the whole fn()."""
+    import importlib
+
+    events = {name: [] for _, name in wrappers}
+    saved = []
+    for module_name, name in wrappers:
+        module = importlib.import_module(f"wesep_tpu_torch.ops.{module_name}")
+        real = getattr(module, name)
+
+        def timed(*args, real=real, name=name, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+
+        # the wrapper counts its launches on the name it is called by
+        timed.launches, timed.__name__ = 0, name
+        saved.append((module, name, real))
+        setattr(module, name, timed)
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+    return ({name: sum(s.elapsed_time(e) for s, e in pairs)
+             for name, pairs in events.items()}, start.elapsed_time(end))
+
+
+def v2_batch(rows, gen):
+    return {"wav_mix": voices(rows, CHUNK, gen).cuda(),
+            "wav_targets": voices(rows, CHUNK, gen).cuda(),
+            "spk_embeds": enroll_fbank(rows, gen).cuda()}
+
+
+def v2_train_config(root, tr, va, init_path, steps):
+    """The values of examples/librimix/tse/v2/confs/bsrnn.yaml; an epoch
+    of `steps` batches on the synthetic shards."""
+    return {
+        "device": "cuda", "exp_dir": os.path.join(root, "exp_v2_train"),
+        "data_type": "shard",
+        "train_data": tr["data"], "train_utt2spk": tr["utt2spk"],
+        "train_spk2utt": tr["spk2enroll"],
+        "val_data": va["data"], "val_spk2utt": va["spk2utt"],
+        "val_spk1_enroll": va["spk1_enroll"],
+        "val_spk2_enroll": va["spk2_enroll"],
+        "dataloader_args": {"batch_size": TRAIN_BATCH, "drop_last": True,
+                            "prefetch_factor": 6},
+        "dataset_args": v2_dataset_args(steps),
+        "compute_dtype": "bfloat16", "log_batch_interval": 1,
+        "loss": "SISDR", "loss_args": {},
+        "model": {"tse_model": "BSRNN"},
+        "model_args": {"tse_model": dict(V2_BSRNN_ARGS)},
+        "model_init": {"tse_model": init_path},
+        "num_avg": 1, "num_epochs": 1,
+        "optimizer": {"tse_model": "Adam"},
+        "optimizer_args": {"tse_model": {"lr": 0.001, "weight_decay": 0.0001}},
+        "clip_grad": 5.0, "save_epoch_interval": 1,
+        "scheduler": {"tse_model": "ExponentialDecrease"},
+        "scheduler_args": {"tse_model": {
+            "final_lr": 2.5e-05, "initial_lr": 0.001,
+            "warm_from_zero": False, "warm_up_epoch": 0}},
+        "seed": 42,
+    }
+
+
+def train_v2_bsrnn(root):
+    """Phase 14 (c) and (d): the librimix v2 BSRNN through bin/train on the
+    card (bf16, the separator promoted to f32 after the fuse), then
+    average_model and bin/infer; with spk_model_freeze; the host data
+    plane; the whole joint model's f32 gradients through the kernels
+    against the plain LSTM's; a step's time, peak memory and its f32 LSTM
+    wrappers' device time; one step with SSA_enroll_prob 1."""
+    from wesep_tpu_torch.bin import average_model
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.bin.train import load_enroll_maps, train
+    from wesep_tpu_torch.data import BatchLoader, Dataset, tse_collate_fn
+    from wesep_tpu_torch.models.common import LSTM
+    from wesep_tpu_torch.train.checkpoint import load_checkpoint
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    tag = "train v2 BSRNN"
+    rng = np.random.default_rng(SEED + 23)
+    tr, _ = enroll_shard(root, rng, "v2train", [4.0] * (2 * TRAIN_BATCH))
+    va, va_lengths = enroll_shard(root, rng, "v2dev", [3.5] * TRAIN_BATCH)
+    init = v2_bsrnn()
+    init_state = {n: v.clone() for n, v in init.state_dict().items()}
+    init_path = os.path.join(root, "v2_init.ckpt")
+    save_model(init_path, init)
+    config = v2_train_config(root, tr, va, init_path, TRAIN_STEPS)
+    per_pass = 2 * V2_BSRNN_ARGS["num_repeat"]
+    val_steps = 1
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train(config)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"{tag}: {TRAIN_STEPS} steps + {val_steps} validation step through "
+        f"bin/train in {wall:.3f} s wall; launches "
+        f"{ {n: v for n, v in counts.items() if v} } (expected, the "
+        f"separator in f32 after the fuse: {per_pass * (TRAIN_STEPS + 1)} "
+        f"of the f32 cluster chain and projection (with cs in the train "
+        f"steps), {per_pass * TRAIN_STEPS} of the f32 adjoint and weight-"
+        "gradient kernels, no tensor-core LSTM kernel)")
+    expect_counts(counts, per_pass * (TRAIN_STEPS + val_steps),
+                  per_pass * TRAIN_STEPS, "layer", tag, f32=True)
+    # the validation step's forward is one of the f32 forwards counted
+    with open(os.path.join(config["exp_dir"], "train.log")) as f:
+        text = f.read()
+    losses = rows_loss(text)
+    epoch = re.findall(r"Epoch 1 train_loss (\S+) val_loss (\S+)", text)
+    meter = re.findall(r"-> (\S+) audio-s/s", text)
+    if len(losses) != TRAIN_STEPS or len(epoch) != 1 or not all(
+            math.isfinite(v) for v in losses + [float(e) for e in epoch[0]]):
+        raise AssertionError("missing or non-finite training losses")
+    moved = {n: (v.detach().cpu().float() - init_state[n]).abs().max().item()
+             for n, v in state.model.state_dict().items()}
+    still = [n for n, v in moved.items() if v == 0]
+    stats = [n for n, _ in state.model.named_buffers()
+             if n.endswith((".mean", ".var"))]
+    if still or not stats or state.step != TRAIN_STEPS:
+        raise AssertionError(f"parameters or statistics that did not move: "
+                             f"{still}")
+    log(f"{tag}: running mean loss per step {losses}, epoch {epoch}; "
+        f"{len(stats)} BatchNorm buffers of spk_model_net all moved; the "
+        f"epoch's throughput {meter} audio-s/s")
+    del state
+    models = os.path.join(config["exp_dir"], "models")
+    avg = os.path.join(root, "v2_avg.ckpt")
+    average_model.main(["--dst_model", avg, "--src_path", models,
+                        "--num", "1"])
+    if set(load_checkpoint(avg)["batch_stats"][0]) != set(stats):
+        raise AssertionError("average_model lost the BatchNorm statistics")
+    sisnr, _ = infer({
+        "model": config["model"], "model_args": config["model_args"],
+        "data_type": "shard", "dataset_args": v2_infer_dataset_args(),
+        "exp_dir": os.path.join(root, "exp_v2_avg"), "checkpoint": avg,
+        "save_wav": False, "device": "cuda", "length_bucket": BUCKET,
+        "test_data": va["data"], "test_spk2utt": va["spk2utt"],
+        "test_spk1_enroll": va["spk1_enroll"],
+        "test_spk2_enroll": va["spk2_enroll"]})
+    if not math.isfinite(sisnr):
+        raise AssertionError("bin/infer from the averaged model: non-finite")
+    log(f"{tag}: average_model -> bin/infer decoded {2 * len(va_lengths)} "
+        f"requests, avg SI-SNR {sisnr:.3f} dB")
+
+    # spk_model_freeze: one step; the encoder's parameters keep their
+    # values bit for bit, its statistics and the separator move
+    frozen_cfg = v2_train_config(root, tr, va, init_path, 1)
+    frozen_cfg["exp_dir"] = os.path.join(root, "exp_v2_freeze")
+    state = train(frozen_cfg,
+                  overrides=["model_args.tse_model.spk_model_freeze=true"])
+    torch.cuda.synchronize()
+    enc = {n: p.detach().cpu() for n, p in state.model.named_parameters()
+           if n.startswith("spk_model_net.")}
+    kept = all(torch.equal(p, init_state[n]) for n, p in enc.items())
+    enc_stats_moved = all(
+        not torch.equal(b.cpu(), init_state[n])
+        for n, b in state.model.named_buffers()
+        if n.endswith((".mean", ".var")))
+    sep_moved = all(
+        not torch.equal(p.detach().cpu(), init_state[n])
+        for n, p in state.model.named_parameters()
+        if not n.startswith("spk_model_net."))
+    log(f"{tag}: spk_model_freeze: {len(enc)} encoder parameters unchanged "
+        f"bit for bit {kept}; its statistics moved {enc_stats_moved}; every "
+        f"separator parameter moved {sep_moved}")
+    if not (kept and enc_stats_moved and sep_moved and enc):
+        raise AssertionError("spk_model_freeze did not hold")
+    del state
+
+    # the host data plane alone, in one thread: the v2 train chain (shard
+    # decode, chunks, enrollment wavs, fbank with dither, CMVN) and the
+    # collator, after one batch of warm-up; without the shuffle buffer,
+    # whose first fill (2500 samples) is a one-off
+    maps = load_enroll_maps(config, True, False)
+    chain = Dataset("shard", tr["data"],
+                    dict(config["dataset_args"], shuffle=False), maps[0],
+                    state="train", joint_training=True, repeat_dataset=True)
+    loader = BatchLoader(chain, batch_size=TRAIN_BATCH, prefetch=0,
+                         collate_fn=lambda b: tse_collate_fn(
+                             b, fixed_enroll_len=ENROLL_FRAMES))
+    loader.set_epoch(1)
+    host_audio, host_batches = 0.0, 2 * TRAIN_STEPS
+    for i, batch in enumerate(loader):
+        if batch["spk_embeds"].shape != (2 * TRAIN_BATCH, ENROLL_FRAMES, 80):
+            raise AssertionError(f"fbank batch {batch['spk_embeds'].shape}")
+        if i == 0:
+            t0 = time.perf_counter()
+            continue
+        host_audio += batch["wav_mix"].size / 16000.0
+        if i == host_batches:
+            break
+    host_s = time.perf_counter() - t0
+    log(f"{tag}: host data plane (one thread) {host_batches} batches of 16 "
+        f"rows x 3 s with fbank cues in {host_s:.3f} s: "
+        f"{host_audio / host_s:.1f} audio-s/s")
+
+    # the whole joint model's f32 gradients, the encoder's leaves included,
+    # through the kernels against the plain LSTM's (limit 1e-3)
+    gen = torch.Generator().manual_seed(SEED + 24)
+    model = v2_bsrnn()
+    model.load_state_dict(init_state)
+    model = model.cuda().train()
+    small = v2_batch(ROWS_PER_STEP, gen)
+    lstms = [m for m in model.modules() if isinstance(m, LSTM)]
+    zero_counts()
+    got = param_grads(model, small["wav_mix"], small["spk_embeds"],
+                      small["wav_targets"])
+    f32_counts = read_counts()
+    expect_counts(f32_counts, per_pass, per_pass, "layer",
+                  f"{tag}: f32 gradients", f32=True)
+    for m in lstms:
+        m.plain = True
+    want = param_grads(model, small["wav_mix"], small["spk_embeds"],
+                       small["wav_targets"])
+    for m in lstms:
+        m.plain = False
+    rel = {n: rel_l2(got[n], want[n]) for n in want}
+    worst = max(rel, key=rel.get)
+    enc_worst = max((n for n in rel if n.startswith("spk_model_net.")),
+                    key=rel.get)
+    log(f"{tag}: gradients of {len(rel)} parameters, kernels vs plain LSTM "
+        f"(f32): worst relative L2 {rel[worst]:.3e} at {worst}, the encoder's "
+        f"worst {rel[enc_worst]:.3e} at {enc_worst} (limit 1e-3)")
+    if not rel[worst] <= 1e-3:
+        raise AssertionError(f"gradients differ: {worst} {rel[worst]}")
+    del got, want
+
+    # a train step at the recipe's size: time, peak memory, launches and
+    # the f32 LSTM wrappers' device time in it
+    batch = v2_batch(2 * TRAIN_BATCH, gen)
+    sched = exponential_decrease(num_epochs=1, epoch_iter=100,
+                                 initial_lr=1e-3, final_lr=2.5e-5,
+                                 warm_up_epoch=0)
+    opt = make_optimizer(model, sched, weight_decay=1e-4, clip_grad=5.0)
+    tstate = TrainState(model=model, optimizer=opt)
+    step = make_train_step(parse_loss("SISDR"), compute_dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step(tstate, batch)
+    per_step = read_counts()
+    expect_counts(per_step, per_pass, per_pass, "layer",
+                  f"{tag}: one train step", f32=True)
+    step_ms = time_ms(lambda: step(tstate, batch), warmup=1, runs=5)
+    peak = torch.cuda.max_memory_allocated()
+    wrapper_ms, timed_step_ms = wrapper_times(lambda: step(tstate, batch))
+    lstm_ms = sum(wrapper_ms.values())
+    # PyTorch's default, which bin/train keeps: cuDNN convs on TF32
+    torch.backends.cudnn.allow_tf32 = True
+    tf32_step_ms = time_ms(lambda: step(tstate, batch), warmup=1, runs=3)
+    torch.backends.cudnn.allow_tf32 = False
+    audio = 2 * TRAIN_BATCH * CHUNK / 16000.0
+    log(f"{tag}: step [16 rows x 3 s, bf16 stream, f32 after the fuse] "
+        f"{step_ms:.3f} ms ({tf32_step_ms:.3f} ms with cuDNN's TF32, the "
+        f"default), {audio / (step_ms / 1e3):.1f} audio-s/s, peak "
+        f"memory {peak / 2 ** 30:.2f} GiB; launches "
+        f"{ {n: v for n, v in per_step.items() if v} }; in one step of "
+        f"{timed_step_ms:.3f} ms the f32 LSTM wrappers take "
+        f"{ {n: round(v, 3) for n, v in wrapper_ms.items()} } ms, "
+        f"{lstm_ms:.3f} ms in all, {100 * lstm_ms / timed_step_ms:.1f} %")
+
+    # (d) one step with SSA_enroll_prob 1: the no-grad pass's statistics
+    # are thrown away, so each buffer moves once, by the loss forward's
+    # batch statistics
+    from wesep_tpu_torch.models.common import BatchNorm
+
+    norms = {n: m for n, m in model.named_modules()
+             if isinstance(m, BatchNorm)}
+    seen = {n: [] for n in norms}
+
+    def record(name):
+        def hook(module, args):
+            x = args[0].float()
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            seen[name].append((mean, ((x * x).mean(dim=axes) - mean * mean)
+                               .clamp_min(0.0)))
+        return hook
+
+    ssa = make_train_step(parse_loss("SISDR"), compute_dtype=torch.bfloat16,
+                          ssa_enroll_prob=1.0, ssa_speaker_feat=True,
+                          fbank_args=dict(V2_FBANK), sample_rate=16000,
+                          seed=42)
+    before = {n: (m.mean.clone(), m.var.clone()) for n, m in norms.items()}
+    hooks = [m.register_forward_pre_hook(record(n))
+             for n, m in norms.items()]
+    zero_counts()
+    ssa(tstate, batch)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    ssa_counts = read_counts()
+    once = max(
+        max(rel_err(m.mean, 0.9 * before[n][0] + 0.1 * seen[n][-1][0]),
+            rel_err(m.var, 0.9 * before[n][1] + 0.1 * seen[n][-1][1]))
+        for n, m in norms.items())
+    calls = {len(v) for v in seen.values()}
+    expect_counts(ssa_counts, 2 * per_pass, per_pass, "layer",
+                  f"{tag}: one SSA step", f32=True)
+    ssa_ms = time_ms(lambda: ssa(tstate, batch), warmup=0, runs=3)
+    log(f"{tag}: SSA step (prob 1) {ssa_ms:.3f} ms; each of {len(norms)} "
+        f"BatchNorms ran {calls} times a step, its buffers moved once "
+        f"(error against one momentum update by the loss forward's "
+        f"statistics {once:.3e}, limit 1e-5); launches "
+        f"{ {n: v for n, v in ssa_counts.items() if v} }")
+    if not (calls == {2} and once <= 1e-5):
+        raise AssertionError("the SSA pass's statistics were kept")
+    summary = {
+        "steps": TRAIN_STEPS, "val_steps": val_steps, "wall_s": wall,
+        "running_mean_loss": losses, "epoch_audio_s_per_s": meter,
+        "step_ms": step_ms, "tf32_step_ms": tf32_step_ms,
+        "audio_s_per_s": audio / (step_ms / 1e3),
+        "peak_memory_bytes": peak,
+        "host_data_plane_audio_s_per_s": host_audio / host_s,
+        "grad_rel_l2_worst": rel[worst],
+        "encoder_grad_rel_l2_worst": rel[enc_worst],
+        "f32_lstm_wrapper_ms": wrapper_ms, "timed_step_ms": timed_step_ms,
+        "f32_lstm_share": lstm_ms / timed_step_ms,
+        "launches_per_step": {n: v for n, v in per_step.items() if v},
+        "ssa_step_ms": ssa_ms, "ssa_stats_err": once,
+        "avg_model_sisnr": sisnr,
+    }
+    return {"main": counts, "f32_grads": f32_counts}, summary
+
+
+def v2_other_model(name):
+    """The v2 TF-GridNet or DPCCN at its conf's width, weights and
+    statistics from SEED."""
+    from wesep_tpu_torch.models import get_model
+
+    torch.manual_seed(SEED)
+    args = V2_GRID_ARGS if name == "TFGridNet" else V2_DPCCN_ARGS
+    model = get_model(name)(**args)
+    seed_statistics(model)
+    return model.cuda()
+
+
+def check_v2_others():
+    """Phase 14 (e): the v2 TF-GridNet and DPCCN (ResNet34 on fbank, the
+    default routes: TF-GridNet's BiLSTMs over unfolded frames through K0,
+    DPCCN's conv_impl "xla"), one served forward of 2 rows x 3 s and one
+    train step at the conf's batch (4 and 12 rows x 3 s, bf16 stream, f32
+    after the fuse), with their launch counts, times and peak memory."""
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    set_route(False)  # the default route: unfold in torch ops, then K0
+    out = {}
+    for name, rows in (("TFGridNet", 2 * V2_GRID_BATCH),
+                       ("DPCCN", 2 * V2_DPCCN_BATCH)):
+        gen = torch.Generator().manual_seed(SEED + 25)
+        model = v2_other_model(name).eval()
+        serve_b = v2_batch(ROWS_PER_STEP, gen)
+        with torch.inference_mode():
+            zero_counts()
+            zero_conv_counts()
+            est = model(serve_b["wav_mix"], serve_b["spk_embeds"])[0]
+            serve_counts = dict(read_counts(), **read_conv_counts())
+            serve_ms = time_ms(lambda: model(serve_b["wav_mix"],
+                                             serve_b["spk_embeds"]), 1, 5)
+        if not (torch.isfinite(est).all() and est.shape == (2, CHUNK)):
+            raise AssertionError(f"v2 {name}: bad served estimate")
+        model.train()
+        opt = make_optimizer(model, exponential_decrease(
+            num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+            warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0)
+        tstate = TrainState(model=model, optimizer=opt)
+        step = make_train_step(parse_loss("SISDR"),
+                               compute_dtype=torch.bfloat16)
+        batch = v2_batch(rows, gen)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        zero_conv_counts()
+        _, metrics = step(tstate, batch)
+        train_counts = dict(read_counts(), **read_conv_counts())
+        loss = float(metrics["loss"])
+        step_ms = time_ms(lambda: step(tstate, batch), warmup=0, runs=3)
+        peak = torch.cuda.max_memory_allocated()
+        lstm = {n: train_counts[n] for n in read_counts()}
+        if name == "TFGridNet":
+            expect_counts({n: serve_counts[n] for n in read_counts()},
+                          GRID_RNNS, 0, "layer", f"v2 {name} serving",
+                          f32=True)
+            expect_counts(lstm, GRID_RNNS, GRID_RNNS, "layer",
+                          f"v2 {name} train step", f32=True)
+        elif any(serve_counts.values()) or any(train_counts.values()):
+            raise AssertionError(f"v2 DPCCN (xla route) launched kernels: "
+                                 f"{serve_counts} {train_counts}")
+        if not math.isfinite(loss):
+            raise AssertionError(f"v2 {name}: non-finite loss")
+        audio = rows * CHUNK / 16000.0
+        out[name] = {
+            "serve_ms": serve_ms, "serve_audio_s_per_s": 6.0 / (serve_ms
+                                                                / 1e3),
+            "serve_launches": {n: v for n, v in serve_counts.items() if v},
+            "train_rows": rows, "step_ms": step_ms,
+            "audio_s_per_s": audio / (step_ms / 1e3),
+            "peak_memory_bytes": peak, "loss": loss,
+            "train_launches": {n: v for n, v in train_counts.items() if v}}
+        log(f"v2 {name}: served forward [2 x 3 s] {serve_ms:.3f} ms, launches "
+            f"{out[name]['serve_launches']}; train step [{rows} rows x 3 s, "
+            f"bf16 stream, f32 after the fuse] {step_ms:.3f} ms, "
+            f"{out[name]['audio_s_per_s']:.1f} audio-s/s, peak "
+            f"{peak / 2 ** 30:.2f} GiB, launches "
+            f"{out[name]['train_launches']}")
+        del model, opt, tstate, batch
+        torch.cuda.empty_cache()
+    return out
+
+
 def conv2d_only() -> int:
     """`--only-conv2d`: phases 1 and 2 for the Conv2dBlock's sources and
     phase 3's K5/K5b cases and batch-slice case, printed one JSON line each;
@@ -3816,6 +4609,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from wesep_tpu_torch.ops import _build
+
+    t_start = time.perf_counter()
 
     # numbers are compared in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3872,6 +4667,16 @@ def main() -> int:
             train_cases.append(check_training_kernels(
                 "grid_" + name[len("train_"):], frames, rows,
                 torch.bfloat16, grid_d, GRID_H))
+    # the joint v2 TF-GridNet trains its BiLSTMs in f32 (the promotion
+    # after the fuse) at the conf's 4 rows x 3 s: K0 with cs and K0b over
+    # the materialised frames (its default route), K3/K3b on
+    # WESEP_LSTM_UNFOLD=1
+    for name, (rows, length) in V2_GRID_SHAPES.items():
+        train_cases.append(check_training_kernels(
+            "grid_" + name, length - GRID_KS + 1, rows, torch.float32,
+            grid_d, GRID_H))
+        unfold_cases.append(check_unfold_kernels(name, rows, length,
+                                                 torch.float32))
 
     # the two-kernel layers at the pBSRNN's shapes, both directions (K2)
     # and one (K1): the forward at the serving shapes in f32, the forward,
@@ -3933,8 +4738,9 @@ def main() -> int:
         for path, shapes in (("serve_", MAIN_SHAPES),
                              ("train_", TRAIN_SHAPES))
         for name, (t_len, batch) in shapes.items()]
-    for name, (rows, length) in UNFOLD_SHAPES.items():
-        train = name.startswith("train")
+    for name, (rows, length) in list(UNFOLD_SHAPES.items()) + list(
+            V2_GRID_SHAPES.items()):
+        train = not name.startswith("serve")
         f32_cases.append(check_f32_forward(
             "unfold", name, None, rows, grid_d, GRID_H, length=length,
             with_cs=train))
@@ -4009,6 +4815,21 @@ def main() -> int:
         log(f"pBSRNN {route} route summary",
             json.dumps(route_summaries[route]))
 
+    # 14. the joint v2 models: (a) the speaker branch's ops against the
+    # CPU; (b) the v2 BSRNN served through bin/infer; (c) trained through
+    # bin/train, then average_model and bin/infer, with (d) one SSA step;
+    # (e) the v2 TF-GridNet and DPCCN
+    speaker_ops = check_speaker_ops()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        v2_serve_launches, v2_served = serve_v2_bsrnn(root)
+    log("serve v2 BSRNN summary", json.dumps(v2_served))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        v2_launches, v2_trained = train_v2_bsrnn(root)
+    log("train v2 BSRNN summary", json.dumps(v2_trained))
+    v2_others = check_v2_others()
+    log("v2 TF-GridNet and DPCCN summary", json.dumps(v2_others))
+    log("speaker ops summary", json.dumps(speaker_ops))
+
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
     # training bf16); the routes' own FMA forward kernels, which f32 runs
@@ -4019,7 +4840,10 @@ def main() -> int:
                     if c["route"] == route and c["shape"] == shape)
 
     band = f32_case("layer", "serve_band")
-    train_band = train_cases[1]
+    # the f32 FMA backward kernels' headline: the training band in f32,
+    # what the joint v2 BSRNN's train step runs (bf16 steps take the
+    # tensor-core backward)
+    train_band = train_cases[0]
     # and of the fused TCN block: SpEx+'s training shape (16 rows, bf16)
     # at dilation 1
     tcn_head = next(c for c in tcn_cases if c["shape"] == "spex_train"
@@ -4159,11 +4983,18 @@ def main() -> int:
         add_path(f"train_{route}_f32_grads", n_train["f32_grads"])
     for route, counts in refused_launches.items():
         add_path(f"f32_refused_shape_{route}", counts)
+    add_path("v2_bsrnn_serve", v2_serve_launches)
+    add_path("v2_bsrnn_train", v2_launches["main"])
+    add_path("v2_bsrnn_f32_grads", v2_launches["f32_grads"])
+    add_path("v2_tfgridnet_train_step", {
+        n: v for n, v in v2_others["TFGridNet"]["train_launches"].items()
+        if n in by_path})
     # the main path of a kernel: its training path; for the f32 cluster
     # forward, serving (phase 4); for the routes' own FMA forward kernels,
     # which no recipe's shape reaches any more, the layers' forward at a
     # shape the f32 gate refuses
-    main_paths = ("train", "tfgridnet_train", "dpccn_train",
+    main_paths = ("train", "v2_bsrnn_train", "tfgridnet_train",
+                  "dpccn_train",
                   "train_two_kernel", "train_unidirectional",
                   "train_f32_grads", "tfgridnet_f32_grads",
                   "train_two_kernel_f32_grads",
@@ -4281,6 +5112,7 @@ def main() -> int:
                      B=c["B"], D=c["D"], H=c["H"], rel_limit=c["rel_limit"])
                 for c in train_cases]
         kernels.append(entry)
+    log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

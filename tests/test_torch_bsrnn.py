@@ -90,7 +90,11 @@ def test_get_model_and_unported_options_raise():
     assert get_model("BSRNN") is BSRNN
     with pytest.raises(NotImplementedError):
         get_model("BSRNN_Multi")
-    with pytest.raises(NotImplementedError):
+    # the joint branch is ported; the registry's unported encoders and its
+    # missing-name error remain
+    with pytest.raises(NotImplementedError, match="the BSRNN variants"):
+        BSRNN(joint_training=True, spk_model="ECAPA_TDNN_GLOB_c512")
+    with pytest.raises(ValueError, match="requires spk_model"):
         BSRNN(joint_training=True)
     with pytest.raises(TypeError):
         BSRNN(joint_training=False, feature_dimm=16)

@@ -1166,3 +1166,85 @@ def test_conv2d_plans_match_the_c_scratch_queries(cuda, dtype):
         query(b, t, f, ci, co, code, blocks, ctypes.byref(n_stream),
               ctypes.byref(n_f32))
         assert [n_stream.value, n_f32.value] == plan, (b, t, f, ci, co)
+
+
+# --- the joint speaker branch: fbank and ResNet34 on the card ------------
+
+
+def _voices(rows, samples, seed):
+    gen = torch.Generator().manual_seed(seed)
+    t = torch.arange(samples, dtype=torch.float64) / 16000.0
+    f0 = 90 + 160 * torch.rand(rows, 1, generator=gen, dtype=torch.float64)
+    s = sum(torch.sin(2 * math.pi * f0 * k * t) / k for k in range(1, 6))
+    return (0.1 * s + 0.02 * torch.randn(rows, samples, generator=gen,
+                                         dtype=torch.float64)).float()
+
+
+@pytest.mark.parametrize("rows,samples", [(16, 48000), (1, 16037)])
+def test_kaldi_fbank_on_the_card_matches_the_cpu(cuda, rows, samples):
+    """cuFFT and the f32 mel product against the CPU: 1e-4 of the largest
+    log-mel value (the SSA route's shape and an odd length)."""
+    from wesep_tpu_torch.ops.fbank import kaldi_fbank
+
+    wav = _voices(rows, samples, 0)
+    want = kaldi_fbank(wav, input_scale=32768.0)
+    got = kaldi_fbank(wav.to(cuda), input_scale=32768.0)
+    assert got.device.type == "cuda" and got.shape == want.shape
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert err <= 1e-4
+
+
+def test_speaker_feat_on_the_card_matches_the_cpu(cuda):
+    """The consistent frontend on two 6 s enrollments: 99.9 % within 2e-4,
+    all within 1e-2 (low-energy bins, as in the CPU parity test)."""
+    from wesep_tpu_torch.ops.fbank import speaker_feat
+
+    wav = _voices(2, 96000, 1)
+    err = (speaker_feat(wav.to(cuda)).cpu() - speaker_feat(wav)).abs()
+    assert torch.quantile(err.flatten(), 0.999) <= 2e-4
+    assert err.max() <= 1e-2
+
+
+def test_kaldi_fbank_dithers_from_its_card_generator(cuda):
+    from wesep_tpu_torch.ops.fbank import kaldi_fbank
+
+    wav = _voices(2, 8000, 2).to(cuda)
+
+    def run(seed):
+        gen = torch.Generator(device=cuda).manual_seed(seed)
+        return kaldi_fbank(wav, dither=1.0, generator=gen, input_scale=32768.0)
+
+    assert torch.equal(run(3), run(3)) and not torch.equal(run(3), run(4))
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_resnet34_on_the_card_matches_the_cpu(cuda, train):
+    """The v2 recipes' ResNet34 (m_channels 32, embed_dim 256, TSTP) on
+    fbank [4, 598, 80], TF32 off: the embedding within 1e-4 relative L2 of
+    the CPU's, and in train mode every updated statistic within 1e-4 of
+    its largest; a bf16 input gives an f32 embedding."""
+    from wesep_tpu_torch.models.speaker import speaker_encoder
+    from wesep_tpu_torch.ops.fbank import apply_cmvn, kaldi_fbank
+
+    args = dict(feat_dim=80, embed_dim=256, pooling_func="TSTP",
+                two_emb_layer=False)
+    torch.manual_seed(0)
+    cpu_model = speaker_encoder("ResNet34", args).train(train)
+    card_model = speaker_encoder("ResNet34", args)
+    card_model.load_state_dict(cpu_model.state_dict())
+    card_model = card_model.to(cuda).train(train)
+    feats = apply_cmvn(kaldi_fbank(_voices(4, 96000, 3), input_scale=32768.0))
+    with torch.no_grad():
+        want = cpu_model(feats)
+        got = card_model(feats.to(cuda))
+    assert got.dtype == torch.float32
+    rel = ((got.cpu() - want).norm() / want.norm()).item()
+    assert rel <= 1e-4
+    cpu_stats = dict(cpu_model.named_buffers())
+    for name, b in card_model.named_buffers():
+        w = cpu_stats[name]
+        assert (b.cpu() - w).abs().max() <= 1e-4 * w.abs().max().clamp_min(
+            1e-6), name
+    with torch.no_grad():
+        half = card_model.eval()(feats.to(cuda).bfloat16())
+    assert half.dtype == torch.float32

@@ -62,3 +62,12 @@ def test_package_import_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_the_speaker_branch_modules_are_checked():
+    """The joint speaker branch's modules are among the files checked."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for module in ("ops/fbank.py", "models/speaker/__init__.py",
+                   "models/speaker/pooling.py", "models/speaker/resnet.py"):
+        assert os.path.join("wesep_tpu_torch", module) in names, module
+

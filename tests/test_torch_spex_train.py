@@ -224,19 +224,25 @@ def test_joint_chain_yields_the_same_batches_as_the_jax_package(sets, state):
     assert lengths == {3000, 5000}  # both the wrap and the trim were used
 
 
-def test_spk_to_id_and_unported_options(tmp_path):
+def test_spk_to_id_and_unported_options(sets, tmp_path):
     out = list(processor.spk_to_id(
         iter([{"spk": "b"}, {"spk": "zz"}]), {"a": 0, "b": 1}))
     assert [s["label"] for s in out] == [1, -1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Dataset("shard", __file__, {"speaker_feat": True},
-                joint_training=True)
+    # fbank cues are ported: the joint chain ends in fbank -> CMVN
+    chain = Dataset("shard", __file__, {"speaker_feat": True},
+                    joint_training=True)
+    assert chain.fn is processor.apply_cmvn
+    assert chain.source.fn is processor.compute_fbank
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ConvTasNet(**dict(MODEL_ARGS, spk_feat=True))
+    # a joint BSRNN trains; an encoder of the registry that is not ported
+    # raises with its queue item
+    _, tr, va = sets
+    config = _config(str(tmp_path), tr, va, model={"tse_model": "BSRNN"},
+                     model_args={"tse_model": {"joint_training": True,
+                                               "spk_model": "CAMPPlus"}})
     with pytest.raises(NotImplementedError, match="queue A"):
-        train({"model": {"tse_model": "BSRNN"}, "exp_dir": str(tmp_path),
-               "model_args": {"tse_model": {"joint_training": True}}},
-              device="cpu")
+        train(config)
 
 
 # --- the train and eval steps ---------------------------------------------

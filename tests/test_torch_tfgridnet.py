@@ -139,8 +139,13 @@ def test_padded_rows_do_not_reach_the_kept_rows():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="the joint speaker branch"):
-        TFGridNet(**dict(SMALL, joint_training=True, spk_model="ResNet34"))
+    # the joint branch is ported; the registry's unported encoders and its
+    # missing-name error remain
+    with pytest.raises(NotImplementedError, match="the BSRNN variants"):
+        TFGridNet(**dict(SMALL, joint_training=True,
+                         spk_model="ECAPA_TDNN_GLOB_c512"))
+    with pytest.raises(ValueError, match="requires spk_model"):
+        TFGridNet(**dict(SMALL, joint_training=True))
     with pytest.raises(NotImplementedError, match="concat"):
         TFGridNet(**dict(SMALL, scan_layers=True, spk_fuse_type="concat"))
     with pytest.raises(TypeError, match="unknown"):

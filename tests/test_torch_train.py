@@ -32,7 +32,7 @@ from wesep_tpu_torch.data import (
 )
 from wesep_tpu_torch.data import processor
 from wesep_tpu_torch.data.datalist import DataList
-from wesep_tpu_torch.data.wav_io import wav_bytes
+from wesep_tpu_torch.data.wav_io import wav_bytes, write_wav
 from wesep_tpu_torch.train.checkpoint import (
     find_epoch_checkpoints,
     load_checkpoint,
@@ -332,16 +332,30 @@ def test_chunking_and_filtering():
     assert np.allclose(np.linalg.norm(v), np.sqrt(2))
 
 
-def test_unported_data_options_raise(sets):
+def test_unported_data_options_raise(sets, tmp_path):
     _, tr, _ = sets
     for kw in (dict(online_mix=True), dict(noise_prob=0.5),
                dict(reverb_prob=0.5), dict(noise_enroll_prob=0.5)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Dataset("shard", tr["data"], _dataset_args(), {}, **kw)
-    # joint training on enrollment wavs is ported; on fbank features not yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Dataset("shard", tr["data"], dict(_dataset_args(), speaker_feat=True),
-                {}, joint_training=True)
+    # joint training on fbank features is ported: the validation chain
+    # gives each target the Kaldi fbank of its enrollment wav, [1, T', 80]
+    wavs = {}
+    for i, utt in enumerate(read_label_file(tr["utt2spk"])):
+        wavs[utt] = str(tmp_path / f"{utt}.wav")
+        write_wav(wavs[utt], _voice(np.random.default_rng(i), 150.0,
+                                    3000 + 160 * i), 16000)
+    ds = Dataset("shard", tr["data"], dict(_dataset_args(), speaker_feat=True),
+                 wavs, read_label_file(tr["spk1_enroll"]),
+                 read_label_file(tr["spk2_enroll"]), state="val",
+                 joint_training=True)
+    sample = next(iter(ds))
+    for spk in ("spk1", "spk2"):
+        enroll = sample["embed_" + spk]
+        utt = read_label_file(tr[spk + "_enroll"])[sample["key"]]
+        frames = 1 + (3000 + 160 * list(wavs).index(utt) - 400) // 160
+        assert enroll.shape == (1, frames, 80) and enroll.dtype == np.float32
+        np.testing.assert_allclose(enroll.mean(axis=1), 0.0, atol=1e-4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(_config("/nonexistent", tr, tr, model_axis=2))
 

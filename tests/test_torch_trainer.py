@@ -285,8 +285,9 @@ def test_accum_steps_and_bf16_compute_dtype():
 
 
 def test_unported_options_raise_with_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.make_train_step(parse_loss("SISDR"), ssa_enroll_prob=0.5)
+    # SSA is ported (tests/test_torch_joint_train.py): the step builds
+    assert callable(trainer.make_train_step(parse_loss("SISDR"),
+                                            ssa_enroll_prob=0.5))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trainer.make_train_step(parse_loss("SISDR"), device_augment={})
 

@@ -4,8 +4,10 @@ Counterpart of wesep_tpu/bin/infer.py with the same semantics, so the two
 agree on the same shard and weights:
 
 - the cue of a target is a pre-extracted embedding or, for a jointly
-  trained ConvTasNet / SpEx+, an enrollment wav wrapped or trimmed to
-  `enroll_sec` seconds; multi-scale models are scored on their first
+  trained model, an enrollment wav wrapped or trimmed to `enroll_sec`
+  seconds, or with `speaker_feat` its Kaldi fbank (dithered as in the
+  JAX package) after CMVN, wrapped or trimmed to enroll_sec * 1000 /
+  frame_shift - 2 frames; multi-scale models are scored on their first
   (short-window) estimate;
 - each mixture gives one row per target speaker; rows are buffered per
   length bucket (`length_bucket`, default 16000 samples), zero-padded to
@@ -88,13 +90,7 @@ def infer(config, overrides=None, **kwargs):
     model_args = dict(configs["model_args"]["tse_model"])
     model_args.pop("spk_model_init", None)
     joint_training = model_args.get("joint_training", False)
-    model_name = configs["model"]["tse_model"]
-    if joint_training and not model_name.startswith("ConvTasNet"):
-        raise NotImplementedError(
-            f"joint_training inference of {model_name} (an external speaker "
-            "encoder on fbank features) is not ported yet; see ROADMAP.md "
-            "queue A, the joint speaker branch")
-    model = get_model(model_name)(**model_args)
+    model = get_model(configs["model"]["tse_model"])(**model_args)
     model_path = configs["checkpoint"]
 
     logger = setup_logger(configs["exp_dir"], name="infer.log")

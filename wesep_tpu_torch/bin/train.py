@@ -1,9 +1,12 @@
 """Training entry point: YAML-config driven, one process on one device.
 
 Counterpart of wesep_tpu/bin/train.py with the same semantics: the train
-and validation chains (pre-extracted embeddings, or enrollment wavs and
-speaker labels for a jointly trained ConvTasNet / SpEx+), the model, the
-loss table, the optimizer chain and the schedule come from the config; every epoch trains `epoch_iter` batches,
+and validation chains (pre-extracted embeddings, or for joint training
+enrollment wavs or their fbank (`speaker_feat`) and speaker labels), the
+model, the loss table, the optimizer chain (with `spk_model_freeze`, no
+update of `spk_model_net`) and the schedule come from the config, and
+`SSA_enroll_prob` turns on self-estimated speech augmentation in the
+train step; every epoch trains `epoch_iter` batches,
 validates, and writes `models/checkpoint_<N>.ckpt` (parameters and BatchNorm
 statistics, optimizer state, step) with a `latest_checkpoint.ckpt` link, and `final_checkpoint
 .ckpt` at the end; `--checkpoint` resumes by file name; SIGTERM ends the
@@ -72,13 +75,20 @@ def load_enroll_maps(configs, joint_training, multi_task):
 
 
 def default_enroll_len(dataset_args, joint_training):
-    """Samples every enrollment wav is wrapped or trimmed to, so that all
-    batches have one shape: `enroll_len`, else enroll_sec * sample rate for
-    joint training, else None (embeddings pass through)."""
+    """Samples (or fbank frames) every enrollment is wrapped or trimmed to,
+    so that all batches have one shape: `enroll_len`, else for joint
+    training enroll_sec * 1000 / frame_shift - 2 frames with
+    `speaker_feat` (598 for 6 s at a 10 ms shift) and enroll_sec * sample
+    rate samples without, else None (embeddings pass through)."""
     enroll_len = dataset_args.get("enroll_len", None)
     if enroll_len is None and joint_training:
-        enroll_len = int(dataset_args.get("enroll_sec", 6)
-                         * dataset_args.get("resample_rate", 16000))
+        enroll_sec = dataset_args.get("enroll_sec", 6)
+        if dataset_args.get("speaker_feat", False):
+            shift = dataset_args.get("fbank_args", {}).get("frame_shift", 10)
+            enroll_len = int(enroll_sec * 1000 / shift) - 2
+        else:
+            enroll_len = int(enroll_sec
+                             * dataset_args.get("resample_rate", 16000))
     return enroll_len
 
 
@@ -157,11 +167,6 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     model_args = dict(configs["model_args"]["tse_model"])
     joint_training = model_args.get("joint_training", False)
     multi_task = model_args.get("multi_task", False)
-    if joint_training and not model_name.startswith("ConvTasNet"):
-        raise NotImplementedError(
-            f"joint_training of {model_name} (an external speaker encoder "
-            "on fbank features) is not ported yet; see ROADMAP.md queue A, "
-            "the joint speaker branch")
 
     (tr_spk2embed_dict, dict_spk, n_train_utts, val_spk2embed_dict,
      val_spk1_embed, val_spk2_embed) = load_enroll_maps(
@@ -234,6 +239,8 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     sched_args["epoch_iter"] = epoch_iter
     schedule = get_scheduler(configs["scheduler"]["tse_model"], **sched_args)
     opt_args = configs.get("optimizer_args", {}).get("tse_model", {})
+    # the JAX package's prefix: BSRNN's scope; it freezes nothing in
+    # TF-GridNet and DPCCN, whose encoder is `spk_model`
     freeze = ("spk_model_net",) if model_args.get("spk_model_freeze", False) \
         else ()
     optimizer = make_optimizer(
@@ -254,6 +261,10 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
         criterion, loss_posi, loss_weight, multi_task,
         compute_dtype=compute_dtype, accum_steps=accum_steps,
         ssa_enroll_prob=dataset_args.get("SSA_enroll_prob", 0),
+        ssa_speaker_feat=dataset_args.get("speaker_feat", True),
+        fbank_args=dataset_args.get("fbank_args"),
+        sample_rate=dataset_args.get("resample_rate", 16000),
+        seed=configs.get("seed", 42),
         device_augment=dataset_args if device_augment else None,
     )
     eval_step = make_eval_step(criterion)

@@ -8,9 +8,11 @@ wav_targets, spk_embeds, spk_label, key, spk}, one row per target speaker.
 each target speaker, "val" and "test" take the fixed enrollment the lists
 name. The cue is a pre-extracted embedding or, with `joint_training`, an
 enrollment waveform (and the speaker's class label where `dict_spk` is
-given); the collators bring the waveforms to one length
-(`fixed_enroll_len`). Online mixing, noise, reverberation and fbank
-features of the enrollment are not ported yet.
+given) and, with the config's `speaker_feat`, that waveform's Kaldi fbank
+after CMVN (training adds SpecAugment with `specaug_enroll_prob`); the
+collators bring the enrollments to one length (`fixed_enroll_len`, in
+samples or frames). Online mixing, noise and reverberation are not ported
+yet.
 """
 
 import logging
@@ -84,20 +86,15 @@ def Dataset(
 ):
     """Build the streaming chain: open -> group/parse -> [filter] ->
     [shuffle] -> resample -> [random chunk] -> embeddings or enrollment
-    wavs."""
+    wavs [-> fbank -> CMVN [-> SpecAugment]]."""
     if data_type not in ("shard", "raw"):
         raise ValueError(f"data_type must be shard or raw, not {data_type}")
-    if joint_training and configs.get("speaker_feat", False):
-        _not_ported("speaker_feat (fbank features of the enrollment; queue "
-                    "A, the joint v2 BSRNN)")
     if online_mix or device_augment:
         _not_ported("online mixing")
     if noise_prob > 0 or noise_enroll_prob > 0:
         _not_ported("noise augmentation")
     if reverb_prob > 0 or reverb_enroll_prob > 0:
         _not_ported("reverberation")
-    if specaug_enroll_prob > 0:
-        _not_ported("SpecAugment on enrollment features")
     shuffle = configs.get("shuffle", False)
     chain = _Chain(DataList(
         read_lists(data_list_file), shuffle=shuffle,
@@ -119,16 +116,25 @@ def Dataset(
     if not whole_utt:
         chain = chain.apply(processor.random_chunk,
                             configs.get("chunk_len", resample_rate * 3))
+    if not joint_training:
+        if state == "train":
+            return chain.apply(processor.sample_spk_embedding, spk2embed_dict)
+        return chain.apply(processor.sample_fix_spk_embedding,
+                           spk2embed_dict, spk1_embed, spk2_embed)
     if state == "train":
-        if joint_training:
-            return chain.apply(processor.sample_enrollment, spk2embed_dict,
-                               dict_spk)
-        return chain.apply(processor.sample_spk_embedding, spk2embed_dict)
-    if joint_training:
-        return chain.apply(processor.sample_fix_spk_enrollment,
-                           spk2embed_dict, spk1_embed, spk2_embed, dict_spk)
-    return chain.apply(processor.sample_fix_spk_embedding,
-                       spk2embed_dict, spk1_embed, spk2_embed)
+        chain = chain.apply(processor.sample_enrollment, spk2embed_dict,
+                            dict_spk)
+    else:
+        chain = chain.apply(processor.sample_fix_spk_enrollment,
+                            spk2embed_dict, spk1_embed, spk2_embed, dict_spk)
+    if configs.get("speaker_feat", False):
+        # the validation and test chains dither too, as the JAX package's
+        chain = chain.apply(processor.compute_fbank,
+                            **configs.get("fbank_args", {}))
+        chain = chain.apply(processor.apply_cmvn)
+        if state == "train" and specaug_enroll_prob > 0:
+            chain = chain.apply(processor.spec_aug, prob=specaug_enroll_prob)
+    return chain
 
 
 def _pad_or_trim_embeds(spk_embeds: List[np.ndarray], mode: str,

@@ -5,10 +5,13 @@ on premixed data: open local shards, group premixed shard members, parse
 raw json lists, filter by length, shuffle, resample, cut random or leading
 chunks and attach random (train) or fixed (validation, test) speaker cues:
 pre-extracted embeddings or, for joint training, enrollment waveforms with
-the speaker's class label. Each transform is a generator over sample
-dicts; waveforms are float32 [1, T]. Every random draw comes from Python's
+the speaker's class label; then, for the fbank recipes, Kaldi fbank of
+every enrollment (ops/fbank on the host), CMVN and SpecAugment. Each
+transform is a generator over sample dicts; waveforms are float32 [1, T],
+fbank float32 [1, T', n_mels]. Every random draw comes from Python's
 `random`, in the JAX package's order, so one seed gives both packages the
-same samples.
+same samples; only the dither noise comes from a torch generator, which
+`compute_fbank` seeds from one such draw.
 """
 
 import json
@@ -19,16 +22,19 @@ from typing import Iterable, Iterator
 from urllib.parse import urlparse
 
 import numpy as np
+import torch
 from scipy import signal as sp_signal
 
 from wesep_tpu_torch.data.wav_io import read_wav
+from wesep_tpu_torch.ops.fbank import kaldi_fbank
 
 AUDIO_FORMAT_SETS = {"flac", "mp3", "m4a", "ogg", "opus", "wav", "wma"}
 
 __all__ = ["url_opener", "tar_file_and_group", "parse_raw", "shuffle",
            "resample", "spk_to_id", "sample_spk_embedding",
            "sample_fix_spk_embedding", "sample_enrollment",
-           "sample_fix_spk_enrollment",
+           "sample_fix_spk_enrollment", "compute_fbank", "apply_cmvn",
+           "spec_aug",
            "get_random_chunk", "filter_len", "random_chunk", "fix_chunk"]
 
 
@@ -213,6 +219,71 @@ def sample_fix_spk_enrollment(data: Iterable[dict], spk2embed_dict,
                 emap = spk1_embed if key == "spk1" else spk2_embed
                 path = spk2embed_dict[emap[sample["key"]]]
                 _attach_enrollment(sample, key, path, dict_spk)
+        yield sample
+
+
+def compute_fbank(data: Iterable[dict], num_mel_bins: int = 80,
+                  frame_length: int = 25, frame_shift: int = 10,
+                  dither: float = 1.0) -> Iterator[dict]:
+    """Kaldi fbank of every embed_* enrollment wav -> [T', num_mel_bins],
+    on the int16 scale (input_scale 32768).
+
+    One `random.randint` when the chain starts seeds the dither's torch
+    generator, where the JAX package seeds its PRNG key: later draws of
+    `random` then match the JAX chain's. The noise itself differs from
+    the JAX package's (another generator); at dither 0 the features
+    agree."""
+    seed = random.randint(0, 2**31 - 1)
+    gen = torch.Generator().manual_seed(seed)
+    for sample in data:
+        sr = sample["sample_rate"]
+        for k in list(sample.keys()):
+            if k.startswith("embed"):
+                wav = torch.from_numpy(np.asarray(sample[k], np.float32)[0])
+                mat = kaldi_fbank(
+                    wav, sample_rate=sr, num_mel_bins=num_mel_bins,
+                    frame_length_ms=frame_length, frame_shift_ms=frame_shift,
+                    dither=dither, generator=gen if dither > 0 else None,
+                    input_scale=32768.0)
+                sample[k] = mat.numpy()
+        yield sample
+
+
+def apply_cmvn(data: Iterable[dict], norm_mean: bool = True,
+               norm_var: bool = False) -> Iterator[dict]:
+    """Per-utterance CMVN of every embed_* fbank -> [1, T', F]."""
+    for sample in data:
+        for k in list(sample.keys()):
+            if k.startswith("embed"):
+                mat = sample[k]
+                if norm_mean:
+                    mat = mat - mat.mean(axis=0)
+                if norm_var:
+                    mat = mat / np.sqrt(mat.var(axis=0) + 1e-8)
+                sample[k] = mat[None].astype(np.float32)
+        yield sample
+
+
+def spec_aug(data: Iterable[dict], num_t_mask: int = 1, num_f_mask: int = 1,
+             max_t: int = 10, max_f: int = 8,
+             prob: float = 0) -> Iterator[dict]:
+    """With probability `prob` per sample, zero `num_t_mask` random runs of
+    frames and `num_f_mask` of mel bins of every embed_* fbank [1, T, F]."""
+    for sample in data:
+        if random.random() < prob:
+            for key in list(sample.keys()):
+                if key.startswith("embed"):
+                    y = np.array(sample[key])
+                    max_frames, max_freq = y.shape[1], y.shape[2]
+                    for _ in range(num_t_mask):
+                        start = random.randint(0, max_frames - 1)
+                        length = random.randint(1, max_t)
+                        y[:, start:min(max_frames, start + length), :] = 0
+                    for _ in range(num_f_mask):
+                        start = random.randint(0, max_freq - 1)
+                        length = random.randint(1, max_f)
+                        y[:, :, start:min(max_freq, start + length)] = 0
+                    sample[key] = y
         yield sample
 
 

@@ -1,7 +1,14 @@
 """BSRNN (band-split RNN) target-speaker extraction in PyTorch.
 
-Counterpart of wesep_tpu/models/bsrnn.py, v1 path (pre-extracted speaker
-embeddings, joint_training=False). The design is the JAX package's:
+Counterpart of wesep_tpu/models/bsrnn.py: the v1 path (pre-extracted
+speaker embeddings, joint_training=False) and the joint v2 path, where a
+speaker encoder `spk_model_net` (models/speaker) embeds the enrollment's
+fbank features (`spk_feat`), or its waveform through the "consistent"
+frontend (ops/fbank.speaker_feat, no gradient) otherwise; with
+`multi_task` a linear layer `pred_linear` gives speaker logits. The
+encoder's f32 embedding promotes the separator after the speaker fuse to
+f32 under a bf16 stream, as in the JAX package. The design is the JAX
+package's:
 
   * the 32 sub-bands come in 5 distinct widths, so bands are processed as
     width groups with stacked weights ([n_bands, C_in, C_out] batched
@@ -11,9 +18,10 @@ embeddings, joint_training=False). The design is the JAX package's:
     comm RNN over bands (frames folded into the batch), both through the
     fused BiLSTM layer (ops/cuda_lstm.py), 12 launches per 6-repeat forward.
 
-forward(mix [B, T], embedding [B, E]) -> (est [B, T], None).
-Parameter names and shapes follow the JAX param tree (see
-utils/jax_params.py).
+forward(mix [B, T], cue) -> (est [B, T], speaker logits or None); the cue
+is an embedding [B, E], or for joint training fbank [B, T', F_mel] or an
+enrollment waveform [B, T_e]. Parameter names and shapes follow the JAX
+param tree (see utils/jax_params.py).
 """
 
 from typing import List, Tuple
@@ -29,6 +37,11 @@ from wesep_tpu_torch.models.common import (
     SpeakerTransform,
     uniform_param,
 )
+from wesep_tpu_torch.models.speaker import (
+    embed_enrollment,
+    speaker_encoder,
+    speaker_frontend,
+)
 from wesep_tpu_torch.ops.stft import hann_window, istft, stft
 
 __all__ = ["BSRNN", "band_layout"]
@@ -36,12 +49,10 @@ __all__ = ["BSRNN", "band_layout"]
 # GroupNorm eps of the model: float32 machine eps, not 1e-5
 _EPS = float(np.finfo(np.float32).eps)
 
-# config keys of the JAX model that only the joint speaker branch or JAX's
-# memory planning read; accepted so a JAX config builds this model
-_JAX_ONLY_ARGS = frozenset({
-    "multi_task", "spksInTrain", "spk_model", "spk_args", "spk_model_init",
-    "spk_model_freeze", "spk_feat", "feat_type", "remat",
-})
+# config keys of the JAX model that the train binary (spk_model_init and
+# spk_model_freeze: the optimizer's freeze) or JAX's memory planning read;
+# accepted so a JAX config builds this model
+_JAX_ONLY_ARGS = frozenset({"spk_model_init", "spk_model_freeze", "remat"})
 
 
 def band_layout(sr: int, enc_dim: int) -> List[Tuple[int, int]]:
@@ -138,7 +149,8 @@ class BSNet(nn.Module):
 
 
 class BSRNN(nn.Module):
-    """Band-split RNN TSE model, pre-extracted embeddings (v1 recipe)."""
+    """Band-split RNN TSE model: pre-extracted embeddings (v1 recipe) or
+    a jointly trained speaker encoder (v2)."""
 
     def __init__(
         self,
@@ -153,17 +165,28 @@ class BSRNN(nn.Module):
         spk_fuse_type: str = "concat",
         multi_fuse: bool = True,
         joint_training: bool = True,
+        multi_task: bool = False,
+        spksInTrain: int = 251,
+        spk_model=None,
+        spk_args=None,
+        spk_feat: bool = False,
+        feat_type: str = "consistent",
         **jax_only,
     ):
         super().__init__()
         unknown = set(jax_only) - _JAX_ONLY_ARGS
         if unknown:
             raise TypeError(f"BSRNN got unknown arguments {sorted(unknown)}")
+        self.joint_training = joint_training
+        cue_dim = spk_emb_dim
         if joint_training:
-            raise NotImplementedError(
-                "joint_training=True (the v2 recipe's speaker branch) is not "
-                "ported yet; see ROADMAP.md, joint v2 BSRNN"
-            )
+            # the JAX scope: 'spk_model' is the config field's name there
+            self.spk_model_net = speaker_encoder(spk_model, spk_args)
+            cue_dim = self.spk_model_net.embed_dim
+            self.spk_frontend = speaker_frontend(spk_args, spk_feat,
+                                                 feat_type, sr, win, stride)
+            self.pred_linear = Dense(cue_dim, spksInTrain) if multi_task \
+                else None
         self.win = win
         self.stride = stride
         self.num_repeat = num_repeat
@@ -175,9 +198,10 @@ class BSRNN(nn.Module):
             self.add_module(f"bn_norm_{gi}", GroupedBandNorm(n, 2 * bw))
             self.add_module(f"bn_proj_{gi}",
                             GroupedBandDense(n, 2 * bw, feature_dim))
+        fuse_dim = spk_emb_dim if use_spk_transform else cue_dim
         for j in range(num_repeat if multi_fuse else 1):
             self.add_module(f"fuse_{j}", SpeakerFuse(
-                feature_dim, spk_emb_dim, spk_fuse_type))
+                feature_dim, fuse_dim, spk_fuse_type))
         for j in range(num_repeat):
             self.add_module(f"bsnet_{j}",
                             BSNet(feature_dim, use_bidirectional))
@@ -190,7 +214,7 @@ class BSRNN(nn.Module):
             self.add_module(f"mask_out_{gi}", GroupedBandDense(
                 n, feature_dim * 4, bw * 4))
         if use_spk_transform:
-            self.spk_transform = SpeakerTransform(spk_emb_dim)
+            self.spk_transform = SpeakerTransform(spk_emb_dim, in_dim=cue_dim)
 
     def _band_split(self, re, im):
         """[B, T, F] spec -> (features [B, nband, T, N],
@@ -239,10 +263,14 @@ class BSRNN(nn.Module):
         return istft(merge(est_re), merge(est_im), self.win, self.stride,
                      window=self.window, length=nsample)
 
-    def forward(self, mix, embed):
+    def forward(self, mix, cue):
         nsample = mix.shape[-1]
         re, im = stft(mix, self.win, self.stride, window=self.window)
         x, sub_specs = self._band_split(re, im)
+        embed, spk_logits = cue, None
+        if self.joint_training:
+            embed, spk_logits = embed_enrollment(
+                cue, self.spk_model_net, self.pred_linear, self.spk_frontend)
         if self.use_spk_transform:
             embed = self.spk_transform(embed)
         for r in range(self.num_repeat):
@@ -250,4 +278,4 @@ class BSRNN(nn.Module):
                 x = getattr(self, f"fuse_{r if self.multi_fuse else 0}")(
                     x, embed)
             x = getattr(self, f"bsnet_{r}")(x)
-        return self._mask_reconstruct(x, sub_specs, nsample), None
+        return self._mask_reconstruct(x, sub_specs, nsample), spk_logits

@@ -107,24 +107,34 @@ class Conv1d(nn.Module):
 
 class Conv2d(nn.Module):
     """2-D convolution on [B, H, W, C] with flax nn.Conv's HWIO `kernel`
-    [kh, kw, in, out] and `bias` [out], torch-default init; `padding` is
-    ((top, bottom), (left, right)), `stride` (along H, along W)."""
+    [kh, kw, in, out] and `bias` [out] (none with `use_bias=False`),
+    torch-default init; `padding` is ((top, bottom), (left, right)),
+    `stride` (along H, along W)."""
 
     def __init__(self, in_channels: int, features: int, kernel_size=(3, 3),
-                 padding=((1, 1), (1, 1)), stride=(1, 1)):
+                 padding=((1, 1), (1, 1)), stride=(1, 1),
+                 use_bias: bool = True):
         super().__init__()
         fan_in = in_channels * kernel_size[0] * kernel_size[1]
         self.kernel = uniform_param(*kernel_size, in_channels, features,
                                     fan_in=fan_in)
-        self.bias = uniform_param(features, fan_in=fan_in)
+        if use_bias:
+            self.bias = uniform_param(features, fan_in=fan_in)
+        else:
+            self.register_parameter("bias", None)
         (self.top, self.bottom), (self.left, self.right) = padding
         self.stride = tuple(stride)
 
     def forward(self, x):
-        x = F.pad(x.permute(0, 3, 1, 2),
-                  (self.left, self.right, self.top, self.bottom))
-        y = F.conv2d(x, self.kernel.to(x.dtype).permute(3, 2, 0, 1),
-                     self.bias.to(x.dtype), stride=self.stride)
+        x = x.permute(0, 3, 1, 2)
+        if self.top == self.bottom and self.left == self.right:
+            pad = (self.top, self.left)  # F.conv2d pads without a copy
+        else:
+            x = F.pad(x, (self.left, self.right, self.top, self.bottom))
+            pad = 0
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv2d(x, self.kernel.to(x.dtype).permute(3, 2, 0, 1), bias,
+                     stride=self.stride, padding=pad)
         return y.permute(0, 2, 3, 1)
 
 
@@ -220,7 +230,8 @@ class LayerNorm(nn.Module):
 class BatchNorm(nn.Module):
     """Batch norm over all but the channel (last) axis, in f32.
 
-    Parameters `scale`, `bias`; buffers `mean`, `var`. In training mode it
+    Parameters `scale`, `bias` (flax's `use_scale` / `use_bias` drop
+    them); buffers `mean`, `var`. In training mode it
     normalises with the batch's statistics (biased variance E[x^2] -
     E[x]^2, clamped at 0) and moves the buffers by
     new = momentum * old + (1 - momentum) * batch (momentum 0.9 keeps 90 %
@@ -228,11 +239,14 @@ class BatchNorm(nn.Module):
     would store the unbiased variance); in eval mode it uses the buffers."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
-                 momentum: float = 0.9):
+                 momentum: float = 0.9, use_scale: bool = True,
+                 use_bias: bool = True):
         super().__init__()
         self.eps, self.momentum = eps, momentum
-        self.scale = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
+        self.scale = nn.Parameter(torch.ones(channels)) if use_scale \
+            else None
+        self.bias = nn.Parameter(torch.zeros(channels)) if use_bias \
+            else None
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
@@ -249,8 +263,11 @@ class BatchNorm(nn.Module):
                     var, alpha=1.0 - self.momentum)
         else:
             mean, var = self.mean, self.var
-        return (x32 - mean) * (torch.rsqrt(var + self.eps) * self.scale) \
-            + self.bias
+        inv = torch.rsqrt(var + self.eps)
+        if self.scale is not None:
+            inv = inv * self.scale
+        y = (x32 - mean) * inv
+        return y if self.bias is None else y + self.bias
 
 
 class BatchNorm1d(nn.Module):
@@ -311,12 +328,14 @@ class FiLM(nn.Module):
 
 
 class SpeakerTransform(nn.Module):
-    """Pointwise MLP on the embedding that keeps its width:
-    Dense(E, 128) -> tanh(Dense(128, 128)) -> Dense(128, E)."""
+    """Pointwise MLP on the embedding: Dense(in, 128) -> tanh(Dense(128,
+    128)) -> Dense(128, E); `in_dim` (default E) is the width of the
+    embedding it is given."""
 
-    def __init__(self, embed_dim: int = 256, hid_dim: int = 128):
+    def __init__(self, embed_dim: int = 256, hid_dim: int = 128,
+                 in_dim: int | None = None):
         super().__init__()
-        self.Dense_0 = Dense(embed_dim, hid_dim)
+        self.Dense_0 = Dense(in_dim or embed_dim, hid_dim)
         self.Dense_1 = Dense(hid_dim, hid_dim)
         self.Dense_2 = Dense(hid_dim, embed_dim)
 

@@ -318,8 +318,9 @@ class ConvTasNet(nn.Module):
             raise ValueError(activate)
         if joint_training and (spk_feat or feat_type != "consistent"):
             raise NotImplementedError(
-                "external speaker encoders and fbank features are not "
-                "ported yet; see ROADMAP.md queue A, the joint v2 BSRNN")
+                "SpEx+ embeds the enrollment waveform with its own encoder; "
+                "the JAX package attaches no external speaker encoder or "
+                "fbank cue to ConvTasNet either (see ROADMAP.md queue C)")
         self.L, self.activate = L, activate
         self.encoder_type, self.decoder_type = encoder_type, decoder_type
         self.joint_training, self.multi_task = joint_training, multi_task

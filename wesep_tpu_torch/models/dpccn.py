@@ -1,7 +1,10 @@
 """DPCCN target-speaker extraction in PyTorch, channels-last.
 
-Counterpart of wesep_tpu/models/dpccn.py, v1 path (pre-extracted speaker
-embeddings, joint_training=False): a densely connected pyramid U-Net over
+Counterpart of wesep_tpu/models/dpccn.py, on the v1 path (pre-extracted
+speaker embeddings, joint_training=False) and the joint v2 path (a speaker
+encoder `spk_model` on the enrollment, models/speaker, whose f32
+embedding promotes everything after the speaker fuse to f32 under a bf16
+stream, as in the JAX package): a densely connected pyramid U-Net over
 the complex spectrogram. Feature maps are [B, T, F, C] as in the JAX
 package. One forward:
 
@@ -31,7 +34,9 @@ stride-1 3x3 pad-1 ones run, as in the JAX package:
     WESEP_CONV2D_BUDGET_MB and WESEP_CONV2D_VMEM_MB size the TPU kernel's
     VMEM and mean nothing here.
 
-forward(mix [B, T], embedding [B, E]) -> (est [B, T], None). Parameter
+forward(mix [B, T], cue) -> (est [B, T], speaker logits or None); the cue
+is an embedding [B, E], or for joint training fbank [B, T', F_mel] or an
+enrollment waveform. Parameter
 names and shapes follow the JAX param tree, the same on every conv_impl.
 """
 
@@ -48,6 +53,11 @@ from wesep_tpu_torch.models.common import (
     Dense,
     SpeakerFuse,
     SpeakerTransform,
+)
+from wesep_tpu_torch.models.speaker import (
+    embed_enrollment,
+    speaker_encoder,
+    speaker_frontend,
 )
 from wesep_tpu_torch.ops.cuda_conv2d import conv2d_block_in, kernel_fits
 from wesep_tpu_torch.ops.stft import hann_window, istft, stft
@@ -173,8 +183,8 @@ class TCNBlock(nn.Module):
 
 
 class DPCCN(nn.Module):
-    """DPCCN TSE model, pre-extracted embeddings (v1 recipe); constructor
-    options of the JAX class."""
+    """DPCCN TSE model: pre-extracted embeddings (v1 recipe) or a jointly
+    trained speaker encoder (v2); constructor options of the JAX class."""
 
     def __init__(
         self,
@@ -208,15 +218,19 @@ class DPCCN(nn.Module):
         conv_impl: str = "xla",
     ):
         super().__init__()
-        # multi_fuse, sr and the speaker-branch options are accepted as the
-        # JAX class accepts them; only joint training would read the latter
-        del sr, multi_fuse, multi_task, spksInTrain, spk_model_init
-        del spk_model_freeze, spk_args, spk_feat, feat_type
+        # multi_fuse is accepted as the JAX class accepts it (and reads it
+        # nowhere); the train binary reads spk_model_init and
+        # spk_model_freeze
+        del multi_fuse, spk_model_init, spk_model_freeze
+        self.joint_training = joint_training
+        cue_dim = spk_emb_dim
         if joint_training:
-            raise NotImplementedError(
-                f"joint_training=True (DPCCN with the speaker encoder "
-                f"{spk_model!r} on fbank features) is not ported yet; see "
-                "ROADMAP.md queue A, the joint speaker branch")
+            self.spk_model = speaker_encoder(spk_model, spk_args)
+            cue_dim = self.spk_model.embed_dim
+            self.spk_frontend = speaker_frontend(spk_args, spk_feat,
+                                                 feat_type, sr, win, stride)
+            self.pred_linear = Dense(cue_dim, spksInTrain) if multi_task \
+                else None
         self.win, self.stride = win, stride
         self.paddings = tuple(paddings)
         self.pool_size = tuple(pool_size)
@@ -235,8 +249,10 @@ class DPCCN(nn.Module):
                              stride1)
         self.enc0 = DenseBlock(16, 16, 16, conv_impl)
         if use_spk_transform:
-            self.spk_transform = SpeakerTransform(spk_emb_dim)
-        self.spk_fuse = SpeakerFuse(feature_dim, spk_emb_dim, spk_fuse_type)
+            self.spk_transform = SpeakerTransform(spk_emb_dim, in_dim=cue_dim)
+        self.spk_fuse = SpeakerFuse(
+            feature_dim, spk_emb_dim if use_spk_transform else cue_dim,
+            spk_fuse_type)
         for i in range(4):
             self.add_module(f"enc{i + 1}_conv",
                             conv(16 if i == 0 else 32, 32, stride2))
@@ -264,9 +280,13 @@ class DPCCN(nn.Module):
         self.avg_proj = Dense(32 + 8 * len(self.pool_size), 32)
         self.deconv2d = ConvTranspose(32, 2, k, stride1)
 
-    def forward(self, mix, embed):
+    def forward(self, mix, cue):
         re, im = stft(mix, self.win, self.stride, window=self.window)
         out = self.enc0(self.conv2d(torch.stack([re, im], dim=-1)))
+        embed, spk_logits = cue, None
+        if self.joint_training:
+            embed, spk_logits = embed_enrollment(
+                cue, self.spk_model, self.pred_linear, self.spk_frontend)
         if self.use_spk_transform:
             embed = self.spk_transform(embed)
         # the fuse acts on the frequency axis: [B, T, C, F]
@@ -314,4 +334,4 @@ class DPCCN(nn.Module):
         y = self.deconv2d(out)[:, pt:pt + t, pf:pf + f]
         s = istft(y[..., 0], y[..., 1], self.win, self.stride,
                   window=self.window, length=mix.shape[1])
-        return s, None
+        return s, spk_logits

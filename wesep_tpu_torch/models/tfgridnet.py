@@ -1,8 +1,11 @@
 """TF-GridNet target-speaker extraction in PyTorch, channels-last.
 
-Counterpart of wesep_tpu/models/tfgridnet.py, v1 path (pre-extracted
-speaker embeddings, joint_training=False). Feature maps are [B, T, Q, C];
-each GridNetBlock runs
+Counterpart of wesep_tpu/models/tfgridnet.py: the v1 path (pre-extracted
+speaker embeddings, joint_training=False) and the joint v2 path, whose
+speaker encoder `spk_model` embeds the enrollment (models/speaker; the
+"consistent" frontend on the model's own n_fft and stride) and promotes
+the blocks after the speaker fuse to f32 under a bf16 stream, as in the
+JAX package. Feature maps are [B, T, Q, C]; each GridNetBlock runs
 
   * an intra-frame branch over frequency (frames folded into the batch) and
     an inter-frame branch over time (frequencies folded into the batch):
@@ -17,9 +20,11 @@ each GridNetBlock runs
     package leaves them to XLA), then a 1x1 projection, PReLU and layer norm
     over (C, Q).
 
-forward(mix [B, T], embedding [B, E]) -> (est [B, T] or [B, n_srcs, T],
-None). Parameter names and shapes follow the JAX param tree of the unrolled
-model (`block_{i}`); utils/jax_params.py unstacks a `scan_layers` tree.
+forward(mix [B, T], cue) -> (est [B, T] or [B, n_srcs, T], speaker logits
+or None); the cue is an embedding [B, E], or for joint training fbank
+[B, T', F_mel] or an enrollment waveform. Parameter names and shapes
+follow the JAX param tree of the unrolled model (`block_{i}`);
+utils/jax_params.py unstacks a `scan_layers` tree.
 """
 
 import math
@@ -36,20 +41,24 @@ from wesep_tpu_torch.models.common import (
     SpeakerFuse,
     SpeakerTransform,
 )
+from wesep_tpu_torch.models.speaker import (
+    embed_enrollment,
+    speaker_encoder,
+    speaker_frontend,
+)
 from wesep_tpu_torch.ops.stft import hamming_window, hann_window, istft, stft
 
 __all__ = ["TFGridNet", "GridNetBlock"]
 
-# config keys of the JAX model that only the joint speaker branch or JAX's
+# config keys of the JAX model that only the train binary or JAX's
 # compilation and sharding read (`remat` recomputes blocks in the backward,
 # `shard_model_axis` places the folded batch on a mesh: the function is the
 # same); accepted and ignored so a JAX config builds this model.
 # `scan_layers` is an argument: the JAX scan body fuses the embedding as an
 # affine map, which this model reproduces
 _JAX_ONLY_ARGS = frozenset({
-    "n_imics", "activation", "multi_task", "spksInTrain", "spk_model",
-    "spk_model_init", "spk_model_freeze", "spk_args", "spk_feat",
-    "feat_type", "remat", "shard_model_axis",
+    "n_imics", "activation", "spk_model_init", "spk_model_freeze", "remat",
+    "shard_model_axis",
 })
 
 
@@ -173,7 +182,8 @@ class GridNetBlock(nn.Module):
 
 
 class TFGridNet(nn.Module):
-    """TF-GridNet TSE model, pre-extracted embeddings (v1 recipe)."""
+    """TF-GridNet TSE model: pre-extracted embeddings (v1 recipe) or a
+    jointly trained speaker encoder (v2)."""
 
     def __init__(
         self,
@@ -194,6 +204,12 @@ class TFGridNet(nn.Module):
         use_spk_transform: bool = False,
         spk_fuse_type: str = "multiply",
         joint_training: bool = True,
+        multi_task: bool = False,
+        spksInTrain: int = 251,
+        spk_model=None,
+        spk_args=None,
+        spk_feat: bool = False,
+        feat_type: str = "consistent",
         scan_layers: bool = False,
         **jax_only,
     ):
@@ -201,11 +217,15 @@ class TFGridNet(nn.Module):
         unknown = set(jax_only) - _JAX_ONLY_ARGS
         if unknown:
             raise TypeError(f"TFGridNet got unknown arguments {sorted(unknown)}")
+        self.joint_training = joint_training
+        cue_dim = spk_emb_dim
         if joint_training:
-            raise NotImplementedError(
-                "joint_training=True (TF-GridNet v2: an external speaker "
-                "encoder on fbank features) is not ported yet; see "
-                "ROADMAP.md queue A, the joint speaker branch")
+            self.spk_model = speaker_encoder(spk_model, spk_args)
+            cue_dim = self.spk_model.embed_dim
+            self.spk_frontend = speaker_frontend(spk_args, spk_feat,
+                                                 feat_type, sr, n_fft, stride)
+            self.pred_linear = Dense(cue_dim, spksInTrain) if multi_task \
+                else None
         if scan_layers and spk_fuse_type == "concat":
             raise NotImplementedError(
                 "scan_layers supports elementwise fuse types "
@@ -222,15 +242,17 @@ class TFGridNet(nn.Module):
         self.conv_norm_scale = nn.Parameter(torch.ones(emb_dim))
         self.conv_norm_bias = nn.Parameter(torch.zeros(emb_dim))
         if use_spk_transform:
-            self.spk_transform = SpeakerTransform(spk_emb_dim)
-        self.spk_fuse = SpeakerFuse(n_freqs, spk_emb_dim, spk_fuse_type)
+            self.spk_transform = SpeakerTransform(spk_emb_dim, in_dim=cue_dim)
+        self.spk_fuse = SpeakerFuse(
+            n_freqs, spk_emb_dim if use_spk_transform else cue_dim,
+            spk_fuse_type)
         for i in range(n_layers):
             self.add_module(f"block_{i}", GridNetBlock(
                 emb_dim, emb_ks, emb_hs, n_freqs, lstm_hidden_units,
                 attn_n_head, attn_approx_qk_dim, eps))
         self.deconv = ConvTranspose(emb_dim, 2 * n_srcs, (3, 3), (1, 1))
 
-    def forward(self, mix, embed):
+    def forward(self, mix, cue):
         b, nsample = mix.shape
         # RMS normalisation with the Bessel-corrected std (torch.std)
         mix_std = mix.float().std(dim=1, keepdim=True).to(mix.dtype)
@@ -246,6 +268,10 @@ class TFGridNet(nn.Module):
         y = ((y32 - mean) * torch.rsqrt(var + self.eps)
              * self.conv_norm_scale + self.conv_norm_bias).to(y.dtype)
 
+        embed, spk_logits = cue, None
+        if self.joint_training:
+            embed, spk_logits = embed_enrollment(
+                cue, self.spk_model, self.pred_linear, self.spk_frontend)
         if self.use_spk_transform:
             embed = self.spk_transform(embed)
         if self.scan_layers:
@@ -272,4 +298,4 @@ class TFGridNet(nn.Module):
         s = s.reshape(b, self.n_srcs, nsample) * mix_std[:, None]
         if self.n_srcs == 1:
             s = s[:, 0]
-        return s, None
+        return s, spk_logits

@@ -15,15 +15,21 @@ sum_j w[i][j] * mean(L_i(outputs[posi[i][j]], targets)), with CE routed to
 (the multi-scale decoders) is indexed by position, the speaker logits last.
 A train step runs the model in train mode, so BatchNorm statistics move
 once per (micro)batch, in order; an eval step runs it in eval mode and
-leaves them as they are.
+leaves them as they are. With `ssa_enroll_prob` > 0 (self-estimated
+speech augmentation) a (micro)batch may first run a no-grad forward in
+train mode whose estimate, as fbank after CMVN where the recipe feeds
+fbank, becomes the enrollment of the loss forward; that pass's BatchNorm
+statistics are thrown away, as the JAX package throws them away.
 """
 
 import dataclasses
+import random
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from wesep_tpu_torch.ops.fbank import apply_cmvn, kaldi_fbank
 from wesep_tpu_torch.train.losses import is_ce
 
 __all__ = ["TrainState", "Optimizer", "per_param_clip", "make_optimizer",
@@ -165,6 +171,10 @@ def make_train_step(
     multi_task: bool = False,
     compute_dtype: Optional[torch.dtype] = None,
     ssa_enroll_prob: float = 0.0,
+    ssa_speaker_feat: bool = True,
+    fbank_args: Optional[dict] = None,
+    sample_rate: int = 16000,
+    seed: int = 42,
     device_augment: Optional[dict] = None,
     accum_steps: int = 1,
 ):
@@ -175,25 +185,52 @@ def make_train_step(
     splits the batch's rows into that many equal microbatches, averages
     their gradients and losses and applies one update. The loss comes back
     as a tensor on the device, so nothing waits on the host per batch.
+
+    `ssa_enroll_prob`: each (micro)batch, with that probability (a coin
+    from a generator seeded with `seed`, apart from Python's global
+    `random` that the data chain draws from), the enrollment of the loss
+    forward is the model's own first estimate from a no-grad forward in
+    train mode on the batch's enrollment; with `ssa_speaker_feat` that
+    estimate's Kaldi fbank (`fbank_args`, dither 0, int16 scale) after
+    CMVN, computed on the batch's device.
     """
-    if ssa_enroll_prob and ssa_enroll_prob > 0:
-        raise NotImplementedError(
-            "SSA_enroll_prob > 0 (self-estimated speech augmentation) needs "
-            "ops/fbank, which is not ported yet; see ROADMAP.md queue A, "
-            "the joint v2 BSRNN")
     if device_augment is not None:
         raise NotImplementedError(
             "device_augment (online mixing on the device) needs "
             "data/augment, which is not ported yet; see ROADMAP.md queue A, "
             "device augmentation")
+    coin = random.Random(seed)
+    fa = fbank_args or {}
+
+    def cast(mix, enroll):
+        if compute_dtype is None:
+            return mix, enroll
+        return mix.to(compute_dtype), enroll.to(compute_dtype)
+
+    @torch.no_grad()
+    def ssa_enroll(model, mb):
+        saved = [b.clone() for b in model.buffers()]
+        est = model(*cast(mb["wav_mix"], mb["spk_embeds"]))[0]
+        for b, old in zip(model.buffers(), saved):
+            b.copy_(old)
+        if isinstance(est, (list, tuple)):
+            est = est[0]
+        if not ssa_speaker_feat:
+            return est
+        return apply_cmvn(kaldi_fbank(
+            est, sample_rate=sample_rate,
+            num_mel_bins=fa.get("num_mel_bins", 80),
+            frame_length_ms=fa.get("frame_length", 25),
+            frame_shift_ms=fa.get("frame_shift", 10), dither=0.0,
+            input_scale=32768.0))
 
     def loss_of(model, mb):
-        mix, enroll = mb["wav_mix"], mb["spk_embeds"]
-        if compute_dtype is not None:
-            mix, enroll = mix.to(compute_dtype), enroll.to(compute_dtype)
-        return weighted_loss(model(mix, enroll), mb["wav_targets"],
-                             mb.get("spk_label"), criterion, loss_posi,
-                             loss_weight, multi_task)
+        enroll = mb["spk_embeds"]
+        if ssa_enroll_prob > 0 and coin.random() < ssa_enroll_prob:
+            enroll = ssa_enroll(model, mb)
+        return weighted_loss(model(*cast(mb["wav_mix"], enroll)),
+                             mb["wav_targets"], mb.get("spk_label"),
+                             criterion, loss_posi, loss_weight, multi_task)
 
     def train_step(state: TrainState, batch):
         model, optimizer = state.model, state.optimizer

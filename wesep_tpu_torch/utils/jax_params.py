@@ -26,6 +26,12 @@ the `kernel` [*k, out, in] of its transposed convolutions `deconv` and
 is unstacked: its leaves under `blocks.block` carry a leading [n_layers]
 axis, and layer i becomes `block_{i}` of the unrolled tree.
 
+The joint BSRNN, TF-GridNet and DPCCN carry their speaker encoder's tree
+(`spk_model_net` in BSRNN, `spk_model` in the other two: flax nn.Conv's
+HWIO `kernel` without bias, BatchNorm `scale` / `bias`, Dense
+`seg_*` / `pred_linear`), and their bridges take its `batch_stats` as the
+ConvTasNet's does.
+
 DPCCN crosses as a flatten: every conv block keeps its flax `conv.kernel`
 (HWIO, or [*k, out, in] for the transposed ones) and `conv.bias`, the TCN
 blocks their depthwise `dconv1.kernel` [3, 1, C] and `dconv2` Dense. The
@@ -65,9 +71,11 @@ def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
     return out
 
 
-def bsrnn_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
-    """JAX BSRNN params (nested dict) -> port BSRNN state_dict (f32)."""
-    return convtasnet_state_dict_from_jax(params)
+def bsrnn_state_dict_from_jax(params,
+                              batch_stats=None) -> Dict[str, torch.Tensor]:
+    """JAX BSRNN params and, for a joint model, its speaker encoder's
+    BatchNorm statistics (nested dicts) -> port BSRNN state_dict (f32)."""
+    return convtasnet_state_dict_from_jax(params, batch_stats)
 
 
 def convtasnet_state_dict_from_jax(params,
@@ -100,16 +108,21 @@ def _unstack_scan_layers(state) -> Dict[str, torch.Tensor]:
     return out
 
 
-def tfgridnet_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+def tfgridnet_state_dict_from_jax(params,
+                                  batch_stats=None) -> Dict[str, torch.Tensor]:
     """JAX TFGridNet params (nested dict; unrolled `block_{i}` or the
-    `scan_layers` tree's stacked `blocks.block`) -> port TFGridNet
+    `scan_layers` tree's stacked `blocks.block`) and, for a joint model,
+    its speaker encoder's BatchNorm statistics -> port TFGridNet
     state_dict (f32)."""
-    return _unstack_scan_layers(convtasnet_state_dict_from_jax(params))
+    return _unstack_scan_layers(
+        convtasnet_state_dict_from_jax(params, batch_stats))
 
 
-def dpccn_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
-    """JAX DPCCN params (nested dict) -> port DPCCN state_dict (f32)."""
-    return convtasnet_state_dict_from_jax(params)
+def dpccn_state_dict_from_jax(params,
+                              batch_stats=None) -> Dict[str, torch.Tensor]:
+    """JAX DPCCN params and, for a joint model, its speaker encoder's
+    BatchNorm statistics (nested dicts) -> port DPCCN state_dict (f32)."""
+    return convtasnet_state_dict_from_jax(params, batch_stats)
 
 
 def load_jax_params(model: torch.nn.Module, params,
