@@ -43,8 +43,19 @@ pass):
    LSTM forward (TF32 off), the route's own FMA forward kernel and the
    bound, with the clusters the card runs at once (f32 LSTM forwards of
    phases 3-13 at shapes cuda_lstm_f32.f32_forward_fits takes run these
-   kernels); each route's own FMA forward kernel through the layers at a
-   shape that gate refuses (H 96); and the TCN block
+   kernels); the f32 backward of the LSTM layers (the FMA gates product in
+   the chain's order, the adjoint chain over clusters of H / 32 blocks
+   with Wh in registers, dx, dW) at every f32 training shape (K0 at the
+   pBSRNN's band and comm and the v2 TF-GridNet's two shapes, K3 at the
+   latter, K2 and K1 at the former), each kernel against its plain
+   version, the whole backward against the route's plain backward, twice
+   bit for bit, timed beside cuBLAS's f32 products, cuDNN's whole f32
+   backward (TF32 off), the route's own FMA backward kernels and the
+   bounds, with the clusters the card runs at once (f32 LSTM backwards of
+   phases 3-14 at shapes cuda_lstm_f32.f32_backward_fits takes run these
+   kernels); each route's own FMA forward, adjoint and weight-gradient
+   kernels through the layers at a shape those gates refuse (H 96); and
+   the TCN block
    and the Conv2dBlock past one grid dimension (B = 65537, and K4 at a T of
    more than 65535 element-wise chunks);
 4. serve: the full-width v1 pBSRNN (feature_dim 128, 6 repeats, multiply
@@ -65,8 +76,9 @@ pass):
    must move, and the checkpoint must hold parameters, optimizer state and
    step and load as bin/infer loads it. Then the gradients of every
    parameter through the kernels against those through the plain LSTM
-   (f32, 2 rows x 3 s, through the f32 cluster forward and the FMA backward
-   kernels, 12 of each counted; and bf16, through the tensor-core ones),
+   (f32, 2 rows x 3 s, through the f32 cluster forward and the f32
+   backward, 12 of each kernel counted; and bf16, through the tensor-core
+   ones),
    and the time and peak
    memory of a train step;
 6. serve SpEx+: the full-width ConvTasNet of
@@ -94,7 +106,7 @@ pass):
    WESEP_LSTM_UNFOLD=1, bf16, batch_size 4 (8 rows x 1 s), a few steps
    and one validation step: 12 launches of each tensor-core forward and
    backward kernel per train step, 12 of the f32 cluster chain and
-   projection per validation step (the FMA backward kernels on the f32
+   projection per validation step (the f32 backward's kernels on the f32
    gradient check); finite losses,
    parameters that moved, a checkpoint that bin/infer decodes from,
    whole-model gradients through the kernels against those through the
@@ -140,7 +152,8 @@ pass):
    share of it, kernels against the plain LSTM; (c) it trains through
    bin/train (bf16 compute dtype, 16 rows x 3 s, a few steps and one
    validation step): per train step 12 f32 forwards with cs and 12 of each
-   f32 FMA backward kernel, the encoder's statistics move, average_model
+   f32 backward kernel (gates, adjoint chain, dx, dW), the encoder's
+   statistics move, average_model
    -> bin/infer decodes, spk_model_freeze keeps the encoder bit for bit;
    the host data plane's rate; the whole joint model's f32 gradients
    (encoder included) against the plain LSTM's; a step's time, peak memory
@@ -1533,20 +1546,316 @@ def check_f32_forward(route, name, t_len, batch, d=D, h=H, length=None,
     return case
 
 
-def f32_refused_path():
-    """f32 layer forwards at a shape the f32 gate refuses (H 96: not whole
-    clusters of 32-unit blocks), through each route's layer function on the
-    card, counts set to 0 just before and read just after: one launch of
-    the route's own FMA forward kernel each and none of any other LSTM
-    kernel; each output against the route's plain version (1e-4 abs).
-    -> {route: counts}."""
+F32_BACKWARD_NAMES = ("lstm_f32_gates", "lstm_f32_adjoint_chain",
+                      "lstm_f32_dx", "lstm_f32_wgrad")
+
+
+def f32_backward_bounds(rows, d, h, dirs, in_bytes, x_bytes, dx_bytes):
+    """Least times of the f32 backward on the card (67 TFLOP/s f32 outside
+    the tensor cores, 3.35 TB/s): every input read once, every output
+    written once. Each kernel of its own inputs and outputs (so the split
+    design's G and dg count where they pass between kernels): the gates A
+    @ [Wx ; Wh] + (b or xw), G out; the chain's dh products, reading G, cs,
+    dy and Wh and writing dg and the tiles' db; dx = dg @ Wx^T; dW = A^T @
+    dg with its split partials. And the functions the Pallas kernels
+    compute, with no G or dg passing between kernels: the adjoint (gate
+    recompute, dh and dx from x or xw, y, cs, dy and the weights
+    (`in_bytes`), writing dg, dx (`dx_bytes`, 0 on the two-kernel routes)
+    and db) and the whole backward (the adjoint and dW, writing dx or dxw,
+    dW and db)."""
+    h4, k, f32 = 4 * h, d + h, torch.float32
+    a_b = x_bytes + rows * dirs * h * 4  # x once, y once
+    g_b = dg_b = dirs * rows * h4 * 4
+    w_b = dirs * k * h4 * 4
+    base_b = dirs * rows * h4 * 4 if d == 0 else dirs * h4 * 4
+    product = 2 * dirs * rows * k * h4
+    ops = product + 2 * dirs * rows * h * h4 + 2 * dirs * rows * h4 * d
+    db_b = dirs * h4 * 4
+    return {
+        "lstm_f32_gates": _bound(product, a_b + w_b + base_b + g_b, f32),
+        "lstm_f32_adjoint_chain": _bound(
+            2 * dirs * rows * h * h4,
+            g_b + rows * dirs * h * 4 * 2 + dg_b + dirs * h * h4 * 4, f32),
+        "lstm_f32_dx": _bound(2 * dirs * rows * h4 * d,
+                              dg_b + dirs * d * h4 * 4 + dirs * rows * d * 4,
+                              f32),
+        "lstm_f32_wgrad": _bound(product, a_b + dg_b + dirs * k * h4 * 4, f32),
+        "adjoint": _bound(ops, in_bytes + dg_b + dx_bytes + db_b, f32),
+        "backward": _bound(ops + product, in_bytes + (dx_bytes or dg_b)
+                           + dirs * k * h4 * 4 + db_b, f32)}
+
+
+def old_f32_backward(route, x, flat, xw, ys, cs, dys, ks, wgrad=True):
+    """The route's own FMA backward kernels (`bilstm_bwd_kernel` and, with
+    `wgrad`, `bilstm_wgrad_kernel` of csrc/bilstm_backward.cuh), launched
+    directly through their wrappers: the layers no longer reach them at
+    shapes the f32 backward gate takes. -> (adjoint's outputs, dW or
+    None)."""
     from wesep_tpu_torch.ops import cuda_lstm, cuda_lstm_fused
     from wesep_tpu_torch.ops import cuda_lstm_unfold
-    from wesep_tpu_torch.ops.cuda_lstm_f32 import f32_forward_fits
+
+    if route == "layer":
+        out = cuda_lstm.bilstm_layer_backward(x, *flat, ys, cs, dys)
+        return out, wgrad and cuda_lstm.bilstm_layer_wgrad(x, ys, out[2])
+    if route == "unfold":
+        out = cuda_lstm_unfold.bilstm_layer_unfold_backward(
+            x, *flat, ys, cs, dys, ks, 1)
+        return out, wgrad and cuda_lstm_unfold.bilstm_layer_unfold_wgrad(
+            x, ys, out[2], ks, 1)
+    whs = flat[2::3]
+    if route == "two_kernel":
+        out = cuda_lstm_fused.bilstm_fused_backward(xw, *whs, ys, cs, dys)
+        return out, wgrad and cuda_lstm_fused.bilstm_fused_wgrad(ys, out[0])
+    out = cuda_lstm_fused.lstm_fused_backward(xw, *whs, ys, cs, dys)
+    return out, wgrad and cuda_lstm_fused.lstm_fused_wgrad(ys, out[0])
+
+
+def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None):
+    """The f32 backward (gates, adjoint chain, dx, dW) of one LSTM route at
+    one f32 training shape (what the joint v2 recipes' steps and the f32
+    gradient checks run), f32 parameters, on the plain forward's saved
+    tensors: each kernel against its plain version on the kernels' own
+    inputs (so that only the kernel differs; G's chain order undone by
+    from_f32_chain_order), the whole backward as the route runs it against
+    the route's step-by-step plain backward, a second run bit for bit, each
+    kernel's time beside its plain version's, its cuBLAS yardstick and its
+    bound; the adjoint (gates, chain, dx) and the whole backward, each
+    timed as one call, beside their functions' bounds, cuDNN's whole f32
+    backward (TF32 off) and the route's own FMA kernels (launched
+    directly, the old path: its adjoint, its dW and the two).
+
+    route: "layer" (K0b), "unfold" (K3b, x [B', L, 48], hs 1, T the
+    frames), "two_kernel" (K2b) or "unidirectional" (K1b; both xw from x
+    [B, T, d] as the layers project it, cuDNN's yardstick over that x).
+    Limits, the f32 ones of the FMA kernels: every result within 1e-4 of
+    its plain version's largest magnitude (f32 sums in another order over
+    T steps), dW also against the plain product on the kernels' own dg."""
+    from wesep_tpu_torch.ops import cuda_lstm, cuda_lstm_fused
+    from wesep_tpu_torch.ops import cuda_lstm_f32 as f
+    from wesep_tpu_torch.ops import cuda_lstm_tc as tc
+    from wesep_tpu_torch.ops import cuda_lstm_unfold
+
+    dirs = 1 if route == "unidirectional" else 2
+    gen = torch.Generator().manual_seed(SEED + 60)
+    scale = 1.0 / math.sqrt(h)
+
+    def u(*shape):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * scale).cuda()
+
+    flat = [w for _ in range(dirs) for w in (u(d, 4 * h), u(4 * h),
+                                             u(h, 4 * h))]
+    wx32, b32, whs = flat[0::3], flat[1::3], flat[2::3]
+    biases, xw, wxs, ks = b32, None, None, d // GRID_C
+    if route == "unfold":
+        x = torch.randn(batch, length, GRID_C, generator=gen).cuda()
+        ys, cs = cuda_lstm_unfold.bilstm_layer_unfold_reference(
+            x, *flat, ks, 1, return_cs=True)
+        spec = tc.RowSpec(tc.ROW_UNFOLD, d, length, GRID_C, 1)
+        wxs = [tc.to_k_major(w, GRID_C, ks).contiguous() for w in wx32]
+        x_lib = cuda_lstm_unfold.unfold_frames(x, ks, 1)
+    elif route == "layer":
+        x = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda()
+        ys, cs = cuda_lstm.bilstm_layer_reference(x, *flat, return_cs=True)
+        spec, wxs, x_lib = tc.RowSpec(tc.ROW_X, d), wx32, x
+    else:
+        x_lib = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda()
+        xw = torch.stack([cuda_lstm_fused.project(x_lib, wx, b)
+                          for wx, b in zip(wx32, b32)])
+        ys, cs = cuda_lstm_fused._recurrence_reference(xw, whs, False, True)
+        x, spec, biases = None, tc.RowSpec(tc.ROW_H, 0), None
+    frames = ys.shape[1]
+    rows = batch * frames
+    dys = (torch.randn(batch, frames, dirs * h, generator=gen) * 0.1).cuda()
+    per_cluster = f.adjoint_rows_per_cluster(batch, dirs, h)
+
+    def gates():
+        return f.lstm_f32_gates(x, ys, wxs, whs, spec, per_cluster, biases,
+                                xw)
+
+    def adjoint():
+        dg_, db_ = f.lstm_f32_adjoint_chain(gates(), whs, cs, dys, batch)
+        return (f.lstm_f32_dx(dg_, wxs) if wxs is not None else None), dg_, \
+            db_
+
+    def run():
+        g_ = gates()
+        dg_, db_ = f.lstm_f32_adjoint_chain(g_, whs, cs, dys, batch)
+        dx2_ = f.lstm_f32_dx(dg_, wxs) if wxs is not None else None
+        return g_, dg_, db_, dx2_, f.lstm_f32_wgrad(x, ys, dg_, spec)
+
+    g, dg, db, dx2, dw = run()
+    torch.cuda.synchronize()
+    again = run()
+    # G's rows of the last tile past B are never written: compare the rows
+    # it writes
+    repeats = torch.equal(f.from_f32_chain_order(g, batch, h),
+                          f.from_f32_chain_order(again[0], batch, h)) and all(
+        a is None and b is None or torch.equal(a, b)
+        for a, b in zip((dg, db, dx2, dw), again[1:]))
+    del again
+
+    # each kernel against its plain version on the kernels' own inputs
+    errs, max_abs = {}, {}
+
+    def compare(kname, got, want):
+        errs[kname] = max(errs.get(kname, 0.0), rel_err(got, want))
+        max_abs[kname] = max(max_abs.get(kname, 0.0),
+                             (got.float() - want.float()).abs().max().item())
+
+    g_nat = f.from_f32_chain_order(g, batch, h)
+    compare("lstm_f32_gates", g_nat, f.lstm_f32_gates_reference(
+        x, ys, wxs, whs, spec, biases, xw))
+    dg_ref, db_ref = f.lstm_f32_adjoint_chain_reference(
+        g_nat, whs, cs, dys, False, per_cluster)
+    compare("lstm_f32_adjoint_chain", dg, dg_ref)
+    compare("lstm_f32_adjoint_chain", db, db_ref)
+    del dg_ref, g_nat
+    if dx2 is not None:
+        compare("lstm_f32_dx", dx2, f.lstm_f32_dx_reference(dg, wxs))
+    compare("lstm_f32_wgrad", dw, f.lstm_f32_wgrad_reference(x, ys, dg,
+                                                             spec))
+
+    # the whole backward, as the route runs it, against the route's
+    # step-by-step plain backward
+    if route == "layer":
+        want = cuda_lstm.bilstm_layer_backward_reference(x, *flat, ys, cs,
+                                                         dys)
+        got = cuda_lstm._backward_cuda(x, *flat, ys, cs, dys)
+        names = ("dx", "dwx_f", "db_f", "dwh_f", "dwx_b", "db_b", "dwh_b")
+    elif route == "unfold":
+        want = cuda_lstm_unfold.bilstm_layer_unfold_backward_reference(
+            x, *flat, ys, cs, dys, ks, 1)
+        got = cuda_lstm_unfold._backward_cuda(x, *flat, ys, cs, dys, ks, 1)
+        names = ("dx", "dwx_f", "db_f", "dwh_f", "dwx_b", "db_b", "dwh_b")
+    else:
+        want = cuda_lstm_fused._adjoint_reference(xw, whs, False, ys, cs,
+                                                  dys)
+        got = tc.fused_backward(xw, whs, ys, cs, dys)
+        names = ("dxw", "dwh", "db")
+    whole = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+    del got, want
+
+    times = {"lstm_f32_gates": time_ms(gates, 1, 5)}
+    times["lstm_f32_adjoint_chain"] = time_ms(
+        lambda: f.lstm_f32_adjoint_chain(g, whs, cs, dys, batch), 1, 5)
+    if dx2 is not None:
+        times["lstm_f32_dx"] = time_ms(lambda: f.lstm_f32_dx(dg, wxs), 1, 5)
+    times["lstm_f32_wgrad"] = time_ms(
+        lambda: f.lstm_f32_wgrad(x, ys, dg, spec), 1, 5)
+    g_nat = f.from_f32_chain_order(g, batch, h)
+    plain = {
+        "lstm_f32_gates": time_ms(lambda: f.lstm_f32_gates_reference(
+            x, ys, wxs, whs, spec, biases, xw), 0, 1),
+        "lstm_f32_adjoint_chain": time_ms(
+            lambda: f.lstm_f32_adjoint_chain_reference(
+                g_nat, whs, cs, dys, False, per_cluster), 0, 1),
+        "lstm_f32_wgrad": time_ms(
+            lambda: f.lstm_f32_wgrad_reference(x, ys, dg, spec), 0, 1)}
+    if dx2 is not None:
+        plain["lstm_f32_dx"] = time_ms(
+            lambda: f.lstm_f32_dx_reference(dg, wxs), 0, 1)
+    del g_nat, g
+    # cuBLAS yardsticks, never called by the port: the same f32 products
+    # per direction (TF32 off)
+    a = tc.gate_rows(x, ys, spec, dirs)
+    wcat = [w if wxs is None else torch.cat([wx, w])
+            for wx, w in zip(wxs or [None] * dirs, whs)]
+    dg2d = dg.reshape(dirs, rows, -1)
+    library = {"lstm_f32_gates": time_ms(lambda: [
+        torch.mm(a[i].reshape(rows, -1), wcat[i]) for i in range(dirs)],
+        1, 5)}
+    if dx2 is not None:
+        library["lstm_f32_dx"] = time_ms(lambda: [
+            torch.mm(dg2d[i], wxs[i].t()) for i in range(dirs)], 1, 5)
+    wgrad_lib_ms, wgrad_apart_ms = library_wgrad_ms(
+        [a[i].reshape(rows, -1) for i in range(dirs)], dg)
+    library["lstm_f32_wgrad"] = wgrad_lib_ms
+    del a, dg2d
+    whole_ms = {"adjoint": time_ms(adjoint, 1, 5),
+                "backward": time_ms(run, 1, 5)}
+
+    # the old path: the route's own FMA kernels, launched directly
+    old = old_f32_backward(route, x, flat, xw, ys, cs, dys, ks)
+    del old
+    old_ms = {
+        "adjoint": time_ms(lambda: old_f32_backward(
+            route, x, flat, xw, ys, cs, dys, ks, wgrad=False), 1, 3)}
+    old_ms["backward"] = time_ms(lambda: old_f32_backward(
+        route, x, flat, xw, ys, cs, dys, ks), 1, 3)
+    old_ms["wgrad"] = old_ms["backward"] - old_ms["adjoint"]
+
+    # cuDNN's whole f32 backward over the same rows (the frames for K3;
+    # x for the two-kernel routes), never called by the port
+    lstm = torch.nn.LSTM(x_lib.shape[-1], h, batch_first=True,
+                         bidirectional=dirs == 2).cuda()
+    lstm.flatten_parameters()
+    xg = x_lib.detach().clone().requires_grad_()
+    lib_y = lstm(xg)[0]
+    lib_params = list(lstm.parameters())
+    cudnn_ms = time_ms(lambda: torch.autograd.grad(
+        lib_y, [xg] + lib_params, dys, retain_graph=True), 1, 5)
+    del lib_y, lstm, xg
+
+    in_bytes = sum(t.numel() * t.element_size()
+                   for t in (x, xw, ys, cs, dys, *whs, *(wxs or []),
+                             *(biases or [])) if t is not None)
+    x_bytes = x.numel() * 4 if x is not None else 0
+    bounds = f32_backward_bounds(rows, spec.d, h, dirs, in_bytes, x_bytes,
+                                 x_bytes if wxs is not None else 0)
+    kernels = {}
+    for kname in F32_BACKWARD_NAMES:
+        if kname not in times:
+            continue
+        kernels[kname] = {
+            "rel_err": errs[kname], "max_abs_err": max_abs[kname],
+            "ms": times[kname], "plain_ms": plain[kname],
+            "library_ms": library.get(kname),
+            "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
+    kernels["lstm_f32_wgrad"]["library_per_direction_ms"] = wgrad_apart_ms
+    case = {"route": route, "shape": name, "dtype": "float32", "dirs": dirs,
+            "T": frames, "B": batch, "D": spec.d, "H": h, "rows": rows,
+            "rows_per_cluster": per_cluster,
+            "repeats_bit_for_bit": repeats, "whole_rel_err": whole,
+            "kernels": kernels,
+            "function": {
+                part: {"ms": whole_ms[part], "bound_ms": bounds[part][0],
+                       "bound_by": bounds[part][1],
+                       "old_fma_ms": old_ms[part]}
+                for part in ("adjoint", "backward")},
+            "old_fma_wgrad_ms": old_ms["wgrad"],
+            "cudnn_backward_ms": cudnn_ms,
+            "g_scratch_bytes": dirs * rows * 4 * h * 4,
+            "dg_scratch_bytes": dg.numel() * dg.element_size()}
+    log("kernels f32 backward", json.dumps(case))
+    ok = (repeats and all(e <= 1e-4 for e in errs.values())
+          and all(v <= 1e-4 for v in whole.values())
+          and all(torch.isfinite(t).all() for t in (dg, db, dw)))
+    if not ok:
+        raise AssertionError(f"f32 backward disagrees: {case}")
+    return case
+
+
+def f32_refused_path():
+    """f32 layers at a shape the f32 gates refuse (H 96: not whole clusters
+    of 32-unit blocks), through each route's layer function on the card,
+    counts set to 0 just before and read just after: a served forward is
+    one launch of the route's own FMA forward kernel and none of any other
+    LSTM kernel; a forward with cs and its backward one launch each of the
+    route's own FMA forward, serial adjoint and weight-gradient kernels and
+    none of any other; each output against the route's plain version (y
+    1e-4 abs, every gradient 1e-4 of its largest magnitude). -> {route:
+    counts}."""
+    from wesep_tpu_torch.ops import cuda_lstm, cuda_lstm_fused
+    from wesep_tpu_torch.ops import cuda_lstm_unfold
+    from wesep_tpu_torch.ops.cuda_lstm_f32 import (
+        f32_backward_fits,
+        f32_forward_fits,
+    )
 
     batch, t_len, d, h, c, ks = 6, 40, 64, 96, 16, 4
-    if f32_forward_fits(torch.float32, d, h, batch * t_len):
-        raise AssertionError("the f32 gate takes the refused shape")
+    if f32_forward_fits(torch.float32, d, h, batch * t_len) or \
+            f32_backward_fits(torch.float32, d, h, batch * t_len):
+        raise AssertionError("the f32 gates take the refused shape")
     gen = torch.Generator().manual_seed(SEED + 50)
 
     def u(*shape):
@@ -1557,33 +1866,55 @@ def f32_refused_path():
     bi = [u(d, 4 * h), u(4 * h), u(h, 4 * h)] * 2
     bi_u = [u(ks * c, 4 * h), u(4 * h), u(h, 4 * h)] * 2
     runs = {
-        "layer": (lambda p: cuda_lstm.bilstm_layer(x, *bi, plain=p)),
-        "unfold": (lambda p: cuda_lstm_unfold.bilstm_layer_unfold(
-            xu, *bi_u, ks, 1, plain=p)),
-        "two_kernel": (lambda p: cuda_lstm_fused.bilstm_fused(
-            x, *bi, plain=p)),
-        "unidirectional": (lambda p: cuda_lstm_fused.lstm_fused(
-            x, *bi[:3], plain=p)),
+        "layer": (x, bi, lambda p, a: cuda_lstm.bilstm_layer(*a, plain=p)),
+        "unfold": (xu, bi_u, lambda p, a: cuda_lstm_unfold.bilstm_layer_unfold(
+            *a, ks, 1, plain=p)),
+        "two_kernel": (x, bi, lambda p, a: cuda_lstm_fused.bilstm_fused(
+            *a, plain=p)),
+        "unidirectional": (x, bi[:3], lambda p, a: cuda_lstm_fused.lstm_fused(
+            *a, plain=p)),
     }
     out = {}
-    for route, fn in runs.items():
+    for route, (xin, weights, fn) in runs.items():
+        args = (xin, *weights)
         with torch.inference_mode():
             zero_counts()
-            y = fn(False)
+            y = fn(False, args)
             torch.cuda.synchronize()
             counts = read_counts()
-            want = fn(True)
+            want = fn(True, args)
         err = (y - want).abs().max().item()
         expect = dict.fromkeys(counts, 0)
         expect[OLD_F32_FORWARD[route]] = 1
-        log(f"f32 forward at a refused shape ({route} route, B' {batch}, "
-            f"H {h}): launches {({n: v for n, v in counts.items() if v})}, "
+        # and a forward with cs and its backward
+        dy = torch.randn(*y.shape, generator=gen).cuda()
+        grads = {}
+        for plain in (False, True):
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            zero_counts()
+            fn(plain, leaves).backward(dy)
+            torch.cuda.synchronize()
+            if not plain:
+                train_counts = read_counts()
+            grads[plain] = [a.grad for a in leaves]
+        grad_err = max(rel_err(g, p) for g, p in zip(grads[False],
+                                                    grads[True]))
+        _, adjoint, wgrad = LSTM_ROUTES[route]
+        train_expect = dict.fromkeys(counts, 0)
+        train_expect.update({OLD_F32_FORWARD[route]: 1, adjoint: 1,
+                             wgrad: 1})
+        log(f"f32 at a refused shape ({route} route, B' {batch}, H {h}): "
+            f"forward launches {({n: v for n, v in counts.items() if v})}, "
             f"max abs error {err:.3e} against the plain version (limit "
-            "1e-4)")
-        if counts != expect or not err <= 1e-4:
+            f"1e-4); forward and backward launches "
+            f"{({n: v for n, v in train_counts.items() if v})}, gradients "
+            f"{grad_err:.3e} of their largest magnitude (limit 1e-4)")
+        if counts != expect or train_counts != train_expect \
+                or not (err <= 1e-4 and grad_err <= 1e-4):
             raise AssertionError(f"refused f32 shape on the {route} route: "
-                                 f"launches {counts}, error {err}")
-        out[route] = counts
+                                 f"launches {counts}, {train_counts}, "
+                                 f"errors {err}, {grad_err}")
+        out[route] = {n: counts[n] + train_counts[n] for n in counts}
     return out
 
 
@@ -2978,7 +3309,8 @@ LSTM_ROUTES = {
 def lstm_counters():
     """Every LSTM wrapper's counter: K0, K0b x2, K3, K3b x2, K2, K2b x2,
     K1, K1b x2, the tensor-core forward's two kernels, the tensor-core
-    backward's four and the f32 cluster forward's two."""
+    backward's four, the f32 cluster forward's two and the f32 backward's
+    four."""
     from wesep_tpu_torch.ops import cuda_lstm as k0
     from wesep_tpu_torch.ops import cuda_lstm_f32 as f32
     from wesep_tpu_torch.ops import cuda_lstm_fused as k12
@@ -2992,7 +3324,8 @@ def lstm_counters():
                 for name in LSTM_ROUTES[route]}
     counters.update({name: getattr(tc, name)
                      for name in TC_NAMES + TC_FORWARD_NAMES})
-    counters.update({name: getattr(f32, name) for name in F32_FORWARD_NAMES})
+    counters.update({name: getattr(f32, name)
+                     for name in F32_FORWARD_NAMES + F32_BACKWARD_NAMES})
     return counters
 
 
@@ -3014,21 +3347,24 @@ def expect_counts(got, forward, backward, route, what, f32=False,
     the projection on the layers that project x (K0, K3), and none of the
     route's own forward kernel; a backward one launch each of the gate
     product, the adjoint chain and the dW product, and of the dx product on
-    K0 and K3. In f32 (`f32`: serving and the f32 gradient checks), at
-    shapes cuda_lstm_f32.f32_forward_fits takes (every f32 run here), a
-    forward is one launch of the f32 cluster chain, and of the f32
-    projection on K0 and K3, and none of the route's own forward kernel; a
-    backward one of each of the route's two backward kernels;
-    `f32_forward` counts the f32 forwards of a bf16 run (bin/train's
-    validation step)."""
+    K0 and K3. In f32 (`f32`: serving, the joint v2 recipes' train steps
+    and the f32 gradient checks), at shapes cuda_lstm_f32.f32_forward_fits
+    and f32_backward_fits take (every f32 run here), a forward is one
+    launch of the f32 cluster chain, and of the f32 projection on K0 and
+    K3, and none of the route's own forward kernel; a backward one launch
+    each of the f32 gates, adjoint chain and dW, and of the f32 dx on K0
+    and K3, and none of the route's own backward kernels; `f32_forward`
+    counts the f32 forwards of a bf16 run (bin/train's validation
+    step)."""
     want = dict.fromkeys(got, 0)
-    _, adjoint, wgrad = LSTM_ROUTES[route]
     projects = route in ("layer", "unfold")
     f32_forwards = forward if f32 else f32_forward
     want.update(lstm_f32_forward_chain=f32_forwards,
                 lstm_f32_project=f32_forwards if projects else 0)
     if f32:
-        want.update({adjoint: backward, wgrad: backward})
+        want.update(lstm_f32_gates=backward, lstm_f32_adjoint_chain=backward,
+                    lstm_f32_wgrad=backward,
+                    lstm_f32_dx=backward if projects else 0)
     else:
         want.update(lstm_forward_chain=forward,
                     lstm_project=forward if projects else 0,
@@ -4143,10 +4479,8 @@ def serve_v2_bsrnn(root):
 
 
 # the f32 LSTM wrappers a joint v2 step runs (the promotion after the fuse)
-V2_F32_WRAPPERS = (("cuda_lstm_f32", "lstm_f32_project"),
-                   ("cuda_lstm_f32", "lstm_f32_forward_chain"),
-                   ("cuda_lstm", "bilstm_layer_backward"),
-                   ("cuda_lstm", "bilstm_layer_wgrad"))
+V2_F32_WRAPPERS = tuple(("cuda_lstm_f32", name) for name in
+                        F32_FORWARD_NAMES + F32_BACKWARD_NAMES)
 
 
 def wrapper_times(fn, wrappers=V2_F32_WRAPPERS):
@@ -4747,8 +5081,28 @@ def main() -> int:
         f32_cases.append(check_f32_forward(
             "layer", "grid_" + name, length - GRID_KS + 1, rows, grid_d,
             GRID_H, with_cs=train))
-    # and the routes' own FMA forward kernels, at a shape the f32 gate
-    # refuses, through the layers' entry points
+    # the f32 backward (gates, adjoint chain, dx, dW) of every LSTM route at
+    # the f32 training shapes: K0 at the pBSRNN's band and comm (the joint
+    # v2 BSRNN's step) and at the v2 TF-GridNet's intra and inter over the
+    # materialised frames (its default route), K3 at the v2 TF-GridNet's
+    # shapes, K2 and K1 at the pBSRNN's band and comm
+    f32_bwd_clusters = {
+        h: {r: cuda_lstm_f32.f32_adjoint_clusters(h, r)
+            for r in cuda_lstm_f32.F32_ROWS}
+        for h in cuda_lstm_f32.F32_HIDDEN}
+    log(f"f32 adjoint chain: clusters of H / 32 blocks the card runs at "
+        f"once, by H and rows a cluster: {f32_bwd_clusters}")
+    f32_bwd_cases = [check_f32_backward(route, "train_" + name, t_len, batch)
+                     for route in ("layer", "two_kernel", "unidirectional")
+                     for name, (t_len, batch) in TRAIN_SHAPES.items()]
+    for name, (rows, length) in V2_GRID_SHAPES.items():
+        f32_bwd_cases.append(check_f32_backward(
+            "layer", "grid_" + name, length - GRID_KS + 1, rows, grid_d,
+            GRID_H))
+        f32_bwd_cases.append(check_f32_backward(
+            "unfold", name, None, rows, grid_d, GRID_H, length=length))
+    # and the routes' own FMA kernels, forward and backward, at a shape the
+    # f32 gates refuse, through the layers' entry points
     refused_launches = f32_refused_path()
 
     # the fused Conv2dBlock at DPCCN's six shapes: serving in f32 (2 rows),
@@ -4840,9 +5194,9 @@ def main() -> int:
                     if c["route"] == route and c["shape"] == shape)
 
     band = f32_case("layer", "serve_band")
-    # the f32 FMA backward kernels' headline: the training band in f32,
-    # what the joint v2 BSRNN's train step runs (bf16 steps take the
-    # tensor-core backward)
+    # the routes' own f32 FMA backward kernels' headline: the training band
+    # in f32, launched directly (the layers take them only at shapes the
+    # f32 backward gate refuses; bf16 steps take the tensor-core backward)
     train_band = train_cases[0]
     # and of the fused TCN block: SpEx+'s training shape (16 rows, bf16)
     # at dilation 1
@@ -4951,6 +5305,16 @@ def main() -> int:
         sources[name] = "wesep_tpu_torch/csrc/lstm_forward_f32.cu"
         replaces[name] = "wesep_tpu/ops/pallas_lstm.py:834"
         headline[name] = dict(band["kernels"][name])
+    # and of the f32 backward: the joint v2 BSRNN's training band (K0, f32,
+    # what its train step runs); the chain alone has no library call
+    # (cuDNN's backward also forms the gates, dx and dW: it is held against
+    # the whole backward, the cases' "function" and "cudnn_backward_ms")
+    f32_bwd_head = next(c for c in f32_bwd_cases if c["route"] == "layer"
+                        and c["shape"] == "train_band")
+    for name in F32_BACKWARD_NAMES:
+        sources[name] = "wesep_tpu_torch/csrc/lstm_backward_f32.cu"
+        replaces[name] = "wesep_tpu/ops/pallas_lstm.py:932"
+        headline[name] = dict(f32_bwd_head["kernels"][name])
     # launches of each wrapper on each path that ran it: the main-path
     # count of an entry is its training path's (the f32 gradient checks are
     # the paths of the LSTM routes' own backward kernels, which bf16
@@ -5082,6 +5446,22 @@ def main() -> int:
                      repeats_bit_for_bit=c["repeats_bit_for_bit"],
                      whole_err=c["whole_err"], forward=c["forward"])
                 for c in tc_fwd_cases if name in c["kernels"]]
+        elif name in F32_BACKWARD_NAMES:
+            entry["also_replaces"] = [
+                "wesep_tpu/ops/pallas_lstm.py:1353",
+                "wesep_tpu/ops/pallas_lstm.py:546",
+                "wesep_tpu/ops/pallas_lstm.py:230"]
+            entry["clusters_at_once"] = f32_bwd_clusters
+            entry["cases"] = [
+                dict(c["kernels"][name], route=c["route"], shape=c["shape"],
+                     T=c["T"], B=c["B"], D=c["D"], H=c["H"],
+                     rows_per_cluster=c["rows_per_cluster"],
+                     repeats_bit_for_bit=c["repeats_bit_for_bit"],
+                     whole_rel_err=c["whole_rel_err"],
+                     function=c["function"],
+                     old_fma_wgrad_ms=c["old_fma_wgrad_ms"],
+                     cudnn_backward_ms=c["cudnn_backward_ms"])
+                for c in f32_bwd_cases if name in c["kernels"]]
         elif name in TC_NAMES:
             entry["also_replaces"] = [
                 "wesep_tpu/ops/pallas_lstm.py:1353",

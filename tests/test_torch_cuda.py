@@ -102,14 +102,18 @@ def _grad_tolerances(refs, dtype):
                                      (5, 9, 128, 32)])
 def test_bilstm_layer_backward_matches_plain(cuda, dtype, b, t, d, h):
     """Forward with cell states, then the backward kernels, each against
-    its plain version on the same tensors: the layer's own two (f32, and
-    bf16 shapes the tensor-core route gate refuses) or the four of the
-    tensor-core backward (bf16 shapes it takes)."""
+    its plain version on the same tensors: the four of the tensor-core
+    backward (bf16 shapes it takes), the four of the f32 backward (f32
+    shapes `f32_backward_fits` takes) or the layer's own two (other
+    shapes)."""
     args = _args(cuda, b, t, d, h, dtype)
     tc = cuda_lstm_tc.backward_fits(dtype, d, h, b * t)
     new = cuda_lstm_tc.forward_fits(dtype, d, h, b * t)
     f32 = cuda_lstm_f32.f32_forward_fits(dtype, d, h, b * t)
+    f32b = cuda_lstm_f32.f32_backward_fits(dtype, d, h, b * t)
+    own = not tc and not f32b
     fwd, f32_before = _fwd_counts(), _f32_counts()
+    f32b_before = _f32_bwd_counts()
     counts = (cuda_lstm.bilstm_layer.launches,
               cuda_lstm.bilstm_layer_backward.launches,
               cuda_lstm.bilstm_layer_wgrad.launches, _tc_counts())
@@ -129,8 +133,9 @@ def test_bilstm_layer_backward_matches_plain(cuda, dtype, b, t, d, h):
     assert (cuda_lstm.bilstm_layer.launches,
             cuda_lstm.bilstm_layer_backward.launches,
             cuda_lstm.bilstm_layer_wgrad.launches, _tc_counts()) == (
-                counts[0] + (not new and not f32), counts[1] + (not tc),
-                counts[2] + (not tc), tuple(c + tc for c in counts[3]))
+                counts[0] + (not new and not f32), counts[1] + own,
+                counts[2] + own, tuple(c + tc for c in counts[3]))
+    assert _f32_bwd_counts() == tuple(c + f32b for c in f32b_before)
     assert _fwd_counts()[1:] == (fwd[1] + new, fwd[2] + new)
     assert _f32_counts() == (f32_before[0] + f32, f32_before[1] + f32)
     want = cuda_lstm.bilstm_layer_backward_reference(
@@ -455,6 +460,98 @@ def test_f32_forward_matches_its_plain_composition(cuda, route, b, t, d, h,
     assert (gcs - rcs).abs().max().item() <= 1e-4
 
 
+def _f32_bwd_counts():
+    """The f32 backward's four kernels: gates, chain, dx, dW."""
+    f = cuda_lstm_f32
+    return tuple(k.launches for k in (
+        f.lstm_f32_gates, f.lstm_f32_adjoint_chain, f.lstm_f32_dx,
+        f.lstm_f32_wgrad))
+
+
+def _rel(got, want):
+    """Largest error relative to the reference's largest magnitude."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-6)).item()
+
+
+@pytest.mark.parametrize("route,b,t,d,h,ks,hs", F32_FORWARD_SHAPES)
+def test_f32_backward_matches_its_plain_composition(cuda, route, b, t, d, h,
+                                                    ks, hs):
+    """The f32 backward's four kernels against their plain versions, at
+    every rows a cluster the adjoint takes at this H, on the same saved
+    tensors: G (its chain order undone), dg, db, dx and dW within 1e-4 of
+    their largest magnitude (f32 sums in another order, transcendentals of
+    another rounding); one launch of the gates and the chain a run, a
+    second run bit for bit; and the whole split backward (the wrapper's own
+    rows a cluster, one launch of each kernel) against the plain
+    composition."""
+    tc, f = cuda_lstm_tc, cuda_lstm_f32
+    gen = torch.Generator().manual_seed(11)
+    scale = 1.0 / math.sqrt(h)
+
+    def u(*s):
+        return ((torch.rand(*s, generator=gen) * 2 - 1) * scale).to(cuda)
+
+    def n(*s, k=0.5):
+        return (torch.randn(*s, generator=gen) * k).to(cuda)
+
+    dirs = 1 if route == "reverse" else 2
+    whs = [u(h, 4 * h) for _ in range(dirs)]
+    x = xw = wxs = biases = None
+    if route in ("two_kernel", "reverse"):
+        spec = tc.RowSpec(tc.ROW_H, 0)
+        xw = n(dirs, b, t, 4 * h)
+    else:
+        if route == "unfold":
+            c = d // ks
+            length = (t - 1) * hs + ks
+            x = n(b, length, c, k=1.0)
+            spec = tc.RowSpec(tc.ROW_UNFOLD, d, length, c, hs)
+        else:
+            x = n(b, t, d)
+            spec = tc.RowSpec(tc.ROW_X, d)
+        wxs = [u(d, 4 * h) for _ in range(dirs)]
+        biases = [u(4 * h) for _ in range(dirs)]
+    ys, cs, dys = n(b, t, dirs * h), n(b, t, dirs * h), n(b, t, dirs * h)
+    assert f.f32_backward_fits(torch.float32, spec.d, h, b * t,
+                               c=spec.c or None)
+    rev = route == "reverse"
+    g_ref = f.lstm_f32_gates_reference(x, ys, wxs, whs, spec, biases, xw,
+                                       rev)
+    for rows in f.F32_ROWS:
+        before = _f32_bwd_counts()
+
+        def run():
+            g = f.lstm_f32_gates(x, ys, wxs, whs, spec, rows, biases, xw,
+                                 rev)
+            return (f.from_f32_chain_order(g, b, h),
+                    *f.lstm_f32_adjoint_chain(g, whs, cs, dys, b, rev))
+
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        assert _f32_bwd_counts()[:2] == (before[0] + 2, before[1] + 2), rows
+        assert all(torch.equal(a, g) for a, g in zip(again, got)), rows
+        g, dg, db = got
+        dg_ref, db_ref = f.lstm_f32_adjoint_chain_reference(
+            g, whs, cs, dys, rev, rows)
+        assert _rel(g, g_ref) <= 1e-4, rows
+        assert _rel(dg, dg_ref) <= 1e-4 and _rel(db, db_ref) <= 1e-4, rows
+    dw = f.lstm_f32_wgrad(x, ys, dg, spec, rev)
+    assert _rel(dw, f.lstm_f32_wgrad_reference(x, ys, dg, spec, rev)) <= 1e-4
+    if x is not None:
+        dx2 = f.lstm_f32_dx(dg, wxs)
+        assert _rel(dx2, f.lstm_f32_dx_reference(dg, wxs)) <= 1e-4
+    before = _f32_bwd_counts()
+    got = tc.split_backward(x, spec, wxs, biases, whs, ys, cs, dys, xw, rev)
+    want = tc.split_backward(x, spec, wxs, biases, whs, ys, cs, dys, xw, rev,
+                             plain=True)
+    torch.cuda.synchronize()
+    assert _f32_bwd_counts() == tuple(
+        c + k for c, k in zip(before, (1, 1, x is not None, 1)))
+    for a, w in zip(got, want):
+        assert a is None and w is None or _rel(a, w) <= 1e-4
+
+
 def _fused_counts():
     k = cuda_lstm_fused
     return tuple(f.launches for f in (
@@ -659,7 +756,11 @@ def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
     tc = cuda_lstm_tc.backward_fits(dtype, ks * c, h, b * frames, c=c)
     new = cuda_lstm_tc.forward_fits(dtype, ks * c, h, b * frames, c=c)
     f32 = cuda_lstm_f32.f32_forward_fits(dtype, ks * c, h, b * frames, c=c)
+    f32b = cuda_lstm_f32.f32_backward_fits(dtype, ks * c, h, b * frames,
+                                           c=c)
+    own = not tc and not f32b
     fwd, f32_before = _fwd_counts(), _f32_counts()
+    f32b_before = _f32_bwd_counts()
     counts = (k.bilstm_layer_unfold.launches,
               k.bilstm_layer_unfold_backward.launches,
               k.bilstm_layer_unfold_wgrad.launches, _tc_counts())
@@ -681,8 +782,9 @@ def test_unfold_layer_matches_plain(cuda, dtype, b, length, c, ks, hs, h):
     assert (k.bilstm_layer_unfold.launches,
             k.bilstm_layer_unfold_backward.launches,
             k.bilstm_layer_unfold_wgrad.launches, _tc_counts()) == (
-                counts[0] + 2 * (not new and not f32), counts[1] + (not tc),
-                counts[2] + (not tc), tuple(c + tc for c in counts[3]))
+                counts[0] + 2 * (not new and not f32), counts[1] + own,
+                counts[2] + own, tuple(c + tc for c in counts[3]))
+    assert _f32_bwd_counts() == tuple(c + f32b for c in f32b_before)
     assert _fwd_counts()[1:] == (fwd[1] + 2 * new, fwd[2] + 2 * new)
     assert _f32_counts() == (f32_before[0] + 2 * f32,
                              f32_before[1] + 2 * f32)

@@ -241,11 +241,14 @@ def _stand_in(label):
 
 
 @pytest.mark.parametrize("dtype,hidden,new", [(BF16, 64, True),
-                                              (F32, 64, False),
+                                              (F32, 64, True),
+                                              (F32, 96, False),
                                               (BF16, 32, False)])
 def test_layer_routes_take_the_gate(monkeypatch, dtype, hidden, new):
-    """Each route's card backward asks the gate before any launch: the
-    tensor-core backward where it fits, today's kernels otherwise."""
+    """Each route's card backward asks the gates before any launch: the
+    split backward (the tensor-core kernels in bf16, the f32 FMA kernels of
+    cuda_lstm_f32 in f32, both through cuda_lstm_tc's compositions) where
+    it fits, the route's own kernels otherwise."""
     for name in ("layer_backward", "unfold_backward", "fused_backward"):
         monkeypatch.setattr(cuda_lstm_tc, name, _stand_in("new"))
     monkeypatch.setattr(cuda_lstm, "bilstm_layer_backward", _stand_in("old"))

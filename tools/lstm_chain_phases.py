@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where a step of the LSTM chain kernels spends its time, on a GPU.
 
-    python3 tools/lstm_chain_phases.py [--chain adjoint|forward|f32|both|all]
+    python3 tools/lstm_chain_phases.py \
+        [--chain adjoint|forward|f32|f32bwd|both|all]
 
 Builds csrc/lstm_backward_tc.cu and csrc/lstm_forward_tc.cu (and, for the
-f32 chain, csrc/lstm_forward_f32.cu) with -DLSTM_CHAIN_PHASES, under which
+f32 chains, csrc/lstm_forward_f32.cu and csrc/lstm_backward_f32.cu) with
+-DLSTM_CHAIN_PHASES, under which
 each chain kernel (`lstm_chain_kernel`, the adjoint, and
 `lstm_forward_chain_kernel`, the bf16 forward, of csrc/lstm_tc.cuh;
 `f32_chain_kernel`, the f32 forward) reads clock64() at the borders of
@@ -24,7 +26,14 @@ chain's phases: the wait for the peers' slices, the h product (FMAs), the
 block barrier, the cell update with the stores of y and cs, the exchange,
 the next step's xw loads and the step's last block barrier; it runs at the
 pBSRNN's serving band and comm shapes (H 256) and TF-GridNet's inter shape
-(H 192), f32, at each of 8, 16 and 32 rows a cluster. The libraries go to
+(H 192), f32, at each of 8, 12, 16, 20 and 32 rows a cluster. The f32
+adjoint chain's (`f32_adjoint_kernel`, --chain f32bwd): the wait for the
+peers' partial dh with the sum of the partials, the elementwise dgates
+with the dg stores, the block barrier, the dh product with the exchange
+(asynchronous stores into the owners, counted on their mbarriers), the
+next step's loads and the step's last block barrier; at the pBSRNN's
+training band and comm (H 256) and the joint v2 TF-GridNet's inter shape
+(T' 754 over 284, H 192), f32, at each rows a cluster. The libraries go to
 wesep_tpu_torch/build/chain_phases/ (listed in .gitignore); the libraries
 the port loads are not touched.
 """
@@ -51,6 +60,10 @@ F32_PHASES = ("wait", "h product", "block barrier", "cell update",
               "exchange", "next loads", "step barrier")
 # (T, B', H): pBSRNN serve band, serve comm; TF-GridNet serve inter
 F32_SHAPES = ((376, 64, 256), (32, 752, 256), (754, 142, 192))
+F32_BWD_PHASES = ("wait and sums", "elementwise", "block barrier",
+                  "dh product and exchange", "next loads", "step barrier")
+# (T, B', H): pBSRNN train band, train comm; v2 TF-GridNet train inter
+F32_BWD_SHAPES = ((376, 512, 256), (32, 6016, 256), (754, 284, 192))
 
 
 def build(source: str) -> ctypes.CDLL:
@@ -174,10 +187,44 @@ def f32_forward(gen):
         del y, cs
 
 
+def f32_adjoint(gen):
+    lib = build("lstm_backward_f32")
+    chain = lib.lstm_f32_adjoint
+    chain.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    chain.restype = ctypes.c_int
+    launch = _launcher(chain)
+    for t_len, batch, hidden in F32_BWD_SHAPES:
+        dirs = 2
+        whs = [(torch.randn(hidden, 4 * hidden, generator=gen) / 16).cuda()
+               for _ in range(dirs)]
+        cs = (torch.randn(batch, t_len, dirs * hidden, generator=gen)
+              * 0.5).cuda()
+        dys = (torch.randn(batch, t_len, dirs * hidden, generator=gen)
+               * 0.1).cuda()
+        dg = torch.empty(dirs, batch, t_len, 4 * hidden, device="cuda")
+        for rows in (8, 12, 16, 20, 32):
+            # the activated gates in the chain's order for these rows
+            g = torch.rand(dirs, -(-batch // rows), t_len,
+                           rows * 4 * hidden, generator=gen).cuda()
+            db = torch.empty(-(-batch // rows), dirs, 4 * hidden,
+                             device="cuda")
+            ptrs = [t.data_ptr() for t in (g, whs[0], whs[1], cs, dys, dg,
+                                           db)]
+            print(f"f32 adjoint chain, T {t_len} B' {batch} H {hidden}, "
+                  f"{rows} rows a cluster:")
+            report(lib, t_len, lambda: launch(*ptrs, batch, t_len, hidden,
+                                              dirs, 0, rows),
+                   F32_BWD_PHASES, 255)
+            del g, db
+        del cs, dys, dg
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--chain",
-                        choices=("adjoint", "forward", "f32", "both", "all"),
+                        choices=("adjoint", "forward", "f32", "f32bwd",
+                                 "both", "all"),
                         default="both")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -194,6 +241,8 @@ def main(argv=None) -> int:
         forward(gen)
     if args.chain in ("f32", "all"):
         f32_forward(gen)
+    if args.chain in ("f32bwd", "all"):
+        f32_adjoint(gen)
     return 0
 
 

@@ -8,17 +8,25 @@ Each run is a fresh process started in one checkout: it builds that
 checkout's kernels from its own `wesep_tpu_torch/csrc/` and times, with
 CUDA events (median of 10 after 2 warm-ups), the plain layer's forward
 kernel (K0) without cell states at pBSRNN's serving shapes, and its forward
-with cell states and its two backward kernels (K0b: serial adjoint, weight
-gradients) at pBSRNN's training shapes, in f32 and bf16 (the shapes of
+with cell states, its two FMA backward kernels called by name (K0b: serial
+adjoint, weight gradients) and its whole backward as the layer runs it
+(`cuda_lstm._backward_cuda`: whatever kernels each checkout's route takes
+for the dtype) at pBSRNN's training shapes, in f32 and bf16 (the shapes of
 chip_smoke.py: band T 376, comm T 32; B' 64 / 752 serving, 512 / 6016
-training; D 128, H 256); then (median of 5 after 1 warm-up) the f32
+training; D 128, H 256), and the f32 backward through
+`cuda_lstm._backward_cuda` at the joint v2 TF-GridNet's shapes over the
+materialised frames (4 rows x 3 s: intra T' 68 over 3028, inter T' 754
+over 284; D = H = 192); then (median of 5 after 1 warm-up) the f32
 serving forward of the full-width v1 pBSRNN (2 rows x 3 s, what bin/infer
 runs) on its default LSTM route and on WESEP_LSTM_LAYER=0, in turns within
 the process (default, two-kernel, two-kernel, default), and of TF-GridNet
 on its default and unfold-fused (WESEP_LSTM_UNFOLD=1) routes likewise;
 then a bf16 train step of the pBSRNN on its default LSTM route (16 rows x
 3 s) and of TF-GridNet on the unfold-fused route (8 rows x 1 s), with the
-optimizer chain, as chip_smoke.py times them; then the fused gLN TCN block
+optimizer chain, and a train step of the joint v2 BSRNN (16 rows x 3 s,
+ResNet34 on 6 s enrollments' fbank, bf16 stream, f32 after the speaker
+fuse, cuDNN's TF32 off), as chip_smoke.py times them; then the fused gLN
+TCN block
 (K4 `_forward_cuda`, K4b `tcn_block_gln_backward`) at SpEx+'s serving (2
 rows) and training (16 rows) shapes in f32 and bf16 (C 256, H 512, k 3, T
 4799, dilation 1, chip_smoke.py's `tcn_args`), the f32 serving forward of
@@ -38,11 +46,12 @@ change, change, parent, N times, so that a drift of the card's clock falls
 on both sides. Each run prints a JSON line; the last line holds the median
 per checkout and case. Only the API common to every slice of the port
 since DPCCN was ported is used (`cuda_lstm.bilstm_layer`,
-`_forward_cuda`, `bilstm_layer_backward`, `bilstm_layer_wgrad`,
-`cuda_tcn._forward_cuda`, `cuda_tcn.tcn_block_gln_backward`,
+`_forward_cuda`, `_backward_cuda`, `bilstm_layer_backward`,
+`bilstm_layer_wgrad`, `cuda_tcn._forward_cuda`, `cuda_tcn.tcn_block_gln_backward`,
 `cuda_conv2d._forward_cuda`, `cuda_conv2d.conv2d_block_in_backward`, the
 models, `train.trainer` and chip_smoke.py's model arguments, `tcn_args`,
-`CONV_SHAPES` and `CONV_T`). Needs one GPU; exits non-zero without one.
+`CONV_SHAPES`, `CONV_T`, `v2_bsrnn`, `voices` and `enroll_fbank`; the v2
+step needs a parent with the joint v2 recipes). Needs one GPU; exits non-zero without one.
 """
 
 import argparse
@@ -102,8 +111,17 @@ for dtype in (torch.float32, torch.bfloat16):
             lambda: k.bilstm_layer_backward(*args, ys, cs, dys))
         out[f"K0b wgrad train_{name} {tag}"] = time_ms(
             lambda: k.bilstm_layer_wgrad(args[0], ys, dg))
+        out[f"K0b backward train_{name} {tag}"] = time_ms(
+            lambda: k._backward_cuda(*args, ys, cs, dys), 1, 5)
         del ys, cs, dg
         torch.cuda.empty_cache()
+for name, (t_len, batch) in (("intra", (68, 3028)), ("inter", (754, 284))):
+    args, dys = inputs(t_len, batch, torch.float32, 192, 192)
+    ys, cs = k._forward_cuda(*args, with_cs=True)
+    out[f"K0b backward v2_grid_{name} float32"] = time_ms(
+        lambda: k._backward_cuda(*args, ys, cs, dys), 1, 5)
+    del args, dys, ys, cs
+    torch.cuda.empty_cache()
 
 # f32 serving forwards (2 rows x 3 s, as bin/infer runs them), the routes
 # of a model in turns in this process; then bf16 train steps at the
@@ -173,6 +191,27 @@ torch.manual_seed(0)
 out["TF-GridNet train step 8x1s bf16"] = step_ms(
     TFGridNet(**GRID_MODEL_ARGS).cuda().train(), 8, 16000)
 del os.environ["WESEP_LSTM_UNFOLD"]
+torch.cuda.empty_cache()
+
+# the joint v2 BSRNN's train step, as chip_smoke.py's phase 14 (c) times
+# it: its separator's 12 BiLSTMs forward and backward in f32
+from chip_smoke import enroll_fbank, v2_bsrnn, voices
+
+torch.backends.cudnn.allow_tf32 = False
+gen = torch.Generator().manual_seed(0)
+batch = {"wav_mix": voices(16, 48000, gen).cuda(),
+         "wav_targets": voices(16, 48000, gen).cuda(),
+         "spk_embeds": enroll_fbank(16, gen).cuda()}
+model = v2_bsrnn().cuda().train()
+opt = make_optimizer(model, exponential_decrease(
+    num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+    warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0)
+state = TrainState(model=model, optimizer=opt)
+step = make_train_step(parse_loss("SISDR"), compute_dtype=torch.bfloat16)
+out["v2 BSRNN train step 16x3s bf16, f32 separator"] = time_ms(
+    lambda: step(state, batch), 1, 5)
+del model, opt, state, step, batch
+torch.backends.cudnn.allow_tf32 = True
 torch.cuda.empty_cache()
 
 # the fused gLN TCN block (K4, K4b) at SpEx+'s shapes, then SpEx+ itself

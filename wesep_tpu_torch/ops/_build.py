@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 SOURCES = ("bilstm_layer", "bilstm_layer_bwd", "bilstm_unfold",
            "bilstm_unfold_bwd", "lstm_fused", "lstm_fused_bwd",
            "lstm_forward_tc", "lstm_backward_tc", "lstm_forward_f32",
-           "tcn_block",
+           "lstm_backward_f32", "tcn_block",
            "tcn_block_bwd", "conv2d_block",
            "conv2d_block_bwd")  # every csrc/<name>.cu
 

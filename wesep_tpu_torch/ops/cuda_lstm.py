@@ -11,7 +11,8 @@ states when a gradient will be needed) and its backward launches the two
 backward kernels (for a bf16 stream whose shapes `cuda_lstm_tc.forward_fits`
 and `backward_fits` take, the tensor-core kernels of ops/cuda_lstm_tc.py
 instead; for an f32 stream whose shapes `cuda_lstm_f32.f32_forward_fits`
-takes, the forward of ops/cuda_lstm_f32.py); on CPU tensors it runs the
+and `f32_backward_fits` take, the FMA kernels of ops/cuda_lstm_f32.py); on
+CPU tensors it runs the
 plain versions `bilstm_layer_reference` and
 `bilstm_layer_backward_reference`. Anything else raises: there is no
 fallback from a failed build or launch. Every wrapper counts its launches:
@@ -333,13 +334,17 @@ def bilstm_layer_backward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys):
 def _backward_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys):
     """The backward kernels; results as `bilstm_layer_backward_reference`.
     Where `cuda_lstm_tc.backward_fits` takes the shapes (bf16), the
-    tensor-core backward of ops/cuda_lstm_tc.py; otherwise the serial
-    adjoint and weight-gradient kernels of csrc/bilstm_layer_bwd.cu."""
-    from wesep_tpu_torch.ops import cuda_lstm_tc
+    tensor-core backward of ops/cuda_lstm_tc.py; where
+    `cuda_lstm_f32.f32_backward_fits` takes them (f32), the FMA backward of
+    ops/cuda_lstm_f32.py (both through `cuda_lstm_tc.layer_backward`);
+    otherwise the serial adjoint and weight-gradient kernels of
+    csrc/bilstm_layer_bwd.cu."""
+    from wesep_tpu_torch.ops import cuda_lstm_f32, cuda_lstm_tc
 
     d = x.shape[2]
-    if cuda_lstm_tc.backward_fits(x.dtype, d, wh_f.shape[0],
-                                  x.shape[0] * x.shape[1]):
+    hidden, rows = wh_f.shape[0], x.shape[0] * x.shape[1]
+    if cuda_lstm_tc.backward_fits(x.dtype, d, hidden, rows) or \
+            cuda_lstm_f32.f32_backward_fits(x.dtype, d, hidden, rows):
         return cuda_lstm_tc.layer_backward(x, wx_f, b_f, wh_f, wx_b, b_b,
                                            wh_b, ys, cs, dys)
     dx, db, dg = bilstm_layer_backward(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b,

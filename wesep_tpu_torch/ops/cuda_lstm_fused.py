@@ -18,8 +18,9 @@ devices (`BiLSTMFusedFn`, `LSTMFusedFn`). On CUDA tensors they launch the
 kernels (for a bf16 stream whose shapes `cuda_lstm_tc.forward_fits` and
 `backward_fits` take, the tensor-core recurrence and backward of
 ops/cuda_lstm_tc.py; for an f32 stream whose shapes
-`cuda_lstm_f32.f32_forward_fits` takes, the recurrence of
-ops/cuda_lstm_f32.py); on CPU tensors they run the plain versions
+`cuda_lstm_f32.f32_forward_fits` and `f32_backward_fits` take, the
+recurrence, adjoint and dWh of ops/cuda_lstm_f32.py); on CPU tensors they
+run the plain versions
 `bilstm_fused_reference` and `bilstm_fused_backward_reference`,
 `lstm_fused_reference` and `lstm_fused_backward_reference`. Anything else
 raises: there is no fallback from a failed build or launch. Every wrapper counts its launches:
@@ -393,9 +394,12 @@ def _layer_forward(ctx, route, plain, save, reverse, x, flat):
 def _layer_backward(ctx, route, dys):
     """-> (dx, then dWx, db, dWh per direction in the parameters' dtype).
     On the card a bf16 stream whose shapes `cuda_lstm_tc.backward_fits`
-    takes runs the tensor-core adjoint and dWh of ops/cuda_lstm_tc.py,
-    other streams the route's K1b/K2b kernels."""
-    from wesep_tpu_torch.ops import cuda_lstm_tc
+    takes runs the tensor-core adjoint and dWh of ops/cuda_lstm_tc.py, an
+    f32 stream whose shapes `cuda_lstm_f32.f32_backward_fits` takes the FMA
+    adjoint and dWh of ops/cuda_lstm_f32.py (both through
+    `cuda_lstm_tc.fused_backward`), other streams the route's K1b/K2b
+    kernels."""
+    from wesep_tpu_torch.ops import cuda_lstm_f32, cuda_lstm_tc
 
     x, *flat, ys, cs = ctx.saved_tensors
     weights = [flat[i:i + 3] for i in range(0, len(flat), 3)]
@@ -403,8 +407,9 @@ def _layer_backward(ctx, route, dys):
     whs = [wh for _, _, wh in weights]
     dys = dys.to(x.dtype)
     if _on_kernel_path(ctx.plain, x):
-        if cuda_lstm_tc.backward_fits(xw.dtype, 0, whs[0].shape[0],
-                                      xw.shape[1] * xw.shape[2]):
+        hidden, rows = whs[0].shape[0], xw.shape[1] * xw.shape[2]
+        if cuda_lstm_tc.backward_fits(xw.dtype, 0, hidden, rows) or \
+                cuda_lstm_f32.f32_backward_fits(xw.dtype, 0, hidden, rows):
             dxw, dwh, db = cuda_lstm_tc.fused_backward(xw, whs, ys, cs, dys,
                                                        ctx.reverse)
         else:

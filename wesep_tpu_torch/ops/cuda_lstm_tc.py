@@ -29,11 +29,14 @@ A layer takes it where `backward_fits` says so: a bf16 stream, H of 64,
 128, 192 or 256 (4 blocks of a cluster own H / 4 units each), a row of x of
 D % 8 == 0 values (16-byte copies; for the unfold-fused layer C % 8 == 0)
 and B * T <= 65535 * 128 rows. The route decides from the shapes alone,
-before any launch; f32 and other shapes keep the kernels of
+before any launch; other bf16 shapes keep the kernels of
 csrc/bilstm_backward.cuh. Each wrapper launches its kernel on CUDA tensors
 and counts the launch (`.launches`); `split_backward` composes the four
 steps as the card does, from the kernels or, with `plain`, from their plain
-versions, on any device.
+versions, on any device; given f32 operands it composes the f32 backward of
+ops/cuda_lstm_f32.py (FMA kernels, its gate `f32_backward_fits`), so
+`layer_backward`, `unfold_backward` and `fused_backward` serve both
+dtypes.
 
 Rows of A = [x ; h_{t-1}] come from the stream in place (`RowSpec`): rows
 of x [B, T, D]; the frames of unfold(ks, hs) over x [B, L, C], in k-major
@@ -486,7 +489,13 @@ def split_backward(x, spec, wxs, biases, whs, ys, cs, dys, xw=None,
     given) and dW, from the kernels or (`plain`) their plain versions.
     Operands in the stream's dtype and contiguous, biases f32 (None when xw
     gives the gates' start). -> (dx [dirs, B, T, d] or None, dW [dirs, d +
-    H, 4H] f32, db [dirs, 4H] f32, dg [dirs, B, T, 4H])."""
+    H, 4H] f32, db [dirs, 4H] f32, dg [dirs, B, T, 4H]). f32 operands
+    take the FMA kernels of ops/cuda_lstm_f32.py (`split_backward_f32`)."""
+    if whs[0].dtype == torch.float32:
+        from wesep_tpu_torch.ops.cuda_lstm_f32 import split_backward_f32
+
+        return split_backward_f32(x, spec, wxs, biases, whs, ys, cs, dys, xw,
+                                  reverse, plain)
     if plain:
         gates, chain, dx_of, wgrad = (
             lstm_gates_reference, lstm_adjoint_chain_reference,

@@ -222,13 +222,17 @@ def _backward_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ys, cs, dys, ks, hs):
     """The backward kernels and the fold; results as
     `bilstm_layer_unfold_backward_reference`. Where
     `cuda_lstm_tc.backward_fits` takes the shapes (bf16), the tensor-core
-    backward of ops/cuda_lstm_tc.py; otherwise the kernels of
+    backward of ops/cuda_lstm_tc.py; where `cuda_lstm_f32.f32_backward_fits`
+    takes them (f32), the FMA backward of ops/cuda_lstm_f32.py (both through
+    `cuda_lstm_tc.unfold_backward`); otherwise the kernels of
     csrc/bilstm_unfold_bwd.cu."""
-    from wesep_tpu_torch.ops import cuda_lstm_tc
+    from wesep_tpu_torch.ops import cuda_lstm_f32, cuda_lstm_tc
 
     d = ks * x.shape[2]
-    if cuda_lstm_tc.backward_fits(x.dtype, d, wh_f.shape[0],
-                                  x.shape[0] * ys.shape[1], c=x.shape[2]):
+    hidden, rows = wh_f.shape[0], x.shape[0] * ys.shape[1]
+    if cuda_lstm_tc.backward_fits(x.dtype, d, hidden, rows, c=x.shape[2]) \
+            or cuda_lstm_f32.f32_backward_fits(x.dtype, d, hidden, rows,
+                                               c=x.shape[2]):
         return cuda_lstm_tc.unfold_backward(x, wx_f, b_f, wh_f, wx_b, b_b,
                                             wh_b, ys, cs, dys, ks, hs)
     du, db, dg = bilstm_layer_unfold_backward(
