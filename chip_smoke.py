@@ -162,6 +162,32 @@ pass):
    TF-GridNet (4 rows x 3 s) and DPCCN (12 rows x 3 s): a served forward
    and a train step each, with launch counts. Phase 3 also holds the f32
    K0 with cs, K0b and K3/K3b at the v2 TF-GridNet's training shapes.
+15. MetricGAN on DPCCN (examples/librimix/tse/{v1,v2}/confs/
+   dpcc_init_gan.yaml) and BSRNN_Multi (v2 bsrnn_multi_optim.yaml): (a)
+   P.862 (ops/pesq.py) on the card against the same call on the CPU, 4
+   rows x 3 s at 8 and 16 kHz, within 1e-4 MOS, a call timed; (b) the
+   full-width CMGAN discriminator's forward and backward on the card
+   against the CPU (f32, TF32 off; 1e-4 of the largest score, gradients
+   rel. L2 1e-3), u moved by one power step per train-mode call and not in
+   eval mode; (c) bin/train_gan on the v1 conf (full-width DPCCN, the
+   default discriminator, 8 rows x 3 s, f32 as in the JAX package) on the
+   recipe's "xla" route (no K5/K5b) and under conv_impl=pallas (7 f32 K5
+   and 7 f32 K5b a GAN step, 7 K5 a validation step): finite g_loss,
+   se_loss and d_loss, both models' parameters and D's u moved, a run
+   resumed from --checkpoint that restores both models and both
+   optimizers, average_model -> bin/infer; the generator's f32 gradients
+   of the GAN loss through K5/K5b against the plain versions (rel. L2
+   1e-3); the GAN step's time, peak memory and PESQ share on both routes;
+   (d) one GAN step of the v2 conf (ResNet34 on 6 s enrollment fbank), its
+   statistics moved once; (e) BSRNN_Multi through bin/train (full width,
+   ResNet34 on the consistent frontend of 6 s enrollment wavs, bf16, 8
+   rows x 3 s): per train step 24 f32 chains with cs, 24 projections and
+   24 of each f32 backward kernel, per validation step and served forward
+   12 chains and projections; average_model -> bin/infer; the whole
+   model's f32 gradients (both passes, the encoder included) against the
+   plain LSTM's (rel. L2 1e-3); a step's time and peak memory, TF32 off
+   and on. Phase 3 also holds K5/K5b in f32 at the GAN step's rows (4 and
+   8) at the six shapes.
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
@@ -183,6 +209,11 @@ one JSON object describing the kernels, and {"ok": true, "device":
 
 runs phases 1 and 2 for the Conv2dBlock's two sources and phase 3's K5/K5b
 cases only, one JSON line each, and prints no final line.
+
+    python3 chip_smoke.py --only-phase15
+
+runs phases 1 and 2, phase 3's f32 K5/K5b cases at the GAN step's rows and
+phase 15, and prints no final line.
 """
 
 import io
@@ -1585,7 +1616,8 @@ def f32_backward_bounds(rows, d, h, dirs, in_bytes, x_bytes, dx_bytes):
                            + dirs * k * h4 * 4 + db_b, f32)}
 
 
-def old_f32_backward(route, x, flat, xw, ys, cs, dys, ks, wgrad=True):
+def old_f32_backward(route, x, flat, xw, ys, cs, dys, ks, wgrad=True,
+                     hs=1):
     """The route's own FMA backward kernels (`bilstm_bwd_kernel` and, with
     `wgrad`, `bilstm_wgrad_kernel` of csrc/bilstm_backward.cuh), launched
     directly through their wrappers: the layers no longer reach them at
@@ -1599,9 +1631,9 @@ def old_f32_backward(route, x, flat, xw, ys, cs, dys, ks, wgrad=True):
         return out, wgrad and cuda_lstm.bilstm_layer_wgrad(x, ys, out[2])
     if route == "unfold":
         out = cuda_lstm_unfold.bilstm_layer_unfold_backward(
-            x, *flat, ys, cs, dys, ks, 1)
+            x, *flat, ys, cs, dys, ks, hs)
         return out, wgrad and cuda_lstm_unfold.bilstm_layer_unfold_wgrad(
-            x, ys, out[2], ks, 1)
+            x, ys, out[2], ks, hs)
     whs = flat[2::3]
     if route == "two_kernel":
         out = cuda_lstm_fused.bilstm_fused_backward(xw, *whs, ys, cs, dys)
@@ -1610,7 +1642,8 @@ def old_f32_backward(route, x, flat, xw, ys, cs, dys, ks, wgrad=True):
     return out, wgrad and cuda_lstm_fused.lstm_fused_wgrad(ys, out[0])
 
 
-def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None):
+def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None,
+                       hs=1):
     """The f32 backward (gates, adjoint chain, dx, dW) of one LSTM route at
     one f32 training shape (what the joint v2 recipes' steps and the f32
     gradient checks run), f32 parameters, on the plain forward's saved
@@ -1624,7 +1657,7 @@ def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None):
     backward (TF32 off) and the route's own FMA kernels (launched
     directly, the old path: its adjoint, its dW and the two).
 
-    route: "layer" (K0b), "unfold" (K3b, x [B', L, 48], hs 1, T the
+    route: "layer" (K0b), "unfold" (K3b, x [B', L, 48], hop `hs`, T the
     frames), "two_kernel" (K2b) or "unidirectional" (K1b; both xw from x
     [B, T, d] as the layers project it, cuDNN's yardstick over that x).
     Limits, the f32 ones of the FMA kernels: every result within 1e-4 of
@@ -1649,10 +1682,10 @@ def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None):
     if route == "unfold":
         x = torch.randn(batch, length, GRID_C, generator=gen).cuda()
         ys, cs = cuda_lstm_unfold.bilstm_layer_unfold_reference(
-            x, *flat, ks, 1, return_cs=True)
-        spec = tc.RowSpec(tc.ROW_UNFOLD, d, length, GRID_C, 1)
+            x, *flat, ks, hs, return_cs=True)
+        spec = tc.RowSpec(tc.ROW_UNFOLD, d, length, GRID_C, hs)
         wxs = [tc.to_k_major(w, GRID_C, ks).contiguous() for w in wx32]
-        x_lib = cuda_lstm_unfold.unfold_frames(x, ks, 1)
+        x_lib = cuda_lstm_unfold.unfold_frames(x, ks, hs)
     elif route == "layer":
         x = (torch.randn(batch, t_len, d, generator=gen) * 0.2).cuda()
         ys, cs = cuda_lstm.bilstm_layer_reference(x, *flat, return_cs=True)
@@ -1724,8 +1757,8 @@ def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None):
         names = ("dx", "dwx_f", "db_f", "dwh_f", "dwx_b", "db_b", "dwh_b")
     elif route == "unfold":
         want = cuda_lstm_unfold.bilstm_layer_unfold_backward_reference(
-            x, *flat, ys, cs, dys, ks, 1)
-        got = cuda_lstm_unfold._backward_cuda(x, *flat, ys, cs, dys, ks, 1)
+            x, *flat, ys, cs, dys, ks, hs)
+        got = cuda_lstm_unfold._backward_cuda(x, *flat, ys, cs, dys, ks, hs)
         names = ("dx", "dwx_f", "db_f", "dwh_f", "dwx_b", "db_b", "dwh_b")
     else:
         want = cuda_lstm_fused._adjoint_reference(xw, whs, False, ys, cs,
@@ -1775,13 +1808,13 @@ def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None):
                 "backward": time_ms(run, 1, 5)}
 
     # the old path: the route's own FMA kernels, launched directly
-    old = old_f32_backward(route, x, flat, xw, ys, cs, dys, ks)
+    old = old_f32_backward(route, x, flat, xw, ys, cs, dys, ks, hs=hs)
     del old
     old_ms = {
         "adjoint": time_ms(lambda: old_f32_backward(
-            route, x, flat, xw, ys, cs, dys, ks, wgrad=False), 1, 3)}
+            route, x, flat, xw, ys, cs, dys, ks, wgrad=False, hs=hs), 1, 3)}
     old_ms["backward"] = time_ms(lambda: old_f32_backward(
-        route, x, flat, xw, ys, cs, dys, ks), 1, 3)
+        route, x, flat, xw, ys, cs, dys, ks, hs=hs), 1, 3)
     old_ms["wgrad"] = old_ms["backward"] - old_ms["adjoint"]
 
     # cuDNN's whole f32 backward over the same rows (the frames for K3;
@@ -1813,6 +1846,7 @@ def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None):
             "bound_ms": bounds[kname][0], "bound_by": bounds[kname][1]}
     kernels["lstm_f32_wgrad"]["library_per_direction_ms"] = wgrad_apart_ms
     case = {"route": route, "shape": name, "dtype": "float32", "dirs": dirs,
+            "hs": hs,
             "T": frames, "B": batch, "D": spec.d, "H": h, "rows": rows,
             "rows_per_cluster": per_cluster,
             "repeats_bit_for_bit": repeats, "whole_rel_err": whole,
@@ -4918,6 +4952,775 @@ def check_v2_others():
     return out
 
 
+# --- phase 15: MetricGAN on DPCCN (examples/librimix/tse/{v1,v2}/confs/
+# dpcc_init_gan.yaml) and BSRNN_Multi (v2 bsrnn_multi_optim.yaml) ----------
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+GAN_CONF = {v: os.path.join(HERE, f"examples/librimix/tse/{v}/confs/"
+                            "dpcc_init_gan.yaml") for v in ("v1", "v2")}
+MULTI_CONF = os.path.join(HERE, "examples/librimix/tse/v2/confs/"
+                          "bsrnn_multi_optim.yaml")
+GAN_BATCH = 4       # the conf's batch_size: 8 rows of 3 s a GAN step
+# in_bias_0's gradient, card vs CPU, rel. L2 of its own norm: 1.56e-3
+# measured on an H100 80GB HBM3 at 700 W, where a planted fault reads 0.94
+# (PERF.md, the discriminator's limits)
+DISC_IN_BIAS0_LIMIT = 5e-3
+GAN_STEPS = 2       # epoch_iter of each train_gan run
+GAN_W = 0.05        # the confs' gan_loss_weight
+PESQ_LIMIT = 1e-4   # MOS, the card against the CPU
+MULTI_BATCH = 4     # 8 rows x 3 s a BSRNN_Multi step
+MULTI_STEPS = 2
+MULTI_TABLE = ([[0, 1]], [[0.4, 0.6]])  # the conf's loss table
+MULTI_PASS = 2 * V1_MODEL_ARGS["num_repeat"]  # BiLSTMs a separation pass
+MULTI_GRAD_SEEDS = 3
+# The encoder's gradients over both passes, kernels vs plain LSTM: the
+# second pass embeds the fbank of the first estimate, which magnifies the
+# estimate's rounding. Set from readings on an H100 80GB HBM3 at 700 W:
+# the sound runs' largest over MULTI_GRAD_SEEDS seeds 2.3e-2, a planted
+# fault's smallest 6.4e-2 and median 0.10 (PERF.md, BSRNN_Multi's
+# limits).
+MULTI_ENCODER_LIMIT = 5e-2
+
+
+def check_pesq():
+    """Phase 15 (a): P.862 on the card against the same call on the CPU,
+    4 rows x 3 s at 8 and 16 kHz (degraded at 40 ... 0 dB SNR), and the
+    time of a call."""
+    from wesep_tpu_torch.ops.pesq import pesq_batch, pesq_norm_batch
+
+    out = {}
+    for fs in (8000, 16000):
+        gen = torch.Generator().manual_seed(SEED + 40)
+        n = 3 * fs
+        ref = voices(4, n, gen)
+        noise = torch.randn(4, n, generator=gen)
+        snr = torch.tensor([40.0, 20.0, 10.0, 0.0])[:, None]
+        noise = noise * (ref.square().mean(-1, keepdim=True)
+                         / noise.square().mean(-1, keepdim=True)).sqrt() \
+            * 10 ** (-snr / 20)
+        deg = ref + noise
+        want, want_ok = pesq_norm_batch(deg, ref, fs)
+        ref_c, deg_c = ref.cuda(), deg.cuda()
+        got, ok = pesq_norm_batch(deg_c, ref_c, fs)
+        err = ((got.cpu() - want) * 5).abs().max().item()  # in MOS
+        card_ms = time_ms(lambda: pesq_batch(ref_c, deg_c, fs), 2, 10)
+        t0 = time.perf_counter()
+        pesq_batch(ref, deg, fs)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        out[fs] = {"mos": (want * 5 - 0.5).tolist(), "max_err_mos": err,
+                   "valid_equal": torch.equal(ok.cpu(), want_ok),
+                   "card_ms": card_ms, "cpu_ms": cpu_ms}
+        log(f"P.862 at {fs} Hz, 4 x 3 s: MOS {out[fs]['mos']}, card vs CPU "
+            f"max error {err:.3e} MOS (limit {PESQ_LIMIT}); a call "
+            f"{card_ms:.3f} ms on the card, {cpu_ms:.1f} ms on the CPU")
+        if not (err <= PESQ_LIMIT and out[fs]["valid_equal"]):
+            raise AssertionError(f"P.862 on the card disagrees: {out[fs]}")
+    return out
+
+
+def check_discriminator():
+    """Phase 15 (b): the full-width CMGAN discriminator (hid 16, 4 conv
+    blocks) forward and backward on the card against the CPU (f32, TF32
+    off), 8 rows x 3 s, one dropout mask; u moves by one power step per
+    train-mode call and not in eval mode."""
+    from wesep_tpu_torch.models.discriminator import (
+        CMGANDiscriminator,
+        SpectralNormed,
+    )
+
+    torch.manual_seed(SEED)
+    cpu_d = CMGANDiscriminator()
+    card_d = CMGANDiscriminator()
+    init = {k: v.clone() for k, v in cpu_d.state_dict().items()}
+    card_d.load_state_dict(init)
+    card_d = card_d.cuda()
+    gen = torch.Generator().manual_seed(SEED + 41)
+    rows = 2 * GAN_BATCH
+    ref = voices(rows, CHUNK, gen)
+    est = ref + 0.05 * torch.randn(rows, CHUNK, generator=gen)
+    mask = cpu_d.dropout_mask(rows, torch.Generator().manual_seed(3), "cpu")
+    u0 = {n: m.u.clone() for n, m in cpu_d.named_modules()
+          if isinstance(m, SpectralNormed)}
+    res = []
+    for model, dev in ((cpu_d, "cpu"), (card_d, "cuda")):
+        model.train()
+        out = model(ref.to(dev), est.to(dev), [m.to(dev) for m in mask])
+        grads = torch.autograd.grad(out.sum(), list(model.parameters()))
+        res.append((out.detach().cpu(), [g.cpu() for g in grads]))
+    (want, want_g), (got, got_g) = res
+    err = (got - want).abs().max().item() / want.abs().max().item()
+    # every parameter by relative L2 1e-3 of its own gradient but in_bias_0,
+    # held to DISC_IN_BIAS0_LIMIT: the next block's instance norm removes
+    # its per-channel shift but for the PReLU's kink and the conv's zero
+    # padding, so its gradient is a sum of ~2e5 terms a channel that cancels
+    # to 0.6 % of the whole norm, which cuDNN and the CPU add in other
+    # orders; a planted fault (PReLU 0's input gradient 1 on its negative
+    # side, on the CPU) must read above that limit
+    names = [n for n, _ in card_d.named_parameters()]
+    rel = {n: rel_l2(g, w) for n, g, w in zip(names, got_g, want_g)}
+    limit = {n: DISC_IN_BIAS0_LIMIT if n == "in_bias_0" else 1e-3
+             for n in names}
+    worst = max((n for n in names if n != "in_bias_0"), key=rel.get)
+    fault_d = CMGANDiscriminator()
+    fault_d.load_state_dict(init)
+    prelu = fault_d.prelu_0
+    prelu.forward = lambda x: torch.where(
+        x >= 0, x, x + ((prelu.alpha - 1) * x).detach())
+    fault_g, = torch.autograd.grad(
+        fault_d.train()(ref, est, mask).sum(), fault_d.in_bias_0)
+    fault_rel = rel_l2(fault_g, want_g[names.index("in_bias_0")])
+    # one power step from the initial u, in flax's matrix layout
+    step_err = 0.0
+    for name, m in card_d.named_modules():
+        if name not in u0:
+            continue
+        mat = m.flax_matrix().detach().cpu()
+        v = u0[name] @ mat.t()
+        v = v * torch.rsqrt(v.square().sum() + 1e-12)
+        u = v @ mat
+        u = u * torch.rsqrt(u.square().sum() + 1e-12)
+        step_err = max(step_err, (m.u.cpu() - u).abs().max().item())
+    after = {n: m.u.clone() for n, m in card_d.named_modules() if n in u0}
+    with torch.no_grad():
+        card_d.eval()(ref.cuda(), est.cuda())
+    eval_kept = all(torch.equal(m.u, after[n])
+                    for n, m in card_d.named_modules() if n in u0)
+    card_d.train()
+    r, e = ref.cuda(), est.cuda()
+    cmask = [m.cuda() for m in mask]
+    params = list(card_d.parameters())
+    both_ms = time_ms(lambda: torch.autograd.grad(
+        card_d(r, e, cmask).sum(), params), 2, 10)
+    summary = {"rows": rows, "max_err_rel_largest": err,
+               "grad_rel_l2": rel, "in_bias_0_fault_rel_l2": fault_rel,
+               "u_one_step_err": step_err, "eval_keeps_u": eval_kept,
+               "forward_backward_ms": both_ms}
+    log(f"CMGAN discriminator [8 x 3 s] card vs CPU: score error "
+        f"{err:.3e} of the largest (limit 1e-4), gradients worst rel L2 "
+        f"{rel[worst]:.3e} at {worst} (limit 1e-3), in_bias_0 "
+        f"{rel['in_bias_0']:.3e} (limit {DISC_IN_BIAS0_LIMIT:.0e}; the "
+        f"planted fault {fault_rel:.3e}); u after one train call against "
+        f"one power step {step_err:.3e}, eval keeps u {eval_kept}; forward + "
+        f"backward {both_ms:.3f} ms; by parameter {json.dumps(rel)}")
+    if not (err <= 1e-4 and all(rel[n] <= limit[n] for n in names)
+            and fault_rel > DISC_IN_BIAS0_LIMIT and step_err <= 1e-5
+            and eval_kept):
+        raise AssertionError(f"discriminator on the card: {summary}")
+    return summary
+
+
+def gan_overrides(exp_dir, tr, va, steps, epochs=1):
+    """`--set` overrides of dpcc_init_gan.yaml for the synthetic shards."""
+    return [f"exp_dir={exp_dir}", "device=cuda",
+            f"train_data={tr['data']}", f"train_utt2spk={tr['utt2spk']}",
+            f"train_spk_embeds={tr['spk_embeds']}",
+            f"val_data={va['data']}", f"val_spk_embeds={va['spk_embeds']}",
+            f"val_spk1_enroll={va['spk1_enroll']}",
+            f"val_spk2_enroll={va['spk2_enroll']}",
+            f"num_epochs={epochs}", "log_batch_interval=1",
+            f"dataset_args.sample_num_per_epoch={steps * GAN_BATCH}"]
+
+
+class FirstStates:
+    """Wraps trainer_gan.make_gan_train_step: keeps copies of both models'
+    state and both optimizers' counts and moments as the first GAN step of
+    a run finds them."""
+
+    def __enter__(self):
+        from wesep_tpu_torch.train import trainer_gan
+
+        self.module, self.real = trainer_gan, trainer_gan.make_gan_train_step
+        self.seen = {}
+        seen = self.seen
+
+        def wrapped(*args, **kw):
+            step = self.real(*args, **kw)
+
+            def first(states, batch):
+                if not seen:
+                    for tag, st in zip("gd", states):
+                        seen[tag] = {n: v.detach().cpu().clone() for n, v
+                                     in st.model.state_dict().items()}
+                        seen[tag + "_opt"] = {
+                            "count": st.optimizer.count,
+                            "mu": {n: t.cpu().clone() for n, t in
+                                   st.optimizer.mu.items()}}
+                return step(states, batch)
+
+            return first
+
+        trainer_gan.make_gan_train_step = wrapped
+        return seen
+
+    def __exit__(self, *exc):
+        self.module.make_gan_train_step = self.real
+
+
+def gan_log_losses(exp_dir):
+    with open(os.path.join(exp_dir, "train.log")) as f:
+        text = f.read()
+    return [tuple(float(v) for v in m) for m in re.findall(
+        r"Epoch \d+ g_loss (\S+) se_loss (\S+) d_loss (\S+) val (\S+)",
+        text)]
+
+
+def gan_loss_grads(gen, disc, batch):
+    """Gradients of the GAN step's generator loss (SE + GAN_W * (D(clean,
+    est) - 1)^2 through D in eval mode) w.r.t. every generator parameter."""
+    from wesep_tpu_torch.train.losses import si_sdr_loss
+
+    names, params = zip(*gen.named_parameters())
+    est = gen(batch["wav_mix"], batch["spk_embeds"])[0]
+    score = disc.eval()(batch["wav_targets"], est).reshape(-1)
+    loss = si_sdr_loss(est, batch["wav_targets"]).mean() \
+        + GAN_W * (score - 1).square().mean()
+    return dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def gan_states(gen, disc):
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import TrainState, make_optimizer
+
+    def state(model, lr):
+        return TrainState(model, make_optimizer(model, exponential_decrease(
+            num_epochs=50, epoch_iter=100, initial_lr=lr, final_lr=2.5e-5,
+            warm_up_epoch=0), weight_decay=1e-4, clip_grad=DPCCN_CLIP))
+
+    return state(gen, 1e-4), state(disc, 1e-3)
+
+
+def train_gan_dpccn(root):
+    """Phase 15 (c), (d): bin/train_gan on v1 dpcc_init_gan.yaml (DPCCN at
+    full width, the default discriminator, 8 rows x 3 s, f32) on the
+    recipe's "xla" route and under conv_impl=pallas (7 K5 and 7 K5b a GAN
+    step, 7 K5 a validation step); a resumed run; average_model ->
+    bin/infer; the generator's f32 gradients through K5/K5b against the
+    plain versions; the GAN step's time, peak memory and PESQ share on
+    both routes; then one GAN step of the v2 conf (ResNet34 on 6 s
+    enrollment fbank)."""
+    from functools import partial
+
+    from wesep_tpu_torch.bin import average_model
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.bin.train_gan import train_gan
+    from wesep_tpu_torch.models.discriminator import CMGANDiscriminator
+    from wesep_tpu_torch.models.dpccn import DPCCN
+    from wesep_tpu_torch.train.checkpoint import load_checkpoint
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.trainer_gan import (
+        make_gan_train_step,
+        metric_pesq,
+    )
+
+    tag = "train_gan DPCCN"
+    rng = np.random.default_rng(SEED + 42)
+    tr, _ = write_shard(root, rng, "gantrain", [4.0] * (2 * GAN_BATCH))
+    va, va_lengths = write_shard(root, rng, "gandev", [3.5] * GAN_BATCH)
+    val_steps = 1  # 8 validation enrollments / 2 / batch_size 4
+    runs = {}
+    for route in ("xla", "pallas"):
+        exp = os.path.join(root, f"exp_gan_{route}")
+        overrides = gan_overrides(exp, tr, va, GAN_STEPS)
+        if route == "pallas":
+            overrides.append("model_args.tse_model.conv_impl=pallas")
+        zero_conv_counts()
+        t0 = time.perf_counter()
+        with FirstStates() as first:
+            g_state, d_state = train_gan(GAN_CONF["v1"], overrides=overrides)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_conv_counts()
+        fused = DPCCN_FUSED if route == "pallas" else 0
+        want = {"conv2d_block_in": fused * (GAN_STEPS + val_steps),
+                "conv2d_block_in_backward": fused * GAN_STEPS}
+        losses = gan_log_losses(exp)
+        moved = {t: [n for n, v in m.state_dict().items()
+                     if torch.equal(v.cpu(), first[t][n])
+                     and not n.endswith(DPCCN_NOISE_ONLY)]
+                 for t, m in (("g", g_state.model), ("d", d_state.model))}
+        u_moved = all(not torch.equal(b.cpu(), first["d"][n])
+                      for n, b in d_state.model.named_buffers()
+                      if n.endswith(".u"))
+        log(f"{tag} ({route} route): {GAN_STEPS} GAN steps + {val_steps} "
+            f"validation step through bin/train_gan in {wall:.3f} s wall; "
+            f"launches {launches} (expected {want}); epoch (g_loss, se_loss, "
+            f"d_loss, val) {losses}; unchanged G / D entries {moved}, D's u "
+            f"moved {u_moved}")
+        if launches != want:
+            raise AssertionError(f"{tag} ({route}): launches {launches}")
+        if not (len(losses) == 1 and all(math.isfinite(v)
+                                          for v in losses[0])):
+            raise AssertionError(f"{tag} ({route}): losses {losses}")
+        if moved["g"] or moved["d"] or not u_moved \
+                or g_state.step != GAN_STEPS:
+            raise AssertionError(f"{tag} ({route}): parameters that did not "
+                                 f"move {moved}")
+        runs[route] = {"wall_s": wall, "losses": losses[0],
+                       "launches": launches}
+        del g_state, d_state
+
+    # a run resumed from the pallas run's checkpoint_1: both models and both
+    # optimizers as the bundle holds them
+    ckpt = os.path.join(root, "exp_gan_pallas", "models", "checkpoint_1.ckpt")
+    exp = os.path.join(root, "exp_gan_resume")
+    overrides = gan_overrides(exp, tr, va, GAN_STEPS, epochs=2) + [
+        "model_args.tse_model.conv_impl=pallas"]
+    with FirstStates() as first:
+        g_state, d_state = train_gan(GAN_CONF["v1"], checkpoint=ckpt,
+                                     overrides=overrides)
+    bundle = load_checkpoint(ckpt)
+    restored = all(
+        torch.equal(first[t][n], v)
+        for i, t in enumerate("gd")
+        for part in (bundle["models"][i], bundle["batch_stats"][i])
+        for n, v in part.items()) and all(
+        first[t + "_opt"]["count"] == GAN_STEPS
+        and all(torch.equal(first[t + "_opt"]["mu"][n], v)
+                for n, v in bundle["opt_states"][i]["mu"].items())
+        for i, t in enumerate("gd"))
+    if not (restored and g_state.step == d_state.step == 2 * GAN_STEPS):
+        raise AssertionError(f"{tag}: the resumed run did not restore both "
+                             "models and optimizers")
+    del g_state, d_state
+    avg = os.path.join(root, "gan_avg.ckpt")
+    average_model.main(["--dst_model", avg, "--src_path",
+                        os.path.join(exp, "models"), "--num", "1"])
+    sisnr, _ = infer({
+        "model": {"tse_model": "DPCCN"},
+        "model_args": {"tse_model": dict(DPCCN_MODEL_ARGS)},
+        "data_type": "shard", "dataset_args": {"resample_rate": 16000},
+        "exp_dir": os.path.join(root, "exp_gan_infer"), "checkpoint": avg,
+        "save_wav": False, "device": "cuda", "length_bucket": BUCKET,
+        "test_data": va["data"], "test_spk_embeds": va["spk_embeds"],
+        "test_spk1_enroll": va["spk1_enroll"],
+        "test_spk2_enroll": va["spk2_enroll"]})
+    if not math.isfinite(sisnr):
+        raise AssertionError(f"{tag}: bin/infer from the average: {sisnr}")
+    log(f"{tag}: resumed from checkpoint_1 with both models and optimizers "
+        f"restored; average_model -> bin/infer decoded "
+        f"{2 * len(va_lengths)} requests, avg SI-SNR {sisnr:.3f} dB")
+
+    # the generator's f32 gradients through K5/K5b against the plain
+    # versions (the GAN step's generator loss through a fixed D, 2 rows)
+    gen = torch.Generator().manual_seed(SEED + 43)
+    torch.manual_seed(SEED)
+    init_state = DPCCN(**DPCCN_MODEL_ARGS).state_dict()
+    torch.manual_seed(SEED + 1)
+    disc = CMGANDiscriminator().cuda()
+    g = dpccn_model("pallas", init_state).train()
+    small = {"wav_mix": (torch.randn(2, CHUNK, generator=gen) * 0.1).cuda(),
+             "wav_targets": (torch.randn(2, CHUNK, generator=gen)
+                             * 0.1).cuda(),
+             "spk_embeds": torch.randn(2, 256, generator=gen).cuda()}
+    zero_conv_counts()
+    got = gan_loss_grads(g, disc, small)
+    counts = read_conv_counts()
+    set_plain(conv_blocks(g), True)
+    want = gan_loss_grads(g, disc, small)
+    set_plain(conv_blocks(g), False)
+    total = torch.cat([w.flatten() for w in want.values()]).norm().item()
+    weak = DPCCN_NOISE_ONLY + DPCCN_NEAR_CANCELLING
+    rel = {n: rel_l2(got[n], want[n]) for n in want if not n.endswith(weak)}
+    noise = {n: (got[n] - want[n]).norm().item() / total for n in want
+             if n.endswith(weak)}
+    worst, worst_noise = max(rel, key=rel.get), max(noise, key=noise.get)
+    log(f"{tag}: generator f32 gradients of the GAN loss, K5/K5b ({counts}) "
+        f"vs plain: worst rel L2 {rel[worst]:.3e} at {worst} (limit 1e-3); "
+        f"noise-only and near-cancelling leaves {noise[worst_noise]:.3e} of "
+        f"the norm at {worst_noise} (limit 1e-5)")
+    if counts != {"conv2d_block_in": DPCCN_FUSED,
+                  "conv2d_block_in_backward": DPCCN_FUSED} or not (
+            rel[worst] <= 1e-3 and noise[worst_noise] <= 1e-5):
+        raise AssertionError(f"{tag}: gradients {rel[worst]} "
+                             f"{noise[worst_noise]} {counts}")
+    del got, want, g
+
+    # the GAN step at the recipe's size, each route: time, peak memory,
+    # launches, and the PESQ targets' share
+    rows = 2 * GAN_BATCH
+    batch = {"wav_mix": voices(rows, CHUNK, gen).cuda(),
+             "wav_targets": voices(rows, CHUNK, gen).cuda(),
+             "spk_embeds": torch.randn(rows, 256, generator=gen).cuda()}
+    metric = partial(metric_pesq, fs=16000)
+    step = make_gan_train_step(parse_loss("SISDR"), gan_loss_weight=GAN_W,
+                               metric_fn=metric, seed=42)
+    timed = {}
+    for route in ("xla", "pallas"):
+        torch.manual_seed(SEED + 1)
+        states = gan_states(dpccn_model(route, init_state),
+                            CMGANDiscriminator().cuda())
+        zero_conv_counts()
+        _, m = step(states, batch)
+        per_step = read_conv_counts()
+        fused = DPCCN_FUSED if route == "pallas" else 0
+        if per_step != {"conv2d_block_in": fused,
+                        "conv2d_block_in_backward": fused} or not all(
+                math.isfinite(float(v)) for v in m.values()):
+            raise AssertionError(f"{tag}: one GAN step ({route}): "
+                                 f"{per_step} {m}")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = time_ms(lambda: step(states, batch), 1, 5)
+        peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            est = states[0].model(batch["wav_mix"], batch["spk_embeds"])[0]
+        pesq_ms = time_ms(lambda: (metric(batch["wav_mix"],
+                                          batch["wav_targets"]),
+                                   metric(est, batch["wav_targets"])), 2, 10)
+        timed[route] = {"step_ms": step_ms, "peak_memory_bytes": peak,
+                        "pesq_ms": pesq_ms, "pesq_share": pesq_ms / step_ms,
+                        "audio_s_per_s": rows * 3.0 / (step_ms / 1e3),
+                        "launches_per_step": per_step}
+        log(f"{tag} ({route} route): GAN step [8 rows x 3 s, f32] "
+            f"{step_ms:.3f} ms, {timed[route]['audio_s_per_s']:.1f} "
+            f"audio-s/s, peak memory {peak / 2 ** 30:.2f} GiB; its two PESQ "
+            f"target calls {pesq_ms:.3f} ms ({100 * pesq_ms / step_ms:.1f} "
+            f"%); launches {per_step}")
+        del states, est
+
+    # (d) one GAN step of the v2 conf: ResNet34 on 6 s enrollment fbank,
+    # its statistics moved once (one generator forward a step)
+    from wesep_tpu_torch.models.common import BatchNorm
+
+    g = v2_other_model("DPCCN")
+    torch.manual_seed(SEED + 1)
+    states = gan_states(g, CMGANDiscriminator().cuda())
+    norms = {n: mod for n, mod in g.named_modules()
+             if isinstance(mod, BatchNorm)}
+    seen = {n: [] for n in norms}
+
+    def record(name):
+        def hook(module, args):
+            x = args[0].float()
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            seen[name].append((mean, ((x * x).mean(dim=axes) - mean * mean)
+                               .clamp_min(0.0)))
+        return hook
+
+    before = {n: (mod.mean.clone(), mod.var.clone())
+              for n, mod in norms.items()}
+    hooks = [mod.register_forward_pre_hook(record(n))
+             for n, mod in norms.items()]
+    v2 = v2_batch(rows, gen)
+    _, m = step(states, v2)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    once = max(
+        max(rel_err(mod.mean, 0.9 * before[n][0] + 0.1 * seen[n][0][0]),
+            rel_err(mod.var, 0.9 * before[n][1] + 0.1 * seen[n][0][1]))
+        for n, mod in norms.items())
+    calls = {len(v) for v in seen.values()}
+    v2_losses = {k: float(v) for k, v in m.items()}
+    v2_ms = time_ms(lambda: step(states, v2), 0, 3)
+    log(f"{tag}: v2 GAN step [8 rows x 3 s, fbank 598 x 80] {v2_ms:.3f} "
+        f"ms; losses {v2_losses}; each of {len(norms)} BatchNorms ran "
+        f"{calls} times, its statistics moved once (error {once:.3e}, limit "
+        "1e-5)")
+    if not (calls == {1} and once <= 1e-5
+            and all(math.isfinite(v) for v in v2_losses.values())):
+        raise AssertionError(f"{tag}: v2 GAN step {v2_losses} {calls} {once}")
+    return runs["pallas"]["launches"], {
+        "runs": runs, "infer_sisnr": sisnr,
+        "grad_rel_l2_worst": rel[worst],
+        "noise_only_grad_err_worst": noise[worst_noise], "steps": timed,
+        "v2_step_ms": v2_ms, "v2_losses": v2_losses, "v2_stats_err": once}
+
+
+def multi_grads(model, mix, enroll, target, table=MULTI_TABLE):
+    """Gradients of a loss table (the conf's: 0.4 SI-SDR of s + 0.6 of
+    self_s) w.r.t. every parameter, by name."""
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.trainer import weighted_loss
+
+    names, params = zip(*model.named_parameters())
+    loss = weighted_loss(model(mix, enroll), target, None,
+                         parse_loss("SISDR"), *table)
+    return dict(zip(names, torch.autograd.grad(loss, params)))
+
+
+def check_multi_grads(model_args, tag):
+    """The whole BSRNN_Multi's f32 gradients through the kernels against
+    the plain LSTM's, 2 rows x 3 s: (1) the first pass's loss alone, every
+    parameter, the encoder's included, rel. L2 1e-3; (2) the conf's loss
+    over both passes, for MULTI_GRAD_SEEDS seeds of weights and inputs:
+    the separator's parameters rel. L2 1e-3, the encoder's
+    MULTI_ENCODER_LIMIT; (3) a planted fault, the second pass's gradient
+    into the encoder dropped, must read above that limit. Returns the first
+    seed's model, its initial state, its input generator, the launches of
+    one both-pass gradient, and the readings."""
+    from wesep_tpu_torch.models.bsrnn_multi_optim import BSRNN_Multi
+    from wesep_tpu_torch.models.common import LSTM
+
+    lstms = []
+
+    def grads(model, init_state, inputs, plain, table, drop_pass2=False):
+        for m in lstms:
+            m.plain = plain
+        model.load_state_dict(init_state)  # the statistics move each pass
+        if drop_pass2:
+            embed = model._spk_embedding
+
+            def dropped(cue, from_waveform=False):
+                e, logits = embed(cue, from_waveform)
+                return (e.detach() if from_waveform else e), logits
+            model._spk_embedding = dropped
+        try:
+            return multi_grads(model, *inputs, table)
+        finally:
+            if drop_pass2:
+                del model._spk_embedding
+            for m in lstms:
+                m.plain = False
+
+    def enc(names):
+        return [n for n in names if n.startswith("spk_model_net.")]
+
+    readings = []
+    for k in range(MULTI_GRAD_SEEDS):
+        gen = torch.Generator().manual_seed(SEED + 45 + k)
+        torch.manual_seed(SEED + k)
+        model = BSRNN_Multi(**model_args)
+        seed_statistics(model, SEED + k)
+        init_state = {n: v.clone() for n, v in model.state_dict().items()}
+        model = model.cuda().train()
+        lstms[:] = [m for m in model.modules() if isinstance(m, LSTM)]
+        inputs = (voices(2, CHUNK, gen).cuda(),
+                  voices(2, int(ENROLL_SECONDS * 16000), gen).cuda(),
+                  voices(2, CHUNK, gen).cuda())
+        if k == 0:
+            first_pass = ([[0]], [[MULTI_TABLE[1][0][0]]])
+            rel1 = {n: rel_l2(g, w) for (n, g), w in zip(
+                grads(model, init_state, inputs, False, first_pass).items(),
+                grads(model, init_state, inputs, True, first_pass).values())}
+            zero_counts()
+        got = grads(model, init_state, inputs, False, MULTI_TABLE)
+        if k == 0:
+            grad_counts = read_counts()
+            expect_counts(grad_counts, 2 * MULTI_PASS, 2 * MULTI_PASS,
+                          "layer", f"{tag}: f32 gradients", f32=True)
+        want = grads(model, init_state, inputs, True, MULTI_TABLE)
+        readings.append({n: rel_l2(got[n], want[n]) for n in want})
+        if k == 0:
+            fault = grads(model, init_state, inputs, False, MULTI_TABLE,
+                          drop_pass2=True)
+            fault_rel = {n: rel_l2(fault[n], want[n]) for n in enc(want)}
+            keep = (model, init_state, gen)
+        del got, want
+    model, init_state, gen = keep
+    worst1 = max(rel1, key=rel1.get)
+    sep = {n: max(r[n] for r in readings) for n in readings[0]
+           if not n.startswith("spk_model_net.")}
+    encr = {n: max(r[n] for r in readings) for n in enc(readings[0])}
+    worst, enc_worst = max(sep, key=sep.get), max(encr, key=encr.get)
+    enc_by_seed = [max(r[n] for n in encr) for r in readings]
+    fault_worst = max(fault_rel, key=fault_rel.get)
+    fault_caught = [n for n in fault_rel if fault_rel[n] > MULTI_ENCODER_LIMIT]
+    log(f"{tag}: gradients of {len(sep) + len(encr)} parameters, kernels vs "
+        f"plain LSTM (f32): the first pass's loss: worst rel L2 "
+        f"{rel1[worst1]:.3e} at {worst1} (limit 1e-3); both passes, "
+        f"{MULTI_GRAD_SEEDS} seeds: the separator's worst {sep[worst]:.3e} "
+        f"at {worst} (limit 1e-3), the encoder's worst by seed "
+        f"{[f'{v:.3e}' for v in enc_by_seed]}, over all {encr[enc_worst]:.3e}"
+        f" at {enc_worst} (limit {MULTI_ENCODER_LIMIT:.0e}); planted fault "
+        f"(the second pass's gradient into the encoder dropped): worst "
+        f"{fault_rel[fault_worst]:.3e} at {fault_worst}, median "
+        f"{sorted(fault_rel.values())[len(fault_rel) // 2]:.3e}, smallest "
+        f"{min(fault_rel.values()):.3e}, "
+        f"{len(fault_caught)} of {len(fault_rel)} encoder parameters above "
+        f"the limit")
+    if (rel1[worst1] > 1e-3 or sep[worst] > 1e-3
+            or encr[enc_worst] > MULTI_ENCODER_LIMIT or not fault_caught):
+        raise AssertionError(f"{tag}: gradients differ: {worst1} "
+                             f"{rel1[worst1]}; {worst} {sep[worst]}; "
+                             f"{enc_worst} {encr[enc_worst]}; the planted "
+                             f"fault caught at {len(fault_caught)}")
+    del fault
+    return model, init_state, gen, grad_counts, {
+        "first_pass_grad_rel_l2_worst": rel1[worst1],
+        "separator_grad_rel_l2_worst": sep[worst],
+        "encoder_grad_rel_l2_by_seed": enc_by_seed,
+        "encoder_grad_limit": MULTI_ENCODER_LIMIT,
+        "encoder_fault_rel_l2": fault_rel[fault_worst],
+        "encoder_fault_caught": len(fault_caught)}
+
+
+def train_bsrnn_multi(root):
+    """Phase 15 (e): bin/train on v2 bsrnn_multi_optim.yaml (full width,
+    ResNet34 on the consistent frontend of 6 s enrollment wavs, bf16, 8
+    rows x 3 s): 24 f32 chains with cs, 24 projections and 24 of each f32
+    backward kernel a train step, 12 chains and projections a validation
+    step and a served forward; average_model -> bin/infer; the whole
+    model's f32 gradients through the kernels against the plain LSTM's; a
+    step's time and peak memory, TF32 off and on."""
+    import yaml
+
+    from wesep_tpu_torch.bin import average_model
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.bin.train import train
+    from wesep_tpu_torch.models.bsrnn_multi_optim import BSRNN_Multi
+    from wesep_tpu_torch.models.common import LSTM
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    tag = "train BSRNN_Multi"
+    with open(MULTI_CONF) as f:
+        conf = yaml.safe_load(f)
+    rng = np.random.default_rng(SEED + 44)
+    tr, _ = enroll_shard(root, rng, "multitrain", [4.0] * (2 * MULTI_BATCH))
+    va, va_lengths = enroll_shard(root, rng, "multidev", [3.5] * MULTI_BATCH)
+    exp = os.path.join(root, "exp_multi")
+    overrides = [
+        f"exp_dir={exp}", "device=cuda", f"train_data={tr['data']}",
+        f"train_utt2spk={tr['utt2spk']}", f"train_spk2utt={tr['spk2enroll']}",
+        f"val_data={va['data']}", f"val_spk2utt={va['spk2utt']}",
+        f"val_spk1_enroll={va['spk1_enroll']}",
+        f"val_spk2_enroll={va['spk2_enroll']}", "num_epochs=1",
+        "log_batch_interval=1", f"dataloader_args.batch_size={MULTI_BATCH}",
+        f"dataset_args.sample_num_per_epoch={MULTI_STEPS * MULTI_BATCH}"]
+    val_steps = 1
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train(MULTI_CONF, overrides=overrides)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"{tag}: {MULTI_STEPS} steps + {val_steps} validation step through "
+        f"bin/train in {wall:.3f} s wall; launches "
+        f"{ {n: v for n, v in counts.items() if v} } (expected "
+        f"{2 * MULTI_PASS} f32 forwards with cs and of each f32 backward "
+        f"kernel a train step, {MULTI_PASS} f32 forwards a validation step)")
+    expect_counts(counts, 2 * MULTI_PASS * MULTI_STEPS + MULTI_PASS *
+                  val_steps, 2 * MULTI_PASS * MULTI_STEPS, "layer", tag,
+                  f32=True)
+    with open(os.path.join(exp, "train.log")) as f:
+        text = f.read()
+    losses = rows_loss(text)
+    epoch = re.findall(r"Epoch 1 train_loss (\S+) val_loss (\S+)", text)
+    if len(losses) != MULTI_STEPS or len(epoch) != 1 or not all(
+            math.isfinite(v) for v in losses + [float(e) for e in epoch[0]]):
+        raise AssertionError(f"{tag}: losses {losses} {epoch}")
+    if not isinstance(state.model, BSRNN_Multi) \
+            or state.step != MULTI_STEPS:
+        raise AssertionError(f"{tag}: {type(state.model)} {state.step}")
+    del state
+    avg = os.path.join(root, "multi_avg.ckpt")
+    average_model.main(["--dst_model", avg, "--src_path",
+                        os.path.join(exp, "models"), "--num", "1"])
+    steps = forward_steps(va_lengths)
+    zero_counts()
+    sisnr, _ = infer({
+        "model": conf["model"], "model_args": conf["model_args"],
+        "data_type": "shard",
+        "dataset_args": {"resample_rate": 16000, "speaker_feat": False,
+                         "enroll_sec": ENROLL_SECONDS},
+        "exp_dir": os.path.join(root, "exp_multi_infer"), "checkpoint": avg,
+        "save_wav": False, "device": "cuda", "length_bucket": BUCKET,
+        "infer_batch_size": ROWS_PER_STEP, "test_data": va["data"],
+        "test_spk2utt": va["spk2utt"], "test_spk1_enroll": va["spk1_enroll"],
+        "test_spk2_enroll": va["spk2_enroll"]})
+    expect_counts(read_counts(), MULTI_PASS * steps, 0, "layer",
+                  f"{tag}: bin/infer", f32=True)
+    if not math.isfinite(sisnr):
+        raise AssertionError(f"{tag}: bin/infer from the average: {sisnr}")
+    log(f"{tag}: running mean loss per step {losses}, epoch {epoch}; "
+        f"average_model -> bin/infer decoded {2 * len(va_lengths)} requests "
+        f"in {steps} forward steps ({MULTI_PASS} f32 chains and projections "
+        f"each), avg SI-SNR {sisnr:.3f} dB")
+
+    model, init_state, gen, grad_counts, grad_summary = check_multi_grads(
+        conf["model_args"]["tse_model"], tag)
+
+    # a train step at 8 rows x 3 s: time, peak memory, TF32 off and on
+    model.load_state_dict(init_state)
+    rows = 2 * MULTI_BATCH
+    batch = {"wav_mix": voices(rows, CHUNK, gen).cuda(),
+             "wav_targets": voices(rows, CHUNK, gen).cuda(),
+             "spk_embeds": voices(rows, int(ENROLL_SECONDS * 16000),
+                                  gen).cuda()}
+    opt = make_optimizer(model, exponential_decrease(
+        num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+        warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0)
+    tstate = TrainState(model=model, optimizer=opt)
+    step = make_train_step(parse_loss("SISDR"), *MULTI_TABLE,
+                           compute_dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step(tstate, batch)
+    per_step = read_counts()
+    expect_counts(per_step, 2 * MULTI_PASS, 2 * MULTI_PASS, "layer",
+                  f"{tag}: one train step", f32=True)
+    step_ms = time_ms(lambda: step(tstate, batch), 1, 5)
+    peak = torch.cuda.max_memory_allocated()
+    torch.backends.cudnn.allow_tf32 = True
+    tf32_ms = time_ms(lambda: step(tstate, batch), 1, 3)
+    torch.backends.cudnn.allow_tf32 = False
+    audio = rows * CHUNK / 16000.0
+    log(f"{tag}: step [8 rows x 3 s, bf16 stream, both passes f32 after the "
+        f"fuse] {step_ms:.3f} ms ({tf32_ms:.3f} ms with cuDNN's TF32), "
+        f"{audio / (step_ms / 1e3):.1f} audio-s/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; launches "
+        f"{ {n: v for n, v in per_step.items() if v} }")
+    return {"main": counts, "f32_grads": grad_counts}, {
+        "steps": MULTI_STEPS, "val_steps": val_steps, "wall_s": wall,
+        "running_mean_loss": losses, "avg_model_sisnr": sisnr,
+        **grad_summary, "step_ms": step_ms,
+        "tf32_step_ms": tf32_ms, "audio_s_per_s": audio / (step_ms / 1e3),
+        "peak_memory_bytes": peak,
+        "launches_per_step": {n: v for n, v in per_step.items() if v}}
+
+
+def phase15():
+    """Phase 15 whole: (a) P.862, (b) the discriminator, (c) and (d)
+    train_gan on DPCCN, (e) BSRNN_Multi; -> (launches by path, summary)."""
+    pesq = check_pesq()
+    disc = check_discriminator()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        gan_launches, gan = train_gan_dpccn(root)
+    log("train_gan DPCCN summary", json.dumps(gan))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        multi_launches, multi = train_bsrnn_multi(root)
+    log("train BSRNN_Multi summary", json.dumps(multi))
+    return {"gan_dpccn_train_pallas": gan_launches,
+            "bsrnn_multi_train": multi_launches["main"],
+            "bsrnn_multi_f32_grads": multi_launches["f32_grads"]}, {
+        "pesq": {str(k): v for k, v in pesq.items()},
+        "discriminator": disc, "gan": gan, "bsrnn_multi": multi}
+
+
+# (rows, dtype) of phase 3's K5/K5b cases: DPCCN serving (f32), training
+# (bf16), and the MetricGAN step (f32, which dpcc_init_gan.yaml runs)
+CONV_CASES = ((ROWS_PER_STEP, torch.float32),
+              (2 * DPCCN_BATCH, torch.bfloat16),
+              (GAN_BATCH, torch.float32), (2 * GAN_BATCH, torch.float32))
+
+
+def phase15_only() -> int:
+    """`--only-phase15`: phases 1 and 2, phase 3's f32 K5/K5b cases at the
+    MetricGAN step's rows, and phase 15; no final line."""
+    from wesep_tpu_torch.ops import _build
+
+    log(card_line())
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build in {time.perf_counter() - t0:.2f} s")
+    for batch in (GAN_BATCH, 2 * GAN_BATCH):
+        for name, f, ci, co in CONV_SHAPES:
+            check_conv2d(name, f, ci, co, batch, torch.float32)
+    launches, summary = phase15()
+    log("phase 15 launches", json.dumps(launches))
+    log(f"wall {time.perf_counter() - t0:.1f} s")
+    log(card_line())
+    return 0
+
+
 def conv2d_only() -> int:
     """`--only-conv2d`: phases 1 and 2 for the Conv2dBlock's sources and
     phase 3's K5/K5b cases and batch-slice case, printed one JSON line each;
@@ -4929,8 +5732,7 @@ def conv2d_only() -> int:
     for lib in libs.values():
         with open(lib + ".log") as f:
             log(f.read().strip())
-    for batch, dtype in ((ROWS_PER_STEP, torch.float32),
-                         (2 * DPCCN_BATCH, torch.bfloat16)):
+    for batch, dtype in CONV_CASES:
         for name, f, ci, co in CONV_SHAPES:
             check_conv2d(name, f, ci, co, batch, dtype)
     log(card_line())
@@ -4951,6 +5753,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--only-conv2d"]:
         return conv2d_only()
+    if sys.argv[1:] == ["--only-phase15"]:
+        return phase15_only()
 
     # 1. device
     card = card_line()
@@ -5101,15 +5905,23 @@ def main() -> int:
             GRID_H))
         f32_bwd_cases.append(check_f32_backward(
             "unfold", name, None, rows, grid_d, GRID_H, length=length))
+    # and K3b at the v1 TF-GridNet's f32 training shapes (the f32 gradient
+    # checks of the unfold-fused route), at hs 1 and once at hs 2
+    for name, hs in (("train_intra", 1), ("train_inter", 1),
+                     ("train_intra", 2)):
+        rows, length = UNFOLD_SHAPES[name]
+        f32_bwd_cases.append(check_f32_backward(
+            "unfold", name + ("_hs2" if hs == 2 else ""), None, rows,
+            grid_d, GRID_H, length=length, hs=hs))
     # and the routes' own FMA kernels, forward and backward, at a shape the
     # f32 gates refuse, through the layers' entry points
     refused_launches = f32_refused_path()
 
     # the fused Conv2dBlock at DPCCN's six shapes: serving in f32 (2 rows),
-    # training in bf16 (8 rows)
+    # training in bf16 (8 rows), and the MetricGAN step's f32 (4 rows, and
+    # the 8 rows its batch_size 4 gives)
     conv_cases = [check_conv2d(name, f, ci, co, batch, dtype)
-                  for batch, dtype in ((ROWS_PER_STEP, torch.float32),
-                                       (2 * DPCCN_BATCH, torch.bfloat16))
+                  for batch, dtype in CONV_CASES
                   for name, f, ci, co in CONV_SHAPES]
     # the TCN block and the Conv2dBlock past one grid dimension
     large_cases = check_large_grids()
@@ -5183,6 +5995,15 @@ def main() -> int:
     v2_others = check_v2_others()
     log("v2 TF-GridNet and DPCCN summary", json.dumps(v2_others))
     log("speaker ops summary", json.dumps(speaker_ops))
+
+    # 15. MetricGAN on DPCCN: (a) P.862 and (b) the discriminator against
+    # the CPU; (c) bin/train_gan on both conv_impl routes, resume,
+    # average_model -> bin/infer; (d) a v2 GAN step; (e) BSRNN_Multi
+    # through bin/train and bin/infer
+    phase15_launches, phase15_summary = phase15()
+    log("phase 15 summary", json.dumps({
+        k: v for k, v in phase15_summary.items() if k in ("pesq",
+                                                           "discriminator")}))
 
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
@@ -5353,6 +6174,8 @@ def main() -> int:
     add_path("v2_tfgridnet_train_step", {
         n: v for n, v in v2_others["TFGridNet"]["train_launches"].items()
         if n in by_path})
+    for path, counts in phase15_launches.items():
+        add_path(path, counts)
     # the main path of a kernel: its training path; for the f32 cluster
     # forward, serving (phase 4); for the routes' own FMA forward kernels,
     # which no recipe's shape reaches any more, the layers' forward at a

@@ -89,7 +89,7 @@ def test_bsrnn_state_dict_names_match_jax_tree():
 def test_get_model_and_unported_options_raise():
     assert get_model("BSRNN") is BSRNN
     with pytest.raises(NotImplementedError):
-        get_model("BSRNN_Multi")
+        get_model("BSRNN_Feats")
     # the joint branch is ported; the registry's unported encoders and its
     # missing-name error remain
     with pytest.raises(NotImplementedError, match="the BSRNN variants"):

@@ -1350,3 +1350,80 @@ def test_resnet34_on_the_card_matches_the_cpu(cuda, train):
     with torch.no_grad():
         half = card_model.eval()(feats.to(cuda).bfloat16())
     assert half.dtype == torch.float32
+
+
+@pytest.mark.parametrize("fs", [8000, 16000])
+def test_pesq_on_the_card_matches_the_cpu(cuda, fs):
+    """P.862 of 4 rows x 3 s on the card (cuFFT) against the CPU: scores
+    within 1e-4 MOS, the valid mask equal."""
+    from wesep_tpu_torch.ops.pesq import pesq_norm_batch
+
+    n = 3 * fs
+    ref = _voices(4, n, 4)
+    deg = ref + 0.05 * torch.randn(4, n, generator=torch.Generator()
+                                   .manual_seed(5)) * torch.arange(4)[:, None]
+    want, want_ok = pesq_norm_batch(deg, ref, fs)
+    got, ok = pesq_norm_batch(deg.to(cuda), ref.to(cuda), fs)
+    assert torch.equal(ok.cpu(), want_ok)
+    assert (got.cpu() - want).abs().max() * 5 <= 1e-4
+
+
+def test_discriminator_on_the_card_matches_the_cpu(cuda):
+    """The full-width CMGAN discriminator, train mode (one dropout mask),
+    TF32 off: scores within 1e-4 of the largest, u within 1e-5, gradients
+    rel. L2 1e-3 but in_bias_0's, 5e-3 of its own norm (a sum of ~2e5
+    terms a channel that the next instance norm all but cancels, added in
+    another order; chip_smoke.DISC_IN_BIAS0_LIMIT); eval mode stores no
+    u."""
+    from wesep_tpu_torch.models.discriminator import CMGANDiscriminator
+
+    torch.manual_seed(0)
+    cpu_d = CMGANDiscriminator().train()
+    card_d = CMGANDiscriminator()
+    card_d.load_state_dict(cpu_d.state_dict())
+    card_d = card_d.to(cuda).train()
+    ref = _voices(2, 48000, 6)
+    est = ref + 0.1 * torch.randn(2, 48000,
+                                  generator=torch.Generator().manual_seed(7))
+    mask = cpu_d.dropout_mask(2, torch.Generator().manual_seed(8), "cpu")
+    outs = []
+    for model, dev in ((cpu_d, "cpu"), (card_d, cuda)):
+        out = model(ref.to(dev), est.to(dev), [m.to(dev) for m in mask])
+        grads = torch.autograd.grad(out.sum(), list(model.parameters()))
+        outs.append((out.detach().cpu(), [g.cpu() for g in grads]))
+    (want, want_g), (got, got_g) = outs
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    for (name, _), g, w in zip(card_d.named_parameters(), got_g, want_g):
+        limit = 5e-3 if name == "in_bias_0" else 1e-3
+        assert (g - w).norm() <= limit * w.norm(), (name, (
+            (g - w).norm() / w.norm()).item())
+    assert (card_d.conv_0.u.cpu() - cpu_d.conv_0.u).abs().max() <= 1e-5
+    u = card_d.fc_0.u.clone()
+    with torch.no_grad():
+        card_d.eval()(ref.to(cuda), est.to(cuda))
+    assert torch.equal(card_d.fc_0.u, u)
+
+
+def test_bsrnn_multi_train_forward_runs_24_f32_chains(cuda):
+    """A bf16 train forward of a joint BSRNN_Multi (one repeat: 2 BiLSTMs
+    a pass) promotes both passes after the fuse to f32: 4 launches of the
+    f32 chain with cs; eval mode 2 (one pass)."""
+    from wesep_tpu_torch.models.bsrnn_multi_optim import BSRNN_Multi
+
+    torch.manual_seed(0)
+    model = BSRNN_Multi(
+        feature_dim=32, num_repeat=1, use_spk_transform=False,
+        spk_fuse_type="multiply", multi_fuse=False, joint_training=True,
+        spk_model="ResNet34", spk_emb_dim=32, spk_feat=False,
+        spk_args=dict(feat_dim=80, m_channels=8, embed_dim=32,
+                      pooling_func="TSTP", two_emb_layer=False)).to(cuda)
+    mix = _voices(2, 16000, 9).to(cuda).bfloat16()
+    enroll = _voices(2, 32000, 10).to(cuda).bfloat16()
+    chain = cuda_lstm_f32.lstm_f32_forward_chain
+    chain.launches = 0
+    out, _ = model.train()(mix, enroll)
+    assert chain.launches == 4 and out[1].dtype == torch.float32
+    chain.launches = 0
+    with torch.no_grad():
+        model.eval()(mix, enroll)
+    assert chain.launches == 2

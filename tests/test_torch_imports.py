@@ -71,3 +71,12 @@ def test_the_speaker_branch_modules_are_checked():
                    "models/speaker/pooling.py", "models/speaker/resnet.py"):
         assert os.path.join("wesep_tpu_torch", module) in names, module
 
+
+
+def test_the_gan_and_bsrnn_multi_modules_are_checked():
+    """MetricGAN's and BSRNN_Multi's modules are among the files checked."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for module in ("ops/pesq.py", "models/discriminator.py",
+                   "models/bsrnn_multi_optim.py", "train/trainer_gan.py",
+                   "bin/train_gan.py", "utils/score.py"):
+        assert os.path.join("wesep_tpu_torch", module) in names, module

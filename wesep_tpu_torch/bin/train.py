@@ -20,6 +20,7 @@ It runs on `cuda` unless the config or the caller gives `device: cpu`.
 """
 
 import argparse
+import contextlib
 import functools
 import os
 import re
@@ -92,86 +93,29 @@ def default_enroll_len(dataset_args, joint_training):
     return enroll_len
 
 
-def _relink(model_dir: str, link: str, target: str):
-    path = os.path.join(model_dir, link)
-    if os.path.islink(path) or os.path.exists(path):
-        os.remove(path)
-    os.symlink(target, path)
+def build_model(configs):
+    """The configured TSE model -> (model, model args)."""
+    from wesep_tpu_torch.models import get_model
+
+    model_args = dict(configs["model_args"]["tse_model"])
+    model_args.pop("spk_model_init", None)
+    return get_model(configs["model"]["tse_model"])(**model_args), model_args
 
 
-def train(config, checkpoint=None, overrides=None, **kwargs):
-    """Run the configured training; return the final TrainState."""
-    import torch
-    import yaml
-
+def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
+                  val_spk2embed_dict, val_spk1_embed, val_spk2_embed):
+    """The train and validation loaders of the config (the collate wraps
+    or trims enrollments to `default_enroll_len`) -> (train_loader,
+    val_loader, epoch_iter, val_iter)."""
     from wesep_tpu_torch.data import (
         BatchLoader,
         Dataset,
         MultiWorkerLoader,
         tse_collate_fn,
     )
-    from wesep_tpu_torch.device import resolve_device
-    from wesep_tpu_torch.models import get_model
-    from wesep_tpu_torch.train.checkpoint import (
-        load_pretrained_model,
-        restore_train_state,
-        save_checkpoint,
-        split_state,
-    )
-    from wesep_tpu_torch.train.executor import Executor
-    from wesep_tpu_torch.train.losses import parse_loss
-    from wesep_tpu_torch.train.schedulers import get_scheduler
-    from wesep_tpu_torch.train.trainer import (
-        TrainState,
-        batch_to_device,
-        make_eval_step,
-        make_optimizer,
-        make_train_step,
-    )
-    from wesep_tpu_torch.utils.config import (
-        deep_update,
-        parse_config_or_kwargs,
-        parse_override_args,
-        set_seed,
-        setup_logger,
-        table_row,
-    )
 
-    if os.environ.get("WESEP_DIST"):
-        raise NotImplementedError(
-            "WESEP_DIST (several processes) waits for the data-parallel "
-            "slice; see ROADMAP.md queue A, data parallelism")
-    configs = parse_config_or_kwargs(config, **kwargs)
-    deep_update(configs, parse_override_args(overrides))
-    if int(configs.get("model_axis", 1)) > 1:
-        raise NotImplementedError(
-            "model_axis > 1 (a model-sharding mesh) waits for the "
-            "data-parallel slice; see ROADMAP.md queue A, data parallelism")
-    device = resolve_device(configs.get("device"))
-
-    exp_dir = configs["exp_dir"]
-    model_dir = os.path.join(exp_dir, "models")
-    os.makedirs(model_dir, exist_ok=True)
-    logger = setup_logger(exp_dir)
-    logger.info("exp_dir is: %s", exp_dir)
-    for line in pformat(configs).split("\n"):
-        logger.info(line)
-    set_seed(configs.get("seed", 42))
-
-    criterion = parse_loss(configs.get("loss", "SISDR"))
-    loss_args = configs.get("loss_args") or {}
-    loss_posi = loss_args.get("loss_posi", [[0]])
-    loss_weight = loss_args.get("loss_weight", [[1.0]])
-
-    model_name = configs["model"]["tse_model"]
-    model_args = dict(configs["model_args"]["tse_model"])
+    model_args = configs["model_args"]["tse_model"]
     joint_training = model_args.get("joint_training", False)
-    multi_task = model_args.get("multi_task", False)
-
-    (tr_spk2embed_dict, dict_spk, n_train_utts, val_spk2embed_dict,
-     val_spk1_embed, val_spk2_embed) = load_enroll_maps(
-        configs, joint_training, multi_task)
-
     dataset_args = configs["dataset_args"]
     online_mix = dataset_args.get("online_mix", False)
     device_augment = online_mix and dataset_args.get("device_augment", True)
@@ -223,17 +167,145 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
         val_dataset, batch_size=batch_size, collate_fn=collate,
         drop_last=True, prefetch=2,
     )
-
     sample_num = dataset_args.get("sample_num_per_epoch", 0) or (
         n_train_utts // 2)
     epoch_iter = max(sample_num // batch_size, 1)
     val_iter = max(len(val_spk2embed_dict) // 2 // batch_size, 1)
+    return train_loader, val_loader, epoch_iter, val_iter
+
+
+def check_one_device(configs):
+    """Raise for the multi-device settings that wait for data
+    parallelism (WESEP_DIST, model_axis > 1)."""
+    if os.environ.get("WESEP_DIST"):
+        raise NotImplementedError(
+            "WESEP_DIST (several processes) waits for the data-parallel "
+            "slice; see ROADMAP.md queue A, data parallelism")
+    if int(configs.get("model_axis", 1)) > 1:
+        raise NotImplementedError(
+            "model_axis > 1 (a model-sharding mesh) waits for the "
+            "data-parallel slice; see ROADMAP.md queue A, data parallelism")
+
+
+def relink(model_dir: str, link: str, target: str):
+    path = os.path.join(model_dir, link)
+    if os.path.islink(path) or os.path.exists(path):
+        os.remove(path)
+    os.symlink(target, path)
+
+
+def setup_run(config, overrides, kwargs):
+    """The set-up bin/train and bin/train_gan share: the config with its
+    `--set` overrides (one device only), exp_dir/models, the logger, the
+    seed, the loss table and exp_dir/config.yaml -> (configs, device,
+    model_dir, logger, (criterion, loss_posi, loss_weight))."""
+    import yaml
+
+    from wesep_tpu_torch.device import resolve_device
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.utils.config import (
+        deep_update,
+        parse_config_or_kwargs,
+        parse_override_args,
+        set_seed,
+        setup_logger,
+    )
+
+    configs = parse_config_or_kwargs(config, **kwargs)
+    deep_update(configs, parse_override_args(overrides))
+    check_one_device(configs)
+    device = resolve_device(configs.get("device"))
+    exp_dir = configs["exp_dir"]
+    model_dir = os.path.join(exp_dir, "models")
+    os.makedirs(model_dir, exist_ok=True)
+    logger = setup_logger(exp_dir)
+    logger.info("exp_dir is: %s", exp_dir)
+    for line in pformat(configs).split("\n"):
+        logger.info(line)
+    set_seed(configs.get("seed", 42))
+    with open(os.path.join(exp_dir, "config.yaml"), "w") as fout:
+        fout.write(yaml.dump(configs))
+    loss_args = configs.get("loss_args") or {}
+    return configs, device, model_dir, logger, (
+        parse_loss(configs.get("loss", "SISDR")),
+        loss_args.get("loss_posi", [[0]]),
+        loss_args.get("loss_weight", [[1.0]]))
+
+
+def resume_epoch(checkpoint) -> int:
+    """The first epoch of a run resumed from `checkpoint`: N + 1 after
+    checkpoint_<N>.ckpt, N after preempt_epoch<N>.ckpt (the interrupted
+    epoch is redone with the saved optimizer state), else 1."""
+    mp = re.findall(r"(?<=preempt_epoch)\d+(?=\.ckpt)", checkpoint)
+    if mp:
+        return int(mp[0])
+    m = re.findall(r"(?<=checkpoint_)\d+(?=\.ckpt)", checkpoint)
+    return int(m[0]) + 1 if m else 1
+
+
+@contextlib.contextmanager
+def sigterm_stop():
+    """Preemption safety: while open, SIGTERM asks for a clean stop at the
+    next batch boundary (the yielded callable turns true), after which the
+    loop writes a resumable mid-epoch checkpoint; the previous handler
+    comes back on exit. Outside the main thread (callers inside another
+    program, tests) no handler is set."""
+    requested = [False]
+
+    def _on_term(signum, frame):
+        requested[0] = True
+
+    try:
+        previous = signal.signal(signal.SIGTERM, _on_term)
+    except ValueError:
+        previous = None
+    try:
+        yield lambda: requested[0]
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
+
+
+def train(config, checkpoint=None, overrides=None, **kwargs):
+    """Run the configured training; return the final TrainState."""
+    import torch
+
+    from wesep_tpu_torch.train.checkpoint import (
+        load_pretrained_model,
+        restore_train_state,
+        save_checkpoint,
+        split_state,
+    )
+    from wesep_tpu_torch.train.executor import Executor
+    from wesep_tpu_torch.train.schedulers import get_scheduler
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        batch_to_device,
+        make_eval_step,
+        make_optimizer,
+        make_train_step,
+    )
+    from wesep_tpu_torch.utils.config import table_row
+
+    configs, device, model_dir, logger, (
+        criterion, loss_posi, loss_weight) = setup_run(config, overrides,
+                                                       kwargs)
+
+    model_args = configs["model_args"]["tse_model"]
+    joint_training = model_args.get("joint_training", False)
+    multi_task = model_args.get("multi_task", False)
+    enroll_maps = load_enroll_maps(configs, joint_training, multi_task)
+    train_loader, val_loader, epoch_iter, val_iter = build_loaders(
+        configs, *enroll_maps)
+    dataset_args = configs["dataset_args"]
+    device_augment = dataset_args.get("online_mix", False) and \
+        dataset_args.get("device_augment", True)
     logger.info("epoch iteration number: %d", epoch_iter)
     logger.info("val iteration number: %d", val_iter)
 
     # model / optimizer / scheduler
-    model_args.pop("spk_model_init", None)
-    model = get_model(model_name)(**model_args).to(device)
+    model, model_args = build_model(configs)
+    model = model.to(device)
     sched_args = dict(configs["scheduler_args"]["tse_model"])
     sched_args["num_epochs"] = configs["num_epochs"]
     sched_args["epoch_iter"] = epoch_iter
@@ -279,64 +351,47 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     start_epoch = 1
     if checkpoint:
         restore_train_state(state, checkpoint)
-        m = re.findall(r"(?<=checkpoint_)\d+(?=\.ckpt)", checkpoint)
-        start_epoch = int(m[0]) + 1 if m else 1
-        mp = re.findall(r"(?<=preempt_epoch)\d+(?=\.ckpt)", checkpoint)
-        if mp:  # redo the interrupted epoch with the saved optimizer state
-            start_epoch = int(mp[0])
+        start_epoch = resume_epoch(checkpoint)
         logger.info("Load checkpoint: %s", checkpoint)
     logger.info("start_epoch: %d", start_epoch)
-
-    with open(os.path.join(exp_dir, "config.yaml"), "w") as fout:
-        fout.write(yaml.dump(configs))
 
     def save(name):
         params, buffers = split_state(model)
         save_checkpoint(
             os.path.join(model_dir, name), [params],
             [optimizer.state_dict()], [buffers], step=state.step)
-        _relink(model_dir, "latest_checkpoint.ckpt", name)
-
-    # preemption safety: SIGTERM asks for a clean stop at the next batch
-    # boundary; the loop then writes a resumable mid-epoch checkpoint
-    stop_requested = {"flag": False}
-
-    def _on_term(signum, frame):
-        stop_requested["flag"] = True
-
-    try:
-        signal.signal(signal.SIGTERM, _on_term)
-    except ValueError:
-        pass  # not the main thread (callers inside another program, tests)
+        relink(model_dir, "latest_checkpoint.ckpt", name)
 
     device_put = functools.partial(batch_to_device, device=device)
     executor = Executor()
     log_interval = configs.get("log_batch_interval", 100)
     logger.info(table_row(("Train/Val", "Epoch", "iter", "Loss", "rate")))
-    for epoch in range(start_epoch, configs["num_epochs"] + 1):
-        train_loader.set_epoch(epoch)
-        state, train_loss = executor.train(
-            train_loader, train_step, state, epoch_iter, epoch, logger,
-            log_interval, device_put,
-            sample_rate=dataset_args.get("resample_rate", 16000),
-            should_stop=lambda: stop_requested["flag"],
-        )
-        if executor.stopped:
-            save(f"preempt_epoch{epoch}.ckpt")
-            logger.warning(
-                "preempted during epoch %d: saved preempt_epoch%d.ckpt; "
-                "resume with --checkpoint (epoch %d restarts with this "
-                "optimizer state)", epoch, epoch, epoch)
-            break
-        val_loss = executor.cv(val_loader, eval_step, state, val_iter, epoch,
-                               logger, log_interval, device_put)
-        logger.info("Epoch %d train_loss %.4f val_loss %.4f",
-                    epoch, train_loss, val_loss)
-        if (epoch % configs.get("save_epoch_interval", 1) == 0
-                or epoch >= configs["num_epochs"] - configs.get("num_avg", 2)):
-            save(f"checkpoint_{epoch}.ckpt")
+    with sigterm_stop() as stop_requested:
+        for epoch in range(start_epoch, configs["num_epochs"] + 1):
+            train_loader.set_epoch(epoch)
+            state, train_loss = executor.train(
+                train_loader, train_step, state, epoch_iter, epoch, logger,
+                log_interval, device_put,
+                sample_rate=dataset_args.get("resample_rate", 16000),
+                should_stop=stop_requested,
+            )
+            if executor.stopped:
+                save(f"preempt_epoch{epoch}.ckpt")
+                logger.warning(
+                    "preempted during epoch %d: saved preempt_epoch%d.ckpt; "
+                    "resume with --checkpoint (epoch %d restarts with this "
+                    "optimizer state)", epoch, epoch, epoch)
+                break
+            val_loss = executor.cv(val_loader, eval_step, state, val_iter,
+                                   epoch, logger, log_interval, device_put)
+            logger.info("Epoch %d train_loss %.4f val_loss %.4f",
+                        epoch, train_loss, val_loss)
+            last = configs["num_epochs"] - configs.get("num_avg", 2)
+            if epoch % configs.get("save_epoch_interval", 1) == 0 \
+                    or epoch >= last:
+                save(f"checkpoint_{epoch}.ckpt")
     if not executor.stopped:
-        _relink(model_dir, "final_checkpoint.ckpt",
+        relink(model_dir, "final_checkpoint.ckpt",
                 f"checkpoint_{configs['num_epochs']}.ckpt")
     return state
 

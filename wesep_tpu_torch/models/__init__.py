@@ -5,11 +5,16 @@ __all__ = ["get_model"]
 
 def get_model(model_name: str):
     """Model class by name (prefix dispatch, as wesep_tpu.models.get_model):
-    BSRNN, ConvTasNet (SpEx+), TFGridNet and DPCCN are ported."""
+    BSRNN, BSRNN_Multi, ConvTasNet (SpEx+), TFGridNet, DPCCN and the CMGAN
+    discriminator are ported."""
     if model_name.startswith("ConvTasNet"):
         from wesep_tpu_torch.models.convtasnet import ConvTasNet
 
         return ConvTasNet
+    if model_name.startswith("BSRNN_Multi"):
+        from wesep_tpu_torch.models.bsrnn_multi_optim import BSRNN_Multi
+
+        return BSRNN_Multi
     if model_name == "BSRNN":
         from wesep_tpu_torch.models.bsrnn import BSRNN
 
@@ -22,6 +27,10 @@ def get_model(model_name: str):
         from wesep_tpu_torch.models.tfgridnet import TFGridNet
 
         return TFGridNet
+    if model_name.startswith("CMGAN"):
+        from wesep_tpu_torch.models.discriminator import CMGANDiscriminator
+
+        return CMGANDiscriminator
     raise NotImplementedError(
         f"model {model_name!r} is not ported to wesep_tpu_torch yet "
         "(ROADMAP.md lists the order)"

@@ -185,6 +185,8 @@ class BSRNN(nn.Module):
             cue_dim = self.spk_model_net.embed_dim
             self.spk_frontend = speaker_frontend(spk_args, spk_feat,
                                                  feat_type, sr, win, stride)
+            self.waveform_frontend = speaker_frontend(
+                spk_args, False, "consistent", sr, win, stride)
             self.pred_linear = Dense(cue_dim, spksInTrain) if multi_task \
                 else None
         self.win = win
@@ -263,19 +265,33 @@ class BSRNN(nn.Module):
         return istft(merge(est_re), merge(est_im), self.win, self.stride,
                      window=self.window, length=nsample)
 
-    def forward(self, mix, cue):
-        nsample = mix.shape[-1]
-        re, im = stft(mix, self.win, self.stride, window=self.window)
-        x, sub_specs = self._band_split(re, im)
+    def _spk_embedding(self, cue, from_waveform: bool = False):
+        """cue -> (embedding after the speaker transform, speaker logits or
+        None). With `from_waveform` a joint model takes the cue as a
+        waveform through the consistent frontend (no gradient), whatever
+        the configured cue kind."""
         embed, spk_logits = cue, None
         if self.joint_training:
+            frontend = self.waveform_frontend if from_waveform \
+                else self.spk_frontend
             embed, spk_logits = embed_enrollment(
-                cue, self.spk_model_net, self.pred_linear, self.spk_frontend)
+                cue, self.spk_model_net, self.pred_linear, frontend)
         if self.use_spk_transform:
             embed = self.spk_transform(embed)
+        return embed, spk_logits
+
+    def _separate(self, x, sub_specs, embed, nsample):
+        """Speaker fuse, separator repeats, masks and iSTFT -> [B, T]."""
         for r in range(self.num_repeat):
             if r == 0 or self.multi_fuse:
                 x = getattr(self, f"fuse_{r if self.multi_fuse else 0}")(
                     x, embed)
             x = getattr(self, f"bsnet_{r}")(x)
-        return self._mask_reconstruct(x, sub_specs, nsample), spk_logits
+        return self._mask_reconstruct(x, sub_specs, nsample)
+
+    def forward(self, mix, cue):
+        nsample = mix.shape[-1]
+        re, im = stft(mix, self.win, self.stride, window=self.window)
+        x, sub_specs = self._band_split(re, im)
+        embed, spk_logits = self._spk_embedding(cue)
+        return self._separate(x, sub_specs, embed, nsample), spk_logits

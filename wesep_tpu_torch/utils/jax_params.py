@@ -38,6 +38,15 @@ blocks their depthwise `dconv1.kernel` [3, 1, C] and `dconv2` Dense. The
 tree is the same on every `conv_impl` (the Pallas route binds an `nn.Conv`
 named `conv` too).
 
+The CMGAN discriminator is the exception: the port keeps torch's layouts
+there, so its bridge `discriminator_state_dict_from_jax` transposes conv
+kernels HWIO -> OIHW (`conv_{i}.weight`) and Dense kernels [in, out] ->
+[out, in] (`fc_0.weight`, `fc_final.weight`), and moves flax's
+spectral-norm state, `batch_stats['SpectralNorm_{j}']['{layer}/kernel/u']`
+and `.../sigma`, onto the buffers `{layer}.u` [1, out] and `{layer}.sigma`;
+`in_scale_{i}`, `in_bias_{i}`, the PReLU alphas and `lsigmoid.slope` map
+one for one.
+
 The params are plain nested dicts of arrays (numpy, or anything
 `np.asarray` takes), as `model.init(...)["params"]` or a msgpack bundle's
 `models[0]` gives them; nothing of JAX is imported here.
@@ -56,7 +65,7 @@ import torch
 
 __all__ = ["bsrnn_state_dict_from_jax", "convtasnet_state_dict_from_jax",
            "tfgridnet_state_dict_from_jax", "dpccn_state_dict_from_jax",
-           "load_jax_params",
+           "discriminator_state_dict_from_jax", "load_jax_params",
            "optimizer_state_from_jax"]
 
 
@@ -123,6 +132,27 @@ def dpccn_state_dict_from_jax(params,
     """JAX DPCCN params and, for a joint model, its speaker encoder's
     BatchNorm statistics (nested dicts) -> port DPCCN state_dict (f32)."""
     return convtasnet_state_dict_from_jax(params, batch_stats)
+
+
+def discriminator_state_dict_from_jax(params, batch_stats
+                                      ) -> Dict[str, torch.Tensor]:
+    """JAX CMGANDiscriminator params and spectral-norm `batch_stats` (nested
+    dicts) -> port CMGANDiscriminator state_dict (f32, torch layouts)."""
+    out = {}
+    for name, value in _flatten(params).items():
+        value = np.array(value, dtype=np.float32)
+        if name.endswith(".kernel"):
+            layer = name[:-len(".kernel")]
+            value = value.transpose(3, 2, 0, 1) if value.ndim == 4 \
+                else value.T
+            name = layer + ".weight"
+        out[name] = torch.from_numpy(np.ascontiguousarray(value))
+    for stats in batch_stats.values():  # SpectralNorm_{j}
+        for key, value in stats.items():
+            layer, _, leaf = key.split("/")  # '{layer}/kernel/{u|sigma}'
+            out[f"{layer}.{leaf}"] = torch.from_numpy(
+                np.array(value, dtype=np.float32))
+    return out
 
 
 def load_jax_params(model: torch.nn.Module, params,
