@@ -188,6 +188,37 @@ pass):
    plain LSTM's (rel. L2 1e-3); a step's time and peak memory, TF32 off
    and on. Phase 3 also holds K5/K5b in f32 at the GAN step's rows (4 and
    8) at the six shapes.
+16. BSRNN_Feats (examples/librimix/tse/v2/confs/bsrnn_feats.yaml: the
+   tfmap_emb TF map and cross_multiply fusion over ECAPA-TDNN's frame
+   features, spk_model_freeze), its encoders and data parallelism: (a)
+   ECAPA_TDNN_GLOB_c512 in the tpu and wespeaker layouts and CAMPPlus
+   (embed 192) on the card against the same module and weights on the
+   CPU, on the fbank of 6 s enrollments, eval mode at 2 rows and train
+   mode at 4, TF32 off (embeddings and frame features rel. L2 1e-4, the
+   statistics after one train call 1e-5 of their largest), the forward at
+   2 rows and forward + backward at 4 rows timed beside their bounds; (b)
+   the conf through bin/infer, 10 requests of 2 rows x 3 s with 6 s
+   enrollments, f32: 12 f32 cluster chains and projections a forward,
+   finite outputs, the step's time, audio-s/s, RTF and the two encoder
+   calls' share, kernels against the plain LSTM; (c) through bin/train
+   (bf16 compute, 2 steps of 4 rows x 3 s and a validation step): per
+   train step 12 f32 forwards with cs and 12 of each f32 backward kernel
+   (the stream is f32 after the cross fuse), the frozen encoder bit for
+   bit while its statistics move, the whole model's f32 gradients through
+   the kernels against the plain LSTM's (rel. L2 1e-3), a step's time,
+   peak memory, the encoder's and the cross-attention's device ms; (d)
+   bin/train on phase 5's pBSRNN (2 steps of 16 rows x 3 s) under
+   WESEP_DIST=1 with a one-process NCCL group: losses, parameters and
+   buffers bit for bit those of the run without WESEP_DIST, both timed;
+   (e) only where 2 or more cards are present (the run with no arguments
+   needs one): make_train_step under DistributedDataParallel in an NCCL
+   group of one process a card (up to 4), 2 rows each, against one process
+   on all their rows (f32: loss, gradient, BatchNorm statistics and
+   parameters at the CPU test's limits, the ranks bit for bit), and
+   bin/train on bsrnn_feats.yaml under WESEP_DIST=1 across the cards (the
+   ranks end bit for bit equal; only rank 0 writes).
+   Phase 3 also holds K0's f32 forward (with cs) and backward at
+   BSRNN_Feats' train shapes (band T 376 x B' 128, comm T 32 x B' 1504).
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
@@ -214,6 +245,16 @@ cases only, one JSON line each, and prints no final line.
 
 runs phases 1 and 2, phase 3's f32 K5/K5b cases at the GAN step's rows and
 phase 15, and prints no final line.
+
+    python3 chip_smoke.py --only-phase16
+
+runs phases 1 and 2, phase 3's f32 K0 / K0b cases at BSRNN_Feats' train
+shapes and phase 16, and prints no final line.
+
+    python3 chip_smoke.py --only-ddp
+
+(2 or more cards) runs phases 1 and 2 and phase 16 (e) alone, and prints
+no final line.
 """
 
 import io
@@ -1370,7 +1411,7 @@ def old_f32_forward(route, x, flat, xw, ks, with_cs):
 
 
 def check_f32_forward(route, name, t_len, batch, d=D, h=H, length=None,
-                      with_cs=False):
+                      with_cs=False, old=True):
     """The f32 cluster forward (the FMA projection, the cluster chain) of
     one LSTM route at one f32 shape that serving or the validation step
     runs, f32 parameters, cell states written where a backward follows
@@ -1383,7 +1424,8 @@ def check_f32_forward(route, name, t_len, batch, d=D, h=H, length=None,
     yardstick (cuBLAS's f32 product for the projection; none for the chain
     alone) and its bound; the whole forward beside cuDNN's f32 LSTM forward
     (TF32 off) over the same shape, the route's own FMA forward kernel
-    (launched directly) and the bound of the forward's function.
+    (launched directly; not with `old` false) and the bound of the
+    forward's function.
 
     route: "layer" (K0), "unfold" (K3, x [B', L, C]), "two_kernel" (K2) or
     "unidirectional" (K1; both given xw from the layers' f32 projection).
@@ -1491,11 +1533,14 @@ def check_f32_forward(route, name, t_len, batch, d=D, h=H, length=None,
     whole_err = {"y_max_abs": (got_y - want_y).abs().max().item(),
                  "cs_max_abs": (got_cs - want_cs).abs().max().item()
                  if with_cs else 0.0}
-    old_y, old_cs = old_f32_forward(route, x, flat, xw, ks, with_cs)
-    old_err = {"y_max_abs": (old_y - want_y).abs().max().item(),
-               "cs_max_abs": (old_cs - want_cs).abs().max().item()
-               if with_cs else 0.0}
-    del got_y, got_cs, want_y, want_cs, old_y, old_cs, cs_ref
+    old_err = {}
+    if old:
+        old_y, old_cs = old_f32_forward(route, x, flat, xw, ks, with_cs)
+        old_err = {"y_max_abs": (old_y - want_y).abs().max().item(),
+                   "cs_max_abs": (old_cs - want_cs).abs().max().item()
+                   if with_cs else 0.0}
+        del old_y, old_cs
+    del got_y, got_cs, want_y, want_cs, cs_ref
 
     times = {"lstm_f32_forward_chain": time_ms(
         lambda: f.lstm_f32_forward_chain(
@@ -1524,7 +1569,7 @@ def check_f32_forward(route, name, t_len, batch, d=D, h=H, length=None,
     whole_ms = time_ms(whole, 1, 5)
     plain_ms = time_ms(plain_whole, 0, 1)
     old_ms = time_ms(lambda: old_f32_forward(route, x, flat, xw, ks,
-                                             with_cs), 1, 5)
+                                             with_cs), 1, 5) if old else None
     # cuDNN's f32 LSTM forward at the same shape (TF32 off; its input the
     # materialised frames on the unfold route)
     torch.manual_seed(SEED)
@@ -1562,7 +1607,7 @@ def check_f32_forward(route, name, t_len, batch, d=D, h=H, length=None,
                 "cs_max_abs_err": old_err["cs_max_abs"],
                 "plain_ms": plain_ms, "library_ms": cudnn_ms,
                 "bound_ms": bounds["function"][0],
-                "bound_by": bounds["function"][1]}}
+                "bound_by": bounds["function"][1]} if old else None}
     log("kernels f32 cluster forward", json.dumps(case))
     limit = 1e-4
     ok = (repeats and (xw is not None or proj_rel <= 1e-4)
@@ -1643,7 +1688,7 @@ def old_f32_backward(route, x, flat, xw, ys, cs, dys, ks, wgrad=True,
 
 
 def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None,
-                       hs=1):
+                       hs=1, old=True):
     """The f32 backward (gates, adjoint chain, dx, dW) of one LSTM route at
     one f32 training shape (what the joint v2 recipes' steps and the f32
     gradient checks run), f32 parameters, on the plain forward's saved
@@ -1655,7 +1700,8 @@ def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None,
     bound; the adjoint (gates, chain, dx) and the whole backward, each
     timed as one call, beside their functions' bounds, cuDNN's whole f32
     backward (TF32 off) and the route's own FMA kernels (launched
-    directly, the old path: its adjoint, its dW and the two).
+    directly, the old path: its adjoint, its dW and the two; not with
+    `old` false).
 
     route: "layer" (K0b), "unfold" (K3b, x [B', L, 48], hop `hs`, T the
     frames), "two_kernel" (K2b) or "unidirectional" (K1b; both xw from x
@@ -1808,14 +1854,13 @@ def check_f32_backward(route, name, t_len, batch, d=D, h=H, length=None,
                 "backward": time_ms(run, 1, 5)}
 
     # the old path: the route's own FMA kernels, launched directly
-    old = old_f32_backward(route, x, flat, xw, ys, cs, dys, ks, hs=hs)
-    del old
-    old_ms = {
-        "adjoint": time_ms(lambda: old_f32_backward(
-            route, x, flat, xw, ys, cs, dys, ks, wgrad=False, hs=hs), 1, 3)}
-    old_ms["backward"] = time_ms(lambda: old_f32_backward(
-        route, x, flat, xw, ys, cs, dys, ks, hs=hs), 1, 3)
-    old_ms["wgrad"] = old_ms["backward"] - old_ms["adjoint"]
+    old_ms = dict.fromkeys(("adjoint", "backward", "wgrad"))
+    if old:
+        old_ms["adjoint"] = time_ms(lambda: old_f32_backward(
+            route, x, flat, xw, ys, cs, dys, ks, wgrad=False, hs=hs), 1, 3)
+        old_ms["backward"] = time_ms(lambda: old_f32_backward(
+            route, x, flat, xw, ys, cs, dys, ks, hs=hs), 1, 3)
+        old_ms["wgrad"] = old_ms["backward"] - old_ms["adjoint"]
 
     # cuDNN's whole f32 backward over the same rows (the frames for K3;
     # x for the two-kernel routes), never called by the port
@@ -5695,6 +5740,906 @@ def phase15():
         "discriminator": disc, "gan": gan, "bsrnn_multi": multi}
 
 
+# --- phase 16: BSRNN_Feats (examples/librimix/tse/v2/confs/bsrnn_feats.yaml:
+# tfmap_emb + cross_multiply over ECAPA-TDNN frame features), the encoders
+# ECAPA-TDNN (both layouts) and CAM++, and bin/train under WESEP_DIST ------
+
+FEATS_CONF = os.path.join(HERE, "examples/librimix/tse/v2/confs/"
+                          "bsrnn_feats.yaml")
+FEATS_BATCH = 2     # the conf's batch_size 4 is 4 mixtures; 4 rows here
+FEATS_STEPS = 2
+FEATS_ROWS = 2 * FEATS_BATCH
+ENROLL_SAMPLES = int(ENROLL_SECONDS * 16000)
+# the K0 f32 shapes of its train step, 4 rows x 3 s: (T, B')
+FEATS_SHAPES = {"feats_train_band": (376, 32 * FEATS_ROWS),
+                "feats_train_comm": (32, 376 * FEATS_ROWS)}
+# the encoders on the card against the CPU (TF32 off): embeddings and frame
+# features relative L2, statistics relative to their largest
+ENCODER_LIMIT, ENCODER_STATS_LIMIT = 1e-4, 1e-5
+ENCODERS = (("ecapa_tpu", "ECAPA_TDNN_GLOB_c512", {}),
+            ("ecapa_wespeaker", "ECAPA_TDNN_GLOB_c512",
+             {"layout": "wespeaker"}),
+            ("campplus", "CAMPPlus", {"pooling_func": "TSTP"}))
+DDP_STEPS = 2       # phase 5's pBSRNN, 16 rows x 3 s a step
+# the train-mode comparison's rows: the BatchNorm after the pooling
+# normalises the embeddings over the batch's rows, and over few rows its
+# single-pass variance cancels (4 rows read 7.9e-5 .. 9.3e-5 rel. L2 on an
+# H100 80GB HBM3 at 700 W, against 1e-4)
+ENCODER_TRAIN_ROWS = 8
+# cross_att.k_proj.bias adds q . b_k to every key of a query, which the
+# softmax cancels: its true gradient is zero and two correct versions give
+# rounding noise, held to 1e-5 of the whole gradient's norm
+FEATS_NOISE_ONLY = ("cross_att.k_proj.bias",)
+
+
+def feats_conf():
+    import yaml
+
+    with open(FEATS_CONF) as f:
+        return yaml.safe_load(f)
+
+
+def flops_and_bytes(fn, params):
+    """(operations, bytes) of fn(): the FLOPs PyTorch's counter gives for
+    its products and convolutions, and the parameters read once."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fn()
+    return counter.get_total_flops(), 4 * sum(p.numel() for p in params)
+
+
+def encoder_bound_ms(flops, nbytes):
+    return max(flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES) * 1e3
+
+
+def check_feats_encoders():
+    """Phase 16 (a): ECAPA_TDNN_GLOB_c512 (tpu and wespeaker layouts) and
+    CAMPPlus at embed 192 on the card against the same module and weights on
+    the CPU, on the fbank of 6 s enrollments: eval mode at 2 rows and train
+    mode at ENCODER_TRAIN_ROWS (embeddings, ECAPA's frame features, the
+    statistics after one train call), TF32 off; the forward ms at 2 rows and
+    forward + backward ms at 4, each beside its bound."""
+    from wesep_tpu_torch.models.speaker import speaker_encoder
+
+    spk_args = feats_conf()["model_args"]["tse_model"]["spk_args"]
+    gen = torch.Generator().manual_seed(SEED + 60)
+    many = enroll_fbank(ENCODER_TRAIN_ROWS, gen)
+    feats, small = many[:FEATS_ROWS], many[:ROWS_PER_STEP]
+    many_card = many.cuda()
+    feats_card, small_card = many_card[:FEATS_ROWS], many_card[:ROWS_PER_STEP]
+    out = {}
+    for tag, name, extra in ENCODERS:
+        torch.manual_seed(SEED)
+        cpu = speaker_encoder(name, dict(spk_args, **extra))
+        seed_statistics(cpu)
+        card = speaker_encoder(name, dict(spk_args, **extra))
+        card.load_state_dict(cpu.state_dict())
+        card = card.cuda()
+        frames = hasattr(cpu, "frame_dim")
+        res = {"name": name, **extra, "rows_eval": ROWS_PER_STEP,
+               "rows_train": ENCODER_TRAIN_ROWS, "frames": ENROLL_FRAMES}
+        with torch.no_grad():
+            want = cpu.eval()(small)
+            got = card.eval()(small_card)
+            res["eval_rel_l2"] = rel_l2(got.cpu(), want)
+            if frames:
+                res["frame_rel_l2"] = rel_l2(
+                    card(small_card, return_frame_feats=True).cpu(),
+                    cpu(small, return_frame_feats=True))
+            if frames:  # then both back to the seeded statistics
+                state = {n: v.clone() for n, v in cpu.state_dict().items()}
+                res["train_frame_rel_l2"] = rel_l2(
+                    card.train()(many_card, return_frame_feats=True).cpu(),
+                    cpu.train()(many, return_frame_feats=True))
+                cpu.load_state_dict(state)
+                card.load_state_dict(state)
+            want = cpu.train()(many)
+            got = card.train()(many_card)
+        res["train_rel_l2"] = rel_l2(got.cpu(), want)
+        stats = dict(card.named_buffers())
+        res["stats_rel_err"] = max(rel_err(stats[n].cpu(), w)
+                                   for n, w in cpu.named_buffers())
+        params = list(card.parameters())
+        card.eval()
+        with torch.inference_mode():
+            res["forward_ms"] = time_ms(lambda: card(small_card), 2, 10)
+            flops, nbytes = flops_and_bytes(lambda: card(small_card), params)
+        res["forward_bound_ms"] = encoder_bound_ms(
+            flops, nbytes + 4 * (small.numel() + ROWS_PER_STEP * 192))
+        card.train()
+
+        def fwd_bwd():
+            card.zero_grad(set_to_none=True)
+            card(feats_card).square().mean().backward()
+
+        torch.cuda.reset_peak_memory_stats()
+        res["fwd_bwd_ms"] = time_ms(fwd_bwd, 1, 5)
+        res["fwd_bwd_peak_bytes"] = torch.cuda.max_memory_allocated()
+        flops, nbytes = flops_and_bytes(fwd_bwd, params)
+        res["fwd_bwd_bound_ms"] = encoder_bound_ms(
+            flops, 2 * nbytes + 4 * feats.numel())
+        res["fwd_bwd_flops"] = flops
+        out[tag] = res
+        log(f"phase 16 encoder {tag} ({name}): card vs CPU rel L2 eval "
+            f"{res['eval_rel_l2']:.3e}, train {res['train_rel_l2']:.3e}"
+            + (f", frame features eval {res['frame_rel_l2']:.3e} train "
+               f"{res['train_frame_rel_l2']:.3e}" if frames else "")
+            + f" (limit {ENCODER_LIMIT}), statistics "
+            f"{res['stats_rel_err']:.3e} (limit {ENCODER_STATS_LIMIT}); "
+            f"forward [2 x 598] {res['forward_ms']:.3f} ms (bound "
+            f"{res['forward_bound_ms']:.3f}), forward + backward [4 x 598] "
+            f"{res['fwd_bwd_ms']:.3f} ms (bound {res['fwd_bwd_bound_ms']:.3f})")
+        bad = [k for k in ("eval_rel_l2", "train_rel_l2", "frame_rel_l2",
+                           "train_frame_rel_l2")
+               if k in res and not res[k] <= ENCODER_LIMIT]
+        if bad or not res["stats_rel_err"] <= ENCODER_STATS_LIMIT:
+            raise AssertionError(f"encoder {tag} on the card disagrees with "
+                                 f"the CPU: {bad} {res}")
+        del card, cpu
+    return out
+
+
+def feats_model(conf, seed=SEED):
+    """BSRNN_Feats at the conf's width, weights and statistics from
+    `seed`."""
+    from wesep_tpu_torch.models import get_model
+
+    torch.manual_seed(seed)
+    model = get_model("BSRNN_Feats")(**conf["model_args"]["tse_model"])
+    seed_statistics(model, seed)
+    return model
+
+
+def encoder_share_ms(model, mix, enroll):
+    """Device ms of the two encoder calls of a forward (the mixture's and
+    the enrollment's fbank -> frame features)."""
+    return time_ms(lambda: (model._frame_feats(mix),
+                            model._frame_feats(enroll)), 2, 10)
+
+
+def serve_bsrnn_feats(root):
+    """Phase 16 (b): bsrnn_feats.yaml through bin/infer on the card, 10
+    requests of 2 rows x 3 s with 6 s enrollments, f32: launch counts,
+    outputs, the step's time, audio-s/s, RTF, the encoder's share; the
+    kernels' forward against the plain LSTM's."""
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.data.wav_io import read_wav
+    from wesep_tpu_torch.models.common import LSTM
+
+    tag = "serve BSRNN_Feats"
+    conf = feats_conf()
+    rng = np.random.default_rng(SEED + 61)
+    paths, lengths = enroll_shard(root, rng, "featstest", [3.0] * 5)
+    model = feats_model(conf)
+    ckpt = os.path.join(root, "feats_model.ckpt")
+    save_model(ckpt, model)
+    exp = os.path.join(root, "exp_feats")
+    per_forward = 2 * conf["model_args"]["tse_model"]["num_repeat"]
+    steps = forward_steps(lengths)
+    zero_counts()
+    t0 = time.perf_counter()
+    sisnr, sisnri = infer({
+        "model": conf["model"], "model_args": conf["model_args"],
+        "data_type": "shard",
+        "dataset_args": {"resample_rate": 16000, "speaker_feat": False,
+                         "enroll_sec": ENROLL_SECONDS},
+        "exp_dir": exp, "checkpoint": ckpt, "device": "cuda",
+        "length_bucket": BUCKET, "infer_batch_size": ROWS_PER_STEP,
+        "test_data": paths["data"], "test_spk2utt": paths["spk2utt"],
+        "test_spk1_enroll": paths["spk1_enroll"],
+        "test_spk2_enroll": paths["spk2_enroll"]})
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"{tag}: {2 * len(lengths)} requests in {steps} forward steps, "
+        f"{wall:.3f} s wall, avg SI-SNR {sisnr:.3f} dB, SI-SNRi "
+        f"{sisnri:.3f} dB (random weights); launches "
+        f"{ {n: v for n, v in counts.items() if v} } (expected "
+        f"{per_forward} x {steps} of the f32 chain and of the f32 "
+        "projection)")
+    expect_counts(counts, per_forward * steps, 0, "layer", tag, f32=True)
+    audio = os.path.join(exp, "audio")
+    wavs = sorted(n for n in os.listdir(audio) if n.endswith(".wav"))
+    if len(wavs) != 2 * len(lengths) or not (
+            math.isfinite(sisnr) and math.isfinite(sisnri)):
+        raise AssertionError(f"{tag}: {len(wavs)} outputs, {sisnr}")
+    for name in wavs:
+        wav, _ = read_wav(os.path.join(audio, name))
+        if wav.shape != (1, lengths[0]) or not np.isfinite(wav).all():
+            raise AssertionError(f"{tag}: bad output {name}: {wav.shape}")
+
+    gen = torch.Generator().manual_seed(SEED + 62)
+    model = model.cuda().eval()
+    mix = voices(ROWS_PER_STEP, CHUNK, gen).cuda()
+    enr = voices(ROWS_PER_STEP, ENROLL_SAMPLES, gen).cuda()
+    lstms = [m for m in model.modules() if isinstance(m, LSTM)]
+    with torch.inference_mode():
+        zero_counts()
+        est = model(mix, enr)[0]
+        expect_counts(read_counts(), per_forward, 0, "layer",
+                      f"{tag}: one forward", f32=True)
+        step_ms = time_ms(lambda: model(mix, enr), 2, 10)
+        encoder_ms = encoder_share_ms(model, mix, enr)
+        for m in lstms:
+            m.plain = True
+        est_plain = model(mix, enr)[0]
+        for m in lstms:
+            m.plain = False
+    rel = rel_l2(est, est_plain)
+    if not (torch.isfinite(est).all() and rel <= 1e-3):
+        raise AssertionError(f"{tag}: kernel forward vs plain {rel}")
+    summary = {"requests": 2 * len(lengths), "steps": steps, "wall_s": wall,
+               "step_ms": step_ms, "audio_s_per_s": 2 * 3.0 / (step_ms / 1e3),
+               "rtf": step_ms / 1e3 / 6.0, "encoder_ms": encoder_ms,
+               "encoder_share": encoder_ms / step_ms,
+               "rel_l2_vs_plain": rel, "launches_per_forward": per_forward}
+    log(f"{tag}: forward [2 x 3 s, enrollments 2 x 6 s] {step_ms:.3f} ms/"
+        f"step, {summary['audio_s_per_s']:.1f} audio-s/s, RTF "
+        f"{summary['rtf']:.5f}; the encoder's two calls (ECAPA on the "
+        f"mixture's and the enrollment's fbank) {encoder_ms:.3f} ms, "
+        f"{100 * encoder_ms / step_ms:.1f} %; kernels vs plain LSTM rel L2 "
+        f"{rel:.3e} (limit 1e-3)")
+    return counts, summary
+
+
+def module_event_ms(modules, fn):
+    """Device ms of each named module's forward calls within one fn(), by
+    CUDA events recorded by forward pre- and post-hooks."""
+    events = {name: [] for name in modules}
+    hooks = []
+    for name, module in modules.items():
+        def pre(mod, args, name=name):
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            events[name].append([start, None])
+
+        def post(mod, args, out, name=name):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            events[name][-1][1] = end
+
+        hooks += [module.register_forward_pre_hook(pre),
+                  module.register_forward_hook(post)]
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return {name: sum(s.elapsed_time(e) for s, e in pairs)
+            for name, pairs in events.items()}, {
+                name: len(pairs) for name, pairs in events.items()}
+
+
+def train_bsrnn_feats(root):
+    """Phase 16 (c): bsrnn_feats.yaml through bin/train on the card (its
+    bf16 compute and spk_model_freeze; 2 steps of 4 rows x 3 s and one
+    validation step): exact f32 LSTM launches, the frozen encoder bit for
+    bit while its statistics move; the whole model's f32 gradients through
+    the kernels against the plain LSTM's; a step's time, peak memory and
+    the encoder's and cross-attention's device ms."""
+    from wesep_tpu_torch.bin.train import train
+    from wesep_tpu_torch.models.common import LSTM
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    tag = "train BSRNN_Feats"
+    conf = feats_conf()
+    rng = np.random.default_rng(SEED + 63)
+    tr, _ = enroll_shard(root, rng, "featstrain", [4.0] * FEATS_ROWS)
+    va, _ = enroll_shard(root, rng, "featsdev", [3.5] * FEATS_BATCH)
+    init = feats_model(conf)
+    init_state = {n: v.clone() for n, v in init.state_dict().items()}
+    init_path = os.path.join(root, "feats_init.ckpt")
+    save_model(init_path, init)
+    exp = os.path.join(root, "exp_feats_train")
+    overrides = [
+        f"exp_dir={exp}", "device=cuda", f"train_data={tr['data']}",
+        f"train_utt2spk={tr['utt2spk']}", f"train_spk2utt={tr['spk2enroll']}",
+        f"val_data={va['data']}", f"val_spk2utt={va['spk2utt']}",
+        f"val_spk1_enroll={va['spk1_enroll']}",
+        f"val_spk2_enroll={va['spk2_enroll']}", "num_epochs=1",
+        "num_avg=1", "log_batch_interval=1",
+        f"model_init.tse_model={init_path}",
+        f"dataloader_args.batch_size={FEATS_BATCH}",
+        f"dataset_args.sample_num_per_epoch={FEATS_STEPS * FEATS_BATCH}"]
+    per_pass = 2 * conf["model_args"]["tse_model"]["num_repeat"]
+    val_steps = 1
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train(FEATS_CONF, overrides=overrides)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    log(f"{tag}: {FEATS_STEPS} steps + {val_steps} validation step through "
+        f"bin/train in {wall:.3f} s wall; launches "
+        f"{ {n: v for n, v in counts.items() if v} } (expected "
+        f"{per_pass} f32 forwards with cs and of each f32 backward kernel a "
+        f"train step, {per_pass} f32 forwards a validation step)")
+    expect_counts(counts, per_pass * (FEATS_STEPS + val_steps),
+                  per_pass * FEATS_STEPS, "layer", tag, f32=True)
+    with open(os.path.join(exp, "train.log")) as f:
+        text = f.read()
+    losses = rows_loss(text)
+    epoch = re.findall(r"Epoch 1 train_loss (\S+) val_loss (\S+)", text)
+    if len(losses) != FEATS_STEPS or len(epoch) != 1 or not all(
+            math.isfinite(v) for v in losses + [float(e) for e in epoch[0]]):
+        raise AssertionError(f"{tag}: losses {losses} {epoch}")
+    enc = {n: p.detach().cpu() for n, p in state.model.named_parameters()
+           if n.startswith("spk_model_net.")}
+    kept = bool(enc) and all(torch.equal(p, init_state[n])
+                             for n, p in enc.items())
+    stats_moved = all(not torch.equal(b.cpu(), init_state[n])
+                      for n, b in state.model.named_buffers()
+                      if n.endswith((".mean", ".var")))
+    rest_moved = all(not torch.equal(p.detach().cpu(), init_state[n])
+                     for n, p in state.model.named_parameters()
+                     if not n.startswith("spk_model_net."))
+    log(f"{tag}: running mean loss per step {losses}, epoch {epoch}; "
+        f"spk_model_freeze: {len(enc)} encoder parameters unchanged bit for "
+        f"bit {kept}, its statistics moved {stats_moved}, every other "
+        f"parameter moved {rest_moved}")
+    if not (kept and stats_moved and rest_moved):
+        raise AssertionError(f"{tag}: spk_model_freeze did not hold")
+    del state
+
+    # the whole model's f32 gradients through the kernels against the plain
+    # LSTM's (2 rows x 3 s, 6 s enrollments)
+    gen = torch.Generator().manual_seed(SEED + 64)
+    model = feats_model(conf).cuda().train()
+    mix = voices(ROWS_PER_STEP, CHUNK, gen).cuda()
+    enr = voices(ROWS_PER_STEP, ENROLL_SAMPLES, gen).cuda()
+    target = voices(ROWS_PER_STEP, CHUNK, gen).cuda()
+    lstms = [m for m in model.modules() if isinstance(m, LSTM)]
+    zero_counts()
+    got = param_grads(model, mix, enr, target)
+    grad_counts = read_counts()
+    expect_counts(grad_counts, per_pass, per_pass, "layer",
+                  f"{tag}: f32 gradients", f32=True)
+    for m in lstms:
+        m.plain = True
+    want = param_grads(model, mix, enr, target)
+    for m in lstms:
+        m.plain = False
+    total = torch.cat([g.flatten() for g in want.values()]).norm().item()
+    rel = {n: rel_l2(got[n], want[n]) for n in want
+           if n not in FEATS_NOISE_ONLY}
+    noise = {n: (got[n] - want[n]).norm().item() / total
+             for n in FEATS_NOISE_ONLY}
+    worst = max(rel, key=rel.get)
+    enc_worst = max((n for n in rel if n.startswith("spk_model_net.")),
+                    key=rel.get)
+    log(f"{tag}: gradients of {len(rel)} parameters, kernels vs plain LSTM "
+        f"(f32): worst relative L2 {rel[worst]:.3e} at {worst}, the "
+        f"encoder's worst {rel[enc_worst]:.3e} at {enc_worst} (limit 1e-3); "
+        f"noise-only {noise} of the whole gradient's norm (limit 1e-5)")
+    if not (rel[worst] <= 1e-3 and max(noise.values()) <= 1e-5):
+        raise AssertionError(f"{tag}: gradients differ: {worst} {rel[worst]}"
+                             f", {noise}")
+    del got, want
+
+    # a train step at the recipe's shape: 4 rows x 3 s, bf16, frozen encoder
+    model = feats_model(conf).cuda()
+    batch = {"wav_mix": voices(FEATS_ROWS, CHUNK, gen).cuda(),
+             "wav_targets": voices(FEATS_ROWS, CHUNK, gen).cuda(),
+             "spk_embeds": voices(FEATS_ROWS, ENROLL_SAMPLES, gen).cuda()}
+    opt = make_optimizer(model, exponential_decrease(
+        num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+        warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0,
+        freeze_prefixes=("spk_model_net",))
+    tstate = TrainState(model=model, optimizer=opt)
+    step = make_train_step(parse_loss("SISDR"), compute_dtype=torch.bfloat16)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step(tstate, batch)
+    per_step = read_counts()
+    expect_counts(per_step, per_pass, per_pass, "layer",
+                  f"{tag}: one train step", f32=True)
+    step_ms = time_ms(lambda: step(tstate, batch), 1, 5)
+    peak = torch.cuda.max_memory_allocated()
+    part_ms, calls = module_event_ms(
+        {"encoder": model.spk_model_net, "cross_att": model.cross_att},
+        lambda: step(tstate, batch))
+    wrapper_ms, timed_ms = wrapper_times(lambda: step(tstate, batch))
+    lstm_ms = sum(wrapper_ms.values())
+    audio = FEATS_ROWS * CHUNK / 16000.0
+    log(f"{tag}: step [4 rows x 3 s, 6 s enrollments, bf16 stream, f32 "
+        f"after the cross fuse] {step_ms:.3f} ms, "
+        f"{audio / (step_ms / 1e3):.1f} audio-s/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; forward device ms by CUDA events: the "
+        f"encoder {part_ms['encoder']:.3f} over {calls['encoder']} calls, "
+        f"the cross-attention {part_ms['cross_att']:.3f} over "
+        f"{calls['cross_att']}; the f32 LSTM wrappers "
+        f"{ {n: round(v, 3) for n, v in wrapper_ms.items()} } ms, "
+        f"{lstm_ms:.3f} in all, {100 * lstm_ms / timed_ms:.1f} % of a "
+        f"{timed_ms:.3f} ms step")
+    if calls["encoder"] != 2:
+        raise AssertionError(f"{tag}: {calls['encoder']} encoder calls a "
+                             "train step, expected 2")
+    return {"main": counts, "f32_grads": grad_counts}, {
+        "steps": FEATS_STEPS, "val_steps": val_steps, "wall_s": wall,
+        "running_mean_loss": losses, "grad_rel_l2_worst": rel[worst],
+        "encoder_grad_rel_l2_worst": rel[enc_worst],
+        "noise_only_grad_err": noise,
+        "step_ms": step_ms, "audio_s_per_s": audio / (step_ms / 1e3),
+        "peak_memory_bytes": peak, "encoder_forward_ms": part_ms["encoder"],
+        "cross_att_forward_ms": part_ms["cross_att"],
+        "f32_lstm_wrapper_ms": wrapper_ms, "timed_step_ms": timed_ms,
+        "f32_lstm_share": lstm_ms / timed_ms,
+        "launches_per_step": {n: v for n, v in per_step.items() if v}}
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_ddp_one_process(root):
+    """Phase 16 (d): bin/train on phase 5's pBSRNN (16 rows x 3 s, bf16,
+    DDP_STEPS steps and a validation step) under WESEP_DIST=1 with a
+    one-process NCCL group, against the same run without WESEP_DIST: the
+    losses and the final parameters and buffers equal bit for bit; the two
+    runs' wall times and each step's ms (the first includes set-up)."""
+    import torch.distributed as dist
+
+    from wesep_tpu_torch.bin.train import train
+    from wesep_tpu_torch.models.bsrnn import BSRNN
+    from wesep_tpu_torch.train import trainer
+    from wesep_tpu_torch.train.checkpoint import save_checkpoint
+
+    tag = "bin/train under WESEP_DIST"
+    make_step, steps_ms = trainer.make_train_step, []
+
+    def timed_make_step(*args, **kw):
+        """bin/train's step, each call timed by the host clock between two
+        synchronisations (which change no number)."""
+        step = make_step(*args, **kw)
+
+        def timed(state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            steps_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        return timed
+
+    rng = np.random.default_rng(SEED + 65)
+    tr, _ = write_shard(root, rng, "ddptrain", [4.0] * (2 * TRAIN_BATCH))
+    va, _ = write_shard(root, rng, "ddpdev", [3.5] * TRAIN_BATCH)
+    torch.manual_seed(SEED)
+    init_path = os.path.join(root, "ddp_init.ckpt")
+    save_checkpoint(init_path, [BSRNN(**V1_MODEL_ARGS).state_dict()])
+    runs = {}
+    for mode in ("plain", "dist"):
+        config = {
+            "device": "cuda", "exp_dir": os.path.join(root, f"exp_{mode}"),
+            "data_type": "shard",
+            "train_data": tr["data"], "train_spk_embeds": tr["spk_embeds"],
+            "train_utt2spk": tr["utt2spk"],
+            "val_data": va["data"], "val_spk_embeds": va["spk_embeds"],
+            "val_spk1_enroll": va["spk1_enroll"],
+            "val_spk2_enroll": va["spk2_enroll"],
+            # no prefetch thread: the chain's draws from Python's global
+            # random then come in one order in both runs
+            "dataloader_args": {"batch_size": TRAIN_BATCH, "drop_last": True,
+                                "prefetch_factor": 0},
+            "dataset_args": {"resample_rate": 16000,
+                             "sample_num_per_epoch": DDP_STEPS * TRAIN_BATCH,
+                             "shuffle": True,
+                             "shuffle_args": {"shuffle_size": 2500},
+                             "chunk_len": CHUNK, "speaker_feat": False},
+            "compute_dtype": "bfloat16", "log_batch_interval": 1,
+            "loss": "SISDR", "loss_args": {},
+            "model": {"tse_model": "BSRNN"},
+            "model_args": {"tse_model": dict(V1_MODEL_ARGS)},
+            "model_init": {"tse_model": init_path},
+            "num_avg": 1, "num_epochs": 1,
+            "optimizer": {"tse_model": "Adam"},
+            "optimizer_args": {"tse_model": {"lr": 0.001,
+                                             "weight_decay": 0.0001}},
+            "clip_grad": 5.0, "save_epoch_interval": 1,
+            "scheduler": {"tse_model": "ExponentialDecrease"},
+            "scheduler_args": {"tse_model": {
+                "final_lr": 2.5e-05, "initial_lr": 0.001,
+                "warm_from_zero": False, "warm_up_epoch": 0}},
+            "seed": 42,
+        }
+        env = {"WESEP_DIST": "1" if mode == "dist" else None,
+               "WESEP_COORDINATOR": f"localhost:{free_port()}",
+               "WESEP_NUM_PROCESSES": "1", "WESEP_PROCESS_ID": "0"}
+        old = set_env(env)
+        steps_ms.clear()
+        trainer.make_train_step = timed_make_step
+        try:
+            t0 = time.perf_counter()
+            state = train(config)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            backend = dist.get_backend() if dist.is_initialized() else None
+        finally:
+            trainer.make_train_step = make_step
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            set_env(old)
+        with open(os.path.join(config["exp_dir"], "train.log")) as f:
+            text = f.read()
+        meter = re.findall(r"-> (\S+) audio-s/s", text)
+        runs[mode] = {"losses": rows_loss(text), "wall_s": wall,
+                      "steps_ms": list(steps_ms), "backend": backend,
+                      "epoch_audio_s_per_s": meter,
+                      "state": {n: v.detach().cpu().clone() for n, v in
+                                state.model.state_dict().items()}}
+        del state
+    plain, ddp = runs["plain"], runs["dist"]
+    same_state = plain["state"].keys() == ddp["state"].keys() and all(
+        torch.equal(v, ddp["state"][n]) for n, v in plain["state"].items())
+    summary = {mode: {k: v for k, v in r.items() if k != "state"}
+               for mode, r in runs.items()}
+    summary["bit_for_bit"] = same_state and plain["losses"] == ddp["losses"]
+    log(f"{tag}: {DDP_STEPS} steps + 1 validation step of the pBSRNN (16 "
+        f"rows x 3 s, bf16) with WESEP_DIST=1 (backend {ddp['backend']}, one "
+        f"process) in {ddp['wall_s']:.3f} s wall, steps "
+        f"{[round(t, 3) for t in ddp['steps_ms']]} ms, losses "
+        f"{ddp['losses']}; without WESEP_DIST {plain['wall_s']:.3f} s, steps "
+        f"{[round(t, 3) for t in plain['steps_ms']]} ms, losses "
+        f"{plain['losses']}; losses, parameters and buffers equal bit for "
+        f"bit {summary['bit_for_bit']}")
+    if not (summary["bit_for_bit"] and ddp["backend"] == "nccl"
+            and len(ddp["losses"]) == DDP_STEPS):
+        raise AssertionError(f"{tag}: the run differs from the plain run "
+                             f"{summary}")
+    return summary
+
+
+# the data-parallel step across cards against one process on every card's
+# rows (f32, TF32 off), with the limits of the CPU test
+# (tests/test_torch_ddp.py). The first step starts from equal parameters:
+# loss rtol 1e-6, gradient relative L2 1e-5, statistics 1e-6 of their
+# largest. Its update is Adam's first, lr * g / (|g| + eps): it turns an
+# element whose gradient is within rounding of zero into +-lr, so the
+# parameters after it may differ by 2 lr on such elements; the elements
+# that differ by more than 1e-6 must be under 1 %. Later steps start from
+# those parameters: loss rtol 1e-4, gradient 2e-3, statistics 5e-4 (the CPU
+# test's limits for the JAX step after such a first update); every
+# parameter within 2 lr a step taken.
+DDP_CARD_ROWS, DDP_CARD_STEPS = 2, 3
+DDP_CARD_LIMITS = (
+    {"loss_rtol": 1e-6, "grad_rel_l2": 1e-5, "stats": 1e-6,
+     "params_off_share": 0.01},
+    {"loss_rtol": 1e-4, "grad_rel_l2": 2e-3, "stats": 5e-4})
+DDP_CARD_LR = 1e-3
+
+
+def ddp_card_steps(world, rank=None):
+    """DDP_CARD_STEPS f32 train steps (TF32 off) of bsrnn_feats.yaml's
+    model with its spk_model_freeze, through make_train_step, on a seeded
+    batch of world * DDP_CARD_ROWS rows (3 s mixtures of two sources, each
+    source a row's target, 6 s enrollments), or on `rank`'s DDP_CARD_ROWS
+    of them -> {"steps": for each step (loss,
+    the gradient handed to the optimizer, parameters, statistics) on the
+    CPU, "init": the parameters before, "last_step_ms": the last step's
+    time by the host clock between synchronisations}."""
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 66)
+    rows = world * DDP_CARD_ROWS
+    share = slice(None) if rank is None else slice(
+        rank * DDP_CARD_ROWS, (rank + 1) * DDP_CARD_ROWS)
+    # rows as the collator makes them, each mixture of two sources twice
+    # with each source as the target: a target unrelated to its mixture
+    # puts SI-SDR near -54 dB, where the loss magnifies the rounding of the
+    # estimate's projection on the target some 500x (such rows read 5.3e-5
+    # rel. L2 between the first steps' gradients on an H100)
+    src = voices(rows, CHUNK, gen)
+    batch = {"wav_mix": (src[0::2] + src[1::2]).repeat_interleave(2, 0),
+             "wav_targets": src,
+             "spk_embeds": voices(rows, ENROLL_SAMPLES, gen)}
+    batch = {k: v[share].cuda() for k, v in batch.items()}
+    model = feats_model(feats_conf()).cuda()
+    opt = make_optimizer(model, exponential_decrease(
+        num_epochs=1, epoch_iter=100, initial_lr=DDP_CARD_LR,
+        final_lr=2.5e-5, warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0,
+        freeze_prefixes=("spk_model_net",))
+    grads, update = [], opt.update
+    opt.update = lambda g: grads.append(
+        {n: v.detach().cpu() for n, v in g.items()}) or update(g)
+    state = TrainState(model=model, optimizer=opt)
+    step = make_train_step(parse_loss("SISDR"))
+    init = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    out = []
+    for _ in range(DDP_CARD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        ms = (time.perf_counter() - t0) * 1e3
+        out.append((loss, grads[-1],
+                    {n: p.detach().cpu().clone()
+                     for n, p in model.named_parameters()},
+                    {n: b.cpu().clone() for n, b in model.named_buffers()
+                     if n.endswith((".mean", ".var"))}))
+    return {"steps": out, "init": init, "last_step_ms": ms}
+
+
+def ddp_card_rank(rank, world, port, out_dir, task, overrides=None):
+    """One process of check_ddp_across_cards, on card `rank`: "steps"
+    joins an NCCL group of `world` and runs ddp_card_steps; "bin_train"
+    runs bin/train on bsrnn_feats.yaml under WESEP_DIST=1, which joins it
+    itself. Writes its result to `out_dir`/{task}{rank}.pt."""
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank)
+    try:
+        if task == "steps":
+            dist.init_process_group(
+                "nccl", init_method=f"tcp://localhost:{port}",
+                world_size=world, rank=rank)
+            result = ddp_card_steps(world, rank)
+        else:
+            from wesep_tpu_torch.bin.train import train
+
+            set_env({"WESEP_DIST": "1",
+                     "WESEP_COORDINATOR": f"localhost:{port}",
+                     "WESEP_NUM_PROCESSES": str(world),
+                     "WESEP_PROCESS_ID": str(rank)})
+            state = train(FEATS_CONF, overrides=overrides)
+            torch.cuda.synchronize()
+            result = {"steps": state.step, "backend": dist.get_backend(),
+                      "state": {n: v.detach().cpu() for n, v in
+                                state.model.state_dict().items()}}
+        torch.save(result, os.path.join(out_dir, f"{task}{rank}.pt"))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(world, out_dir, task, overrides=None, limit=600):
+    """ddp_card_rank in `world` spawned processes, one a card; every
+    process is ended by `limit` s -> each rank's result."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    procs = [ctx.Process(target=ddp_card_rank,
+                         args=(rank, world, port, out_dir, task, overrides))
+             for rank in range(world)]
+    deadline = time.monotonic() + limit
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"{task} across {world} cards: exit codes "
+                             f"{codes}")
+    return [torch.load(os.path.join(out_dir, f"{task}{rank}.pt"),
+                       weights_only=False) for rank in range(world)]
+
+
+def ddp_step_errors(got, want, init):
+    """One rank's steps against the one process's -> for each step its
+    errors by the measures of DDP_CARD_LIMITS, each beside the parameter it
+    is worst at, and every parameter's largest difference ("params_max",
+    held to 2 lr a step taken)."""
+    out = []
+    for i, ((loss, grads, new, stats),
+            (w_loss, w_grads, w_new, w_stats)) in enumerate(zip(got, want)):
+        num = sum(float((grads[n] - g).square().sum())
+                  for n, g in w_grads.items())
+        den = sum(float(g.square().sum()) for g in w_grads.values())
+        stat = {n: float((stats[n] - w).abs().max())
+                / max(float(w.abs().max()), 1.0) for n, w in w_stats.items()}
+        diff = {n: (new[n] - w).abs() for n, w in w_new.items()}
+        worst_p = max(diff, key=lambda n: float(diff[n].max()))
+        err = {"loss_rtol": abs(loss - w_loss) / abs(w_loss),
+               "grad_rel_l2": (num / den) ** 0.5,
+               "stats": max(stat.values()),
+               "stats_worst_at": max(stat, key=stat.get),
+               "params_max": float(diff[worst_p].max()),
+               "params_max_at": worst_p,
+               "params_max_limit": 2 * DDP_CARD_LR * (i + 1)}
+        if i == 0:
+            off = sum(int((d > 1e-6).sum()) for d in diff.values())
+            err["params_off_share"] = off / sum(d.numel()
+                                                for d in diff.values())
+        out.append(err)
+    return out
+
+
+def ddp_errors_ok(errs):
+    """Every step's errors within DDP_CARD_LIMITS (the first step's, then
+    the later steps')."""
+    return all(
+        e[k] <= v for i, e in enumerate(errs)
+        for k, v in DDP_CARD_LIMITS[min(i, 1)].items()) and all(
+        e["params_max"] <= e["params_max_limit"] for e in errs)
+
+
+def check_ddp_across_cards(world):
+    """Phase 16 (e), with `world` >= 2 cards of one host: (i)
+    make_train_step under DistributedDataParallel over an NCCL group of
+    `world` processes, one a card, DDP_CARD_ROWS rows each, against one
+    process on all their rows (ddp_card_steps, f32, TF32 off): every
+    rank's loss, gradient, statistics and parameters at every step within
+    DDP_CARD_LIMITS, the ranks' parameters and statistics bit for bit;
+    (ii) bin/train on bsrnn_feats.yaml (bf16, FEATS_STEPS steps a rank)
+    under WESEP_DIST=1 across the cards: the ranks end equal bit for bit,
+    only rank 0 writes the log and checkpoints."""
+    tag = f"DDP across {world} cards"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        t0 = time.perf_counter()
+        ranks = run_ranks(world, root, "steps")
+        ranks_wall = time.perf_counter() - t0
+        one = ddp_card_steps(world)
+        errs = [ddp_step_errors(r["steps"], one["steps"], one["init"])
+                for r in ranks]
+        last = ranks[0]["steps"][-1]
+        equal = all(
+            all(torch.equal(v, r["steps"][-1][part][n])
+                for part in (2, 3) for n, v in last[part].items())
+            for r in ranks[1:])
+        losses = [round(s[0], 6) for s in one["steps"]]
+        log(f"{tag}: {DDP_CARD_STEPS} f32 steps of BSRNN_Feats "
+            f"({DDP_CARD_ROWS} rows x 3 s a card, NCCL, {ranks_wall:.1f} s "
+            f"wall with spawn and set-up) against one process on "
+            f"{world * DDP_CARD_ROWS} rows: losses {losses}; ranks bit for "
+            f"bit {equal}; last step {ranks[0]['last_step_ms']:.3f} ms a "
+            f"rank, {one['last_step_ms']:.3f} ms in one process")
+        for rank, e in enumerate(errs):
+            log(f"{tag}: rank {rank} against the one process, by step "
+                f"{json.dumps(e)} (limits {DDP_CARD_LIMITS})")
+        if not (equal and all(ddp_errors_ok(e) for e in errs)):
+            raise AssertionError(f"{tag}: the DDP steps differ from the one "
+                                 f"process: {errs}, ranks equal {equal}")
+
+        rng = np.random.default_rng(SEED + 67)
+        tr, _ = enroll_shard(root, rng, "ddptrain", [4.0] * FEATS_ROWS)
+        va, _ = enroll_shard(root, rng, "ddpdev", [3.5] * FEATS_BATCH)
+        exp = os.path.join(root, "exp_ddp_cards")
+        overrides = [
+            f"exp_dir={exp}", "device=cuda", f"train_data={tr['data']}",
+            f"train_utt2spk={tr['utt2spk']}",
+            f"train_spk2utt={tr['spk2enroll']}",
+            f"val_data={va['data']}", f"val_spk2utt={va['spk2utt']}",
+            f"val_spk1_enroll={va['spk1_enroll']}",
+            f"val_spk2_enroll={va['spk2_enroll']}", "num_epochs=1",
+            "num_avg=1", "log_batch_interval=1",
+            f"dataloader_args.batch_size={FEATS_BATCH}",
+            "dataset_args.sample_num_per_epoch="
+            f"{FEATS_STEPS * FEATS_BATCH * world}"]
+        t0 = time.perf_counter()
+        runs = run_ranks(world, root, "bin_train", overrides)
+        bin_wall = time.perf_counter() - t0
+        state0 = runs[0]["state"]
+        same = all(torch.equal(v, r["state"][n])
+                   for r in runs[1:] for n, v in state0.items())
+        logs = sorted(n for n in os.listdir(exp) if n.startswith("train.log"))
+        models = sorted(os.listdir(os.path.join(exp, "models")))
+        steps = [r["steps"] for r in runs]
+        log(f"{tag}: bin/train on bsrnn_feats.yaml under WESEP_DIST=1 "
+            f"(backend {runs[0]['backend']}): steps a rank {steps}, "
+            f"{bin_wall:.1f} s wall with spawn and set-up; the ranks' "
+            f"parameters and buffers equal bit for bit {same}; logs {logs}, "
+            f"checkpoints {models}")
+        if not (same and steps == [FEATS_STEPS] * world
+                and runs[0]["backend"] == "nccl" and logs == ["train.log"]
+                and "checkpoint_1.ckpt" in models):
+            raise AssertionError(f"{tag}: bin/train under WESEP_DIST: steps "
+                                 f"{steps}, equal {same}, {logs}, {models}")
+    return {"world": world, "rows_a_card": DDP_CARD_ROWS,
+            "steps": DDP_CARD_STEPS, "losses": losses, "errors": errs,
+            "limits": DDP_CARD_LIMITS, "ranks_bit_for_bit": equal,
+            "last_step_ms_rank": ranks[0]["last_step_ms"],
+            "last_step_ms_one_process": one["last_step_ms"],
+            "bin_train": {"steps": steps, "bit_for_bit": same,
+                          "wall_s": bin_wall}}
+
+
+def phase16():
+    """Phase 16 whole: (a) the encoders, (b) BSRNN_Feats served, (c)
+    trained, (d) bin/train under WESEP_DIST in one process, (e) with 2 or
+    more cards, DDP across up to 4 of them; -> (launches by path,
+    summary)."""
+    t0 = time.perf_counter()
+    encoders = check_feats_encoders()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        serve_launches, served = serve_bsrnn_feats(root)
+    log("serve BSRNN_Feats summary", json.dumps(served))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        train_launches, trained = train_bsrnn_feats(root)
+    log("train BSRNN_Feats summary", json.dumps(trained))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        ddp = check_ddp_one_process(root)
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        ddp_cards = check_ddp_across_cards(min(cards, 4))
+    else:
+        ddp_cards = None
+        log("phase 16 (e), DDP across cards, needs 2 or more cards: "
+            "python3 chip_smoke.py --only-ddp on a machine that has them")
+    log(f"phase 16 in {time.perf_counter() - t0:.1f} s")
+    return {"bsrnn_feats_serve": serve_launches,
+            "bsrnn_feats_train": train_launches["main"],
+            "bsrnn_feats_f32_grads": train_launches["f32_grads"]}, {
+        "encoders": encoders, "serve": served, "train": trained,
+        "ddp": ddp, "ddp_cards": ddp_cards}
+
+
+def feats_kernel_cases():
+    """Phase 3's f32 K0 cases at BSRNN_Feats' train shapes (4 rows x 3 s):
+    the forward with cs, and the backward (the old FMA kernels, which no
+    recipe runs at these shapes, neither held nor timed)."""
+    forward = [check_f32_forward("layer", name, t_len, batch, with_cs=True,
+                                 old=False)
+               for name, (t_len, batch) in FEATS_SHAPES.items()]
+    backward = [check_f32_backward("layer", name, t_len, batch, old=False)
+                for name, (t_len, batch) in FEATS_SHAPES.items()]
+    return forward, backward
+
+
+def phase16_only() -> int:
+    """`--only-phase16`: phases 1 and 2, phase 3's f32 K0 / K0b cases at
+    BSRNN_Feats' train shapes, and phase 16; no final line."""
+    from wesep_tpu_torch.ops import _build
+
+    log(card_line())
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build in {time.perf_counter() - t0:.2f} s")
+    feats_kernel_cases()
+    launches, summary = phase16()
+    log("phase 16 launches", json.dumps(launches))
+    log(f"wall {time.perf_counter() - t0:.1f} s")
+    log(card_line())
+    return 0
+
+
+def ddp_only() -> int:
+    """`--only-ddp` (2 or more cards): phases 1 and 2 and phase 16 (e), DDP
+    across up to 4 cards; no final line."""
+    from wesep_tpu_torch.ops import _build
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"chip_smoke --only-ddp: {cards} card, 2 or more needed",
+              file=sys.stderr)
+        return 1
+    log(card_line())
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build in {time.perf_counter() - t0:.2f} s")
+    log("phase 16 (e) summary", json.dumps(
+        check_ddp_across_cards(min(cards, 4))))
+    log(f"wall {time.perf_counter() - t0:.1f} s")
+    log(card_line())
+    return 0
+
+
 # (rows, dtype) of phase 3's K5/K5b cases: DPCCN serving (f32), training
 # (bf16), and the MetricGAN step (f32, which dpcc_init_gan.yaml runs)
 CONV_CASES = ((ROWS_PER_STEP, torch.float32),
@@ -5747,6 +6692,13 @@ def main() -> int:
     from wesep_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
+    laps, last = {}, [t_start]
+
+    def lap(name):
+        """The wall time since the previous lap, added under `name`."""
+        now = time.perf_counter()
+        laps[name] = laps.get(name, 0.0) + now - last[0]
+        last[0] = now
 
     # numbers are compared in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5755,6 +6707,10 @@ def main() -> int:
         return conv2d_only()
     if sys.argv[1:] == ["--only-phase15"]:
         return phase15_only()
+    if sys.argv[1:] == ["--only-phase16"]:
+        return phase16_only()
+    if sys.argv[1:] == ["--only-ddp"]:
+        return ddp_only()
 
     # 1. device
     card = card_line()
@@ -5772,6 +6728,7 @@ def main() -> int:
         with open(lib + ".log") as f:
             log(f.read().strip())
 
+    lap("1-2 device, build")
     # 3. kernels against their plain versions
     cases = [check_kernel(name, t_len, batch, dtype)
              for name, (t_len, batch) in MAIN_SHAPES.items()
@@ -5913,6 +6870,13 @@ def main() -> int:
         f32_bwd_cases.append(check_f32_backward(
             "unfold", name + ("_hs2" if hs == 2 else ""), None, rows,
             grid_d, GRID_H, length=length, hs=hs))
+    # and K0's f32 forward (with cs) and backward at BSRNN_Feats' train
+    # shapes (4 rows x 3 s, phase 16)
+    lap("3 kernels (but BSRNN_Feats' shapes)")
+    feats_fwd, feats_bwd = feats_kernel_cases()
+    lap("3 kernels at BSRNN_Feats' shapes")
+    f32_cases += feats_fwd
+    f32_bwd_cases += feats_bwd
     # and the routes' own FMA kernels, forward and backward, at a shape the
     # f32 gates refuse, through the layers' entry points
     refused_launches = f32_refused_path()
@@ -5926,46 +6890,55 @@ def main() -> int:
     # the TCN block and the Conv2dBlock past one grid dimension
     large_cases = check_large_grids()
 
+    lap("3 kernels (but BSRNN_Feats' shapes)")
     # 4. serve
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         serve_launches, served = serve(root)
     log("serve summary", json.dumps(served))
 
+    lap("4 serve")
     # 5. train
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         train_launches, trained = train_phase(root)
     log("train summary", json.dumps(trained))
 
+    lap("5 train")
     # 6. serve SpEx+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         spex_serve_launches, spex_served = serve_spex(root)
     log("serve SpEx+ summary", json.dumps(spex_served))
 
+    lap("6 serve SpEx+")
     # 7. train SpEx+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         spex_launches, spex_trained = train_spex(root)
     log("train SpEx+ summary", json.dumps(spex_trained))
 
+    lap("7 train SpEx+")
     # 8. serve TF-GridNet, on both routes
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         grid_served = serve_tfgridnet(root)
     log("serve TF-GridNet summary", json.dumps(grid_served))
 
+    lap("8 serve TF-GridNet")
     # 9. train TF-GridNet, on the unfold-fused route
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         grid_launches, grid_trained = train_tfgridnet(root)
     log("train TF-GridNet summary", json.dumps(grid_trained))
 
+    lap("9 train TF-GridNet")
     # 10. serve DPCCN, on both routes
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         dpccn_served = serve_dpccn(root)
     log("serve DPCCN summary", json.dumps(dpccn_served))
 
+    lap("10 serve DPCCN")
     # 11. train DPCCN, on the fused-block route
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         dpccn_launches, dpccn_trained = train_dpccn(root)
     log("train DPCCN summary", json.dumps(dpccn_trained))
 
+    lap("11 train DPCCN")
     # 12, 13. the pBSRNN on its two other LSTM routes: serve and train
     # through the two-kernel bidirectional layer (WESEP_LSTM_LAYER=0), then
     # the unidirectional model (use_bidirectional: false)
@@ -5981,6 +6954,7 @@ def main() -> int:
         log(f"pBSRNN {route} route summary",
             json.dumps(route_summaries[route]))
 
+    lap("12-13 pBSRNN routes")
     # 14. the joint v2 models: (a) the speaker branch's ops against the
     # CPU; (b) the v2 BSRNN served through bin/infer; (c) trained through
     # bin/train, then average_model and bin/infer, with (d) one SSA step;
@@ -5996,6 +6970,7 @@ def main() -> int:
     log("v2 TF-GridNet and DPCCN summary", json.dumps(v2_others))
     log("speaker ops summary", json.dumps(speaker_ops))
 
+    lap("14 joint v2")
     # 15. MetricGAN on DPCCN: (a) P.862 and (b) the discriminator against
     # the CPU; (c) bin/train_gan on both conv_impl routes, resume,
     # average_model -> bin/infer; (d) a v2 GAN step; (e) BSRNN_Multi
@@ -6004,6 +6979,16 @@ def main() -> int:
     log("phase 15 summary", json.dumps({
         k: v for k, v in phase15_summary.items() if k in ("pesq",
                                                            "discriminator")}))
+
+    lap("15 MetricGAN, BSRNN_Multi")
+    # 16. BSRNN_Feats: (a) ECAPA-TDNN (both layouts) and CAM++ against the
+    # CPU; (b) bsrnn_feats.yaml served through bin/infer; (c) trained
+    # through bin/train; (d) bin/train under WESEP_DIST (one NCCL process)
+    # against the plain run
+    phase16_launches, phase16_summary = phase16()
+    log("phase 16 summary", json.dumps({
+        k: v for k, v in phase16_summary.items() if k in ("encoders",
+                                                           "ddp")}))
 
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
@@ -6174,7 +7159,8 @@ def main() -> int:
     add_path("v2_tfgridnet_train_step", {
         n: v for n, v in v2_others["TFGridNet"]["train_launches"].items()
         if n in by_path})
-    for path, counts in phase15_launches.items():
+    for path, counts in list(phase15_launches.items()) + list(
+            phase16_launches.items()):
         add_path(path, counts)
     # the main path of a kernel: its training path; for the f32 cluster
     # forward, serving (phase 4); for the routes' own FMA forward kernels,
@@ -6202,8 +7188,8 @@ def main() -> int:
             entry["own_fma_cases"] = [
                 dict(c["own_fma_kernel"], route=c["route"], shape=c["shape"],
                      T=c["T"], B=c["B"], D=c["D"], H=c["H"])
-                for c in f32_cases
-                if OLD_F32_FORWARD[c["route"]] == name]
+                for c in f32_cases if c["own_fma_kernel"]
+                and OLD_F32_FORWARD[c["route"]] == name]
         if name == "bilstm_layer":
             entry["cases"] = cases + [
                 dict(c["forward"], shape=c["shape"], dtype=c["dtype"],
@@ -6254,7 +7240,7 @@ def main() -> int:
                      rows_per_cluster=c["rows_per_cluster"],
                      repeats_bit_for_bit=c["repeats_bit_for_bit"],
                      whole_err=c["whole_err"], forward=c["forward"],
-                     own_fma_ms=c["own_fma_kernel"]["ms"])
+                     own_fma_ms=(c["own_fma_kernel"] or {}).get("ms"))
                 for c in f32_cases if name in c["kernels"]]
         elif name in TC_FORWARD_NAMES:
             entry["also_replaces"] = [
@@ -6315,6 +7301,8 @@ def main() -> int:
                      B=c["B"], D=c["D"], H=c["H"], rel_limit=c["rel_limit"])
                 for c in train_cases]
         kernels.append(entry)
+    lap("16 BSRNN_Feats, the kernel line")
+    log("chip_smoke: wall s by phase", json.dumps(laps))
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     log(json.dumps({"kernels": kernels}))

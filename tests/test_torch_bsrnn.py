@@ -89,11 +89,11 @@ def test_bsrnn_state_dict_names_match_jax_tree():
 def test_get_model_and_unported_options_raise():
     assert get_model("BSRNN") is BSRNN
     with pytest.raises(NotImplementedError):
-        get_model("BSRNN_Feats")
-    # the joint branch is ported; the registry's unported encoders and its
+        get_model("SepFormer")
+    # every encoder of the registry is ported; an unknown name and the
     # missing-name error remain
-    with pytest.raises(NotImplementedError, match="the BSRNN variants"):
-        BSRNN(joint_training=True, spk_model="ECAPA_TDNN_GLOB_c512")
+    with pytest.raises(NotImplementedError, match="unknown speaker model"):
+        BSRNN(joint_training=True, spk_model="XVector_TDNN")
     with pytest.raises(ValueError, match="requires spk_model"):
         BSRNN(joint_training=True)
     with pytest.raises(TypeError):

@@ -177,10 +177,10 @@ def test_padded_rows_do_not_reach_the_kept_rows():
 
 
 def test_unported_options_raise():
-    # the joint branch is ported; the registry's unported encoders and its
+    # every encoder of the registry is ported; an unknown name and the
     # missing-name error remain
-    with pytest.raises(NotImplementedError, match="the BSRNN variants"):
-        DPCCN(**dict(SMALL, joint_training=True, spk_model="CAMPPlus"))
+    with pytest.raises(NotImplementedError, match="unknown speaker model"):
+        DPCCN(**dict(SMALL, joint_training=True, spk_model="XVector_TDNN"))
     with pytest.raises(ValueError, match="requires spk_model"):
         DPCCN(**dict(SMALL, joint_training=True))
     # the JAX class's speaker-branch options are accepted

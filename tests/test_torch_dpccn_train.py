@@ -238,8 +238,7 @@ def test_joint_training_raises_with_its_roadmap_item(tmp_path):
                      model={"tse_model": "DPCCN"},
                      model_args={"tse_model": dict(
                          MODEL_ARGS, joint_training=True,
-                         spk_model="CAMPPlus")})
-    # the joint branch is ported; an encoder of the registry that is not
-    # raises with its queue item
-    with pytest.raises(NotImplementedError, match="the BSRNN variants"):
+                         spk_model="XVector_TDNN")})
+    # every encoder of the registry is ported; an unknown name raises
+    with pytest.raises(NotImplementedError, match="unknown speaker model"):
         train(config)

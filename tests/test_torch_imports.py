@@ -80,3 +80,13 @@ def test_the_gan_and_bsrnn_multi_modules_are_checked():
                    "models/bsrnn_multi_optim.py", "train/trainer_gan.py",
                    "bin/train_gan.py", "utils/score.py"):
         assert os.path.join("wesep_tpu_torch", module) in names, module
+
+
+def test_the_bsrnn_feats_and_encoder_modules_are_checked():
+    """BSRNN_Feats', ECAPA-TDNN's (both layouts) and CAM++'s modules, and
+    the data-parallel train step's, are among the files checked."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for module in ("models/bsrnn_feats.py", "models/speaker/ecapa.py",
+                   "models/speaker/ecapa_ws.py", "models/speaker/campplus.py",
+                   "train/trainer.py", "train/executor.py", "bin/train.py"):
+        assert os.path.join("wesep_tpu_torch", module) in names, module

@@ -235,13 +235,13 @@ def test_spk_to_id_and_unported_options(sets, tmp_path):
     assert chain.source.fn is processor.compute_fbank
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ConvTasNet(**dict(MODEL_ARGS, spk_feat=True))
-    # a joint BSRNN trains; an encoder of the registry that is not ported
-    # raises with its queue item
+    # a joint BSRNN trains with every encoder of the registry; an unknown
+    # name raises
     _, tr, va = sets
     config = _config(str(tmp_path), tr, va, model={"tse_model": "BSRNN"},
                      model_args={"tse_model": {"joint_training": True,
-                                               "spk_model": "CAMPPlus"}})
-    with pytest.raises(NotImplementedError, match="queue A"):
+                                               "spk_model": "XVector_TDNN"}})
+    with pytest.raises(NotImplementedError, match="unknown speaker model"):
         train(config)
 
 

@@ -139,11 +139,11 @@ def test_padded_rows_do_not_reach_the_kept_rows():
 
 
 def test_unported_options_raise():
-    # the joint branch is ported; the registry's unported encoders and its
+    # every encoder of the registry is ported; an unknown name and the
     # missing-name error remain
-    with pytest.raises(NotImplementedError, match="the BSRNN variants"):
+    with pytest.raises(NotImplementedError, match="unknown speaker model"):
         TFGridNet(**dict(SMALL, joint_training=True,
-                         spk_model="ECAPA_TDNN_GLOB_c512"))
+                         spk_model="XVector_TDNN"))
     with pytest.raises(ValueError, match="requires spk_model"):
         TFGridNet(**dict(SMALL, joint_training=True))
     with pytest.raises(NotImplementedError, match="concat"):

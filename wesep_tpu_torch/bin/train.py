@@ -1,4 +1,4 @@
-"""Training entry point: YAML-config driven, one process on one device.
+"""Training entry point: YAML-config driven, one device a process.
 
 Counterpart of wesep_tpu/bin/train.py with the same semantics: the train
 and validation chains (pre-extracted embeddings, or for joint training
@@ -10,13 +10,23 @@ train step; every epoch trains `epoch_iter` batches,
 validates, and writes `models/checkpoint_<N>.ckpt` (parameters and BatchNorm
 statistics, optimizer state, step) with a `latest_checkpoint.ckpt` link, and `final_checkpoint
 .ckpt` at the end; `--checkpoint` resumes by file name; SIGTERM ends the
-epoch at the next batch and writes `preempt_epoch<N>.ckpt`. Several devices
-or processes (`model_axis`, WESEP_DIST) come with the data-parallel slice.
+epoch at the next batch and writes `preempt_epoch<N>.ckpt`.
 
 It runs on `cuda` unless the config or the caller gives `device: cpu`.
 
+Data parallelism, one process a card, on the JAX package's environment
+contract: with WESEP_DIST=1 each process joins the process group at
+WESEP_COORDINATOR=host:port (`tcp://`) as rank WESEP_PROCESS_ID of
+WESEP_NUM_PROCESSES, NCCL on the card (card rank % device count), gloo on
+the CPU. Each rank reads its share of the shard list and trains
+sample_num_per_epoch / world / batch_size batches an epoch through
+DistributedDataParallel; only rank 0 logs to a file and writes
+checkpoints. `model_axis` > 1 (a model-sharding mesh) is not ported.
+
     python -m wesep_tpu_torch.bin.train --config confs/bsrnn.yaml \\
         [--set key.sub=value ...] [--checkpoint path]
+    WESEP_DIST=1 WESEP_COORDINATOR=localhost:29400 WESEP_NUM_PROCESSES=2 \\
+        WESEP_PROCESS_ID=<0|1> python -m wesep_tpu_torch.bin.train ...
 """
 
 import argparse
@@ -103,10 +113,12 @@ def build_model(configs):
 
 
 def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
-                  val_spk2embed_dict, val_spk1_embed, val_spk2_embed):
-    """The train and validation loaders of the config (the collate wraps
-    or trims enrollments to `default_enroll_len`) -> (train_loader,
-    val_loader, epoch_iter, val_iter)."""
+                  val_spk2embed_dict, val_spk1_embed, val_spk2_embed,
+                  rank=0, world_size=1):
+    """The train and validation loaders of the config for one rank of
+    `world_size` (the collate wraps or trims enrollments to
+    `default_enroll_len`) -> (train_loader, val_loader, epoch_iter,
+    val_iter)."""
     from wesep_tpu_torch.data import (
         BatchLoader,
         Dataset,
@@ -134,6 +146,7 @@ def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
             specaug_enroll_prob=dataset_args.get("specaug_enroll_prob", 0),
             online_mix=online_mix, device_augment=device_augment,
             noise_lmdb_file=dataset_args.get("noise_lmdb_file", None),
+            rank=rank, world_size=world_size,
             worker_id=worker_id, num_workers=num_workers,
         )
 
@@ -144,6 +157,7 @@ def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
         joint_training=joint_training,
         whole_utt=configs.get("whole_utt", False),
         repeat_dataset=True, online_mix=False,
+        rank=rank, world_size=world_size,
     )
 
     dataloader_args = dict(configs.get("dataloader_args", {}))
@@ -169,22 +183,54 @@ def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
     )
     sample_num = dataset_args.get("sample_num_per_epoch", 0) or (
         n_train_utts // 2)
-    epoch_iter = max(sample_num // batch_size, 1)
-    val_iter = max(len(val_spk2embed_dict) // 2 // batch_size, 1)
+    epoch_iter = max(sample_num // world_size // batch_size, 1)
+    val_iter = max(len(val_spk2embed_dict) // 2 // world_size // batch_size,
+                   1)
     return train_loader, val_loader, epoch_iter, val_iter
 
 
-def check_one_device(configs):
-    """Raise for the multi-device settings that wait for data
-    parallelism (WESEP_DIST, model_axis > 1)."""
-    if os.environ.get("WESEP_DIST"):
+def check_one_device(configs, data_parallel: bool = False):
+    """Raise for the multi-device settings this entry point does not run:
+    `model_axis` > 1, and WESEP_DIST unless `data_parallel`."""
+    if os.environ.get("WESEP_DIST") and not data_parallel:
         raise NotImplementedError(
-            "WESEP_DIST (several processes) waits for the data-parallel "
-            "slice; see ROADMAP.md queue A, data parallelism")
+            "WESEP_DIST (several processes) is ported for bin/train, not "
+            "for this entry point; see ROADMAP.md queue A, data "
+            "parallelism")
     if int(configs.get("model_axis", 1)) > 1:
         raise NotImplementedError(
-            "model_axis > 1 (a model-sharding mesh) waits for the "
-            "data-parallel slice; see ROADMAP.md queue A, data parallelism")
+            "model_axis > 1 (a model-sharding mesh) is not ported; see "
+            "ROADMAP.md queue A, data parallelism")
+
+
+def init_distributed(device):
+    """With WESEP_DIST set, join the process group from the JAX package's
+    environment contract (WESEP_COORDINATOR=host:port, WESEP_NUM_PROCESSES,
+    WESEP_PROCESS_ID): NCCL with card rank % device count bound to this
+    process, or gloo on the CPU. -> (rank, world_size, device); (0, 1,
+    device) without WESEP_DIST."""
+    if not os.environ.get("WESEP_DIST"):
+        return 0, 1, device
+    import torch
+    import torch.distributed as dist
+
+    missing = [k for k in ("WESEP_COORDINATOR", "WESEP_NUM_PROCESSES",
+                           "WESEP_PROCESS_ID") if not os.environ.get(k)]
+    if missing:
+        raise ValueError(f"WESEP_DIST=1 needs {', '.join(missing)} (the "
+                         "coordinator's host:port, the number of processes "
+                         "and this process's rank)")
+    rank = int(os.environ["WESEP_PROCESS_ID"])
+    world_size = int(os.environ["WESEP_NUM_PROCESSES"])
+    if device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group(
+            "nccl" if device.type == "cuda" else "gloo",
+            init_method=f"tcp://{os.environ['WESEP_COORDINATOR']}",
+            world_size=world_size, rank=rank)
+    return rank, world_size, device
 
 
 def relink(model_dir: str, link: str, target: str):
@@ -194,11 +240,14 @@ def relink(model_dir: str, link: str, target: str):
     os.symlink(target, path)
 
 
-def setup_run(config, overrides, kwargs):
+def setup_run(config, overrides, kwargs, data_parallel: bool = False):
     """The set-up bin/train and bin/train_gan share: the config with its
-    `--set` overrides (one device only), exp_dir/models, the logger, the
-    seed, the loss table and exp_dir/config.yaml -> (configs, device,
-    model_dir, logger, (criterion, loss_posi, loss_weight))."""
+    `--set` overrides (one device a process; with `data_parallel`,
+    WESEP_DIST joins the process group), exp_dir/models, the logger (a
+    file on rank 0 only), the seed (+ rank, as in the JAX package), the
+    loss table and exp_dir/config.yaml (rank 0) -> (configs, device,
+    model_dir, logger, (criterion, loss_posi, loss_weight), (rank,
+    world_size))."""
     import yaml
 
     from wesep_tpu_torch.device import resolve_device
@@ -213,23 +262,25 @@ def setup_run(config, overrides, kwargs):
 
     configs = parse_config_or_kwargs(config, **kwargs)
     deep_update(configs, parse_override_args(overrides))
-    check_one_device(configs)
-    device = resolve_device(configs.get("device"))
+    check_one_device(configs, data_parallel)
+    rank, world_size, device = init_distributed(
+        resolve_device(configs.get("device")))
     exp_dir = configs["exp_dir"]
     model_dir = os.path.join(exp_dir, "models")
     os.makedirs(model_dir, exist_ok=True)
-    logger = setup_logger(exp_dir)
+    logger = setup_logger(exp_dir, rank=rank)
     logger.info("exp_dir is: %s", exp_dir)
     for line in pformat(configs).split("\n"):
         logger.info(line)
-    set_seed(configs.get("seed", 42))
-    with open(os.path.join(exp_dir, "config.yaml"), "w") as fout:
-        fout.write(yaml.dump(configs))
+    set_seed(configs.get("seed", 42) + rank)
+    if rank == 0:
+        with open(os.path.join(exp_dir, "config.yaml"), "w") as fout:
+            fout.write(yaml.dump(configs))
     loss_args = configs.get("loss_args") or {}
     return configs, device, model_dir, logger, (
         parse_loss(configs.get("loss", "SISDR")),
         loss_args.get("loss_posi", [[0]]),
-        loss_args.get("loss_weight", [[1.0]]))
+        loss_args.get("loss_weight", [[1.0]])), (rank, world_size)
 
 
 def resume_epoch(checkpoint) -> int:
@@ -288,15 +339,15 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     from wesep_tpu_torch.utils.config import table_row
 
     configs, device, model_dir, logger, (
-        criterion, loss_posi, loss_weight) = setup_run(config, overrides,
-                                                       kwargs)
+        criterion, loss_posi, loss_weight), (rank, world_size) = setup_run(
+            config, overrides, kwargs, data_parallel=True)
 
     model_args = configs["model_args"]["tse_model"]
     joint_training = model_args.get("joint_training", False)
     multi_task = model_args.get("multi_task", False)
     enroll_maps = load_enroll_maps(configs, joint_training, multi_task)
     train_loader, val_loader, epoch_iter, val_iter = build_loaders(
-        configs, *enroll_maps)
+        configs, *enroll_maps, rank=rank, world_size=world_size)
     dataset_args = configs["dataset_args"]
     device_augment = dataset_args.get("online_mix", False) and \
         dataset_args.get("device_augment", True)
@@ -356,6 +407,8 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     logger.info("start_epoch: %d", start_epoch)
 
     def save(name):
+        if rank != 0:
+            return
         params, buffers = split_state(model)
         save_checkpoint(
             os.path.join(model_dir, name), [params],
@@ -390,7 +443,7 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
             if epoch % configs.get("save_epoch_interval", 1) == 0 \
                     or epoch >= last:
                 save(f"checkpoint_{epoch}.ckpt")
-    if not executor.stopped:
+    if not executor.stopped and rank == 0:
         relink(model_dir, "final_checkpoint.ckpt",
                 f"checkpoint_{configs['num_epochs']}.ckpt")
     return state

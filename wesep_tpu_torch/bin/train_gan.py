@@ -79,8 +79,8 @@ def train_gan(config, checkpoint=None, overrides=None, **kwargs):
     from wesep_tpu_torch.utils.config import table_row
 
     configs, device, model_dir, logger, (
-        criterion, loss_posi, loss_weight) = setup_run(config, overrides,
-                                                       kwargs)
+        criterion, loss_posi, loss_weight), _ = setup_run(config, overrides,
+                                                          kwargs)
     tse_args = configs["model_args"]["tse_model"]
     joint_training = tse_args.get("joint_training", False)
     multi_task = tse_args.get("multi_task", False)

@@ -5,8 +5,8 @@ __all__ = ["get_model"]
 
 def get_model(model_name: str):
     """Model class by name (prefix dispatch, as wesep_tpu.models.get_model):
-    BSRNN, BSRNN_Multi, ConvTasNet (SpEx+), TFGridNet, DPCCN and the CMGAN
-    discriminator are ported."""
+    BSRNN, BSRNN_Multi, BSRNN_Feats, ConvTasNet (SpEx+), TFGridNet, DPCCN
+    and the CMGAN discriminator are ported."""
     if model_name.startswith("ConvTasNet"):
         from wesep_tpu_torch.models.convtasnet import ConvTasNet
 
@@ -15,6 +15,10 @@ def get_model(model_name: str):
         from wesep_tpu_torch.models.bsrnn_multi_optim import BSRNN_Multi
 
         return BSRNN_Multi
+    if model_name.startswith("BSRNN_Feats"):
+        from wesep_tpu_torch.models.bsrnn_feats import BSRNN_Feats
+
+        return BSRNN_Feats
     if model_name == "BSRNN":
         from wesep_tpu_torch.models.bsrnn import BSRNN
 

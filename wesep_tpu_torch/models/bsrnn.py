@@ -178,17 +178,21 @@ class BSRNN(nn.Module):
         if unknown:
             raise TypeError(f"BSRNN got unknown arguments {sorted(unknown)}")
         self.joint_training = joint_training
+        embeds = self._uses_embedding()
         cue_dim = spk_emb_dim
         if joint_training:
-            # the JAX scope: 'spk_model' is the config field's name there
-            self.spk_model_net = speaker_encoder(spk_model, spk_args)
+            # the JAX scope: 'spk_model' is the config field's name there;
+            # a model that takes only frame features builds no head
+            self.spk_model_net = speaker_encoder(
+                spk_model, spk_args if embeds else dict(spk_args or {},
+                                                        head=False))
             cue_dim = self.spk_model_net.embed_dim
             self.spk_frontend = speaker_frontend(spk_args, spk_feat,
                                                  feat_type, sr, win, stride)
             self.waveform_frontend = speaker_frontend(
                 spk_args, False, "consistent", sr, win, stride)
-            self.pred_linear = Dense(cue_dim, spksInTrain) if multi_task \
-                else None
+            self.pred_linear = Dense(cue_dim, spksInTrain) \
+                if multi_task and embeds else None
         self.win = win
         self.stride = stride
         self.num_repeat = num_repeat
@@ -196,12 +200,14 @@ class BSRNN(nn.Module):
         self.use_spk_transform = use_spk_transform
         self.groups = band_layout(sr, win // 2 + 1)
         self.register_buffer("window", hann_window(win), persistent=False)
+        blocks = self._spec_map()
         for gi, (n, bw) in enumerate(self.groups):
-            self.add_module(f"bn_norm_{gi}", GroupedBandNorm(n, 2 * bw))
+            self.add_module(f"bn_norm_{gi}", GroupedBandNorm(n, blocks * bw))
             self.add_module(f"bn_proj_{gi}",
-                            GroupedBandDense(n, 2 * bw, feature_dim))
+                            GroupedBandDense(n, blocks * bw, feature_dim))
         fuse_dim = spk_emb_dim if use_spk_transform else cue_dim
-        for j in range(num_repeat if multi_fuse else 1):
+        n_fuse = (num_repeat if multi_fuse else 1) if embeds else 0
+        for j in range(n_fuse):
             self.add_module(f"fuse_{j}", SpeakerFuse(
                 feature_dim, fuse_dim, spk_fuse_type))
         for j in range(num_repeat):
@@ -215,12 +221,24 @@ class BSRNN(nn.Module):
                 n, feature_dim * 4, feature_dim * 4))
             self.add_module(f"mask_out_{gi}", GroupedBandDense(
                 n, feature_dim * 4, bw * 4))
-        if use_spk_transform:
+        if use_spk_transform and embeds:
             self.spk_transform = SpeakerTransform(spk_emb_dim, in_dim=cue_dim)
 
-    def _band_split(self, re, im):
+    def _spec_map(self) -> int:
+        """Channel blocks of width bw a band takes: 2 (re, im); BSRNN_Feats
+        adds its TF map as a third."""
+        return 2
+
+    def _uses_embedding(self) -> bool:
+        """Whether the model fuses an utterance-level embedding (the fuse
+        layers, the speaker transform, the encoder's head); BSRNN_Feats'
+        cross-attention fuses frame-level features instead."""
+        return True
+
+    def _band_split(self, re, im, extra=None):
         """[B, T, F] spec -> (features [B, nband, T, N],
-        per-group sub-spectra [(re, im) [B, n, T, bw]])."""
+        per-group sub-spectra [(re, im) [B, n, T, bw]]); `extra` [B, T, F]
+        is appended to each band as a third channel block."""
         b, t_frames, _ = re.shape
         feats, sub_specs = [], []
         f0 = 0
@@ -231,7 +249,9 @@ class BSRNN(nn.Module):
 
             re_g, im_g = slice_g(re), slice_g(im)
             sub_specs.append((re_g, im_g))
-            x = torch.cat([re_g, im_g], dim=-1)
+            parts = [re_g, im_g] if extra is None else \
+                [re_g, im_g, slice_g(extra)]
+            x = torch.cat(parts, dim=-1)
             x = getattr(self, f"bn_norm_{gi}")(x)
             feats.append(getattr(self, f"bn_proj_{gi}")(x))
             f0 += n * bw

@@ -32,15 +32,22 @@ def uniform_param(*shape, fan_in: int) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """Linear layer, kernel [in, out], torch-default init."""
+    """Linear layer, kernel [in, out] (and `bias` [out] unless `use_bias`
+    is false), torch-default init."""
 
-    def __init__(self, in_features: int, features: int):
+    def __init__(self, in_features: int, features: int,
+                 use_bias: bool = True):
         super().__init__()
         self.kernel = uniform_param(in_features, features, fan_in=in_features)
-        self.bias = uniform_param(features, fan_in=in_features)
+        if use_bias:
+            self.bias = uniform_param(features, fan_in=in_features)
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x):
         y = torch.matmul(x, self.kernel.to(x.dtype))
+        if self.bias is None:
+            return y
         return (y.float() + self.bias).to(x.dtype)
 
 
@@ -227,6 +234,25 @@ class LayerNorm(nn.Module):
         return (y + self.bias).to(x.dtype)
 
 
+def _batch_moments(x32, axes, group=None):
+    """Mean and biased variance (E[x^2] - E[x]^2, clamped at 0) over
+    `axes`; with a process `group`, over the rows of each of its ranks: the
+    local sums and row count are all-reduced (and so, in the backward, are
+    their gradients), as the JAX package's step over a batch sharded on
+    the data axis reduces over the global batch."""
+    if group is None:
+        mean = x32.mean(dim=axes)
+        return mean, ((x32 * x32).mean(dim=axes) - mean * mean).clamp_min(0.0)
+    from torch.distributed.nn.functional import all_reduce
+
+    rows = x32.new_full((1,), x32.numel() // x32.shape[-1])
+    sums = all_reduce(torch.cat([x32.sum(dim=axes), (x32 * x32).sum(dim=axes),
+                                 rows]), group=group)
+    c = x32.shape[-1]
+    mean = sums[:c] / sums[-1]
+    return mean, (sums[c:2 * c] / sums[-1] - mean * mean).clamp_min(0.0)
+
+
 class BatchNorm(nn.Module):
     """Batch norm over all but the channel (last) axis, in f32.
 
@@ -236,7 +262,11 @@ class BatchNorm(nn.Module):
     E[x]^2, clamped at 0) and moves the buffers by
     new = momentum * old + (1 - momentum) * batch (momentum 0.9 keeps 90 %
     of the old value; torch's own BatchNorm calls that momentum 0.1 and
-    would store the unbiased variance); in eval mode it uses the buffers."""
+    would store the unbiased variance); in eval mode it uses the buffers.
+    `group` (None: this process's rows) is the process group over whose
+    ranks the training statistics are reduced (SyncBatchNorm's semantics),
+    so every rank's buffers stay equal; the trainer's data-parallel wrapper
+    sets it."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.9, use_scale: bool = True,
@@ -249,13 +279,13 @@ class BatchNorm(nn.Module):
             else None
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.group = None
 
     def forward(self, x):
         x32 = x.float()
         if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = x32.mean(dim=axes)
-            var = ((x32 * x32).mean(dim=axes) - mean * mean).clamp_min(0.0)
+            mean, var = _batch_moments(x32, tuple(range(x.dim() - 1)),
+                                       self.group)
             with torch.no_grad():
                 self.mean.mul_(self.momentum).add_(
                     mean, alpha=1.0 - self.momentum)

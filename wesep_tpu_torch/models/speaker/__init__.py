@@ -4,8 +4,9 @@ wesep_tpu/models/speaker).
 Registry names are the recipes' `spk_model` strings. A model maps fbank
 features [B, T, F_mel] to an embedding [B, embed_dim] (or a tuple whose
 last element is the embedding: the two-embedding-layer ResNets) and has
-an `embed_dim` attribute. The ResNets are ported; ECAPA-TDNN and CAM++
-come with the BSRNN variants.
+an `embed_dim` attribute: the ResNets, ECAPA-TDNN in its two layouts
+(which also give frame-level features [B, T, `frame_dim`] with
+`return_frame_feats=True`) and CAM++.
 
 `speaker_encoder`, `speaker_frontend` and `embed_enrollment` are the joint
 models' enrollment branch (the JAX models' `_spk_embedding`).
@@ -31,10 +32,14 @@ def get_speaker_model(model_name: str):
 
         if model_name in resnet.__all__ and model_name != "ResNet":
             return getattr(resnet, model_name)
-    if model_name.startswith(("ECAPA_TDNN", "CAMPPlus")):
-        raise NotImplementedError(
-            f"speaker model {model_name!r} is not ported yet; see ROADMAP.md "
-            "queue A, the BSRNN variants")
+    if model_name.startswith("ECAPA_TDNN"):
+        from wesep_tpu_torch.models.speaker.ecapa import make_ecapa
+
+        return make_ecapa(model_name)
+    if model_name.startswith("CAMPPlus"):
+        from wesep_tpu_torch.models.speaker.campplus import CAMPPlus
+
+        return CAMPPlus
     raise NotImplementedError(f"unknown speaker model {model_name!r}")
 
 

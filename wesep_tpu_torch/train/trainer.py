@@ -1,6 +1,6 @@
 """Train and eval steps and the optimizer chain.
 
-Counterpart of wesep_tpu/train/trainer.py for one process and one device.
+Counterpart of wesep_tpu/train/trainer.py, on one device a process.
 The chain per update is the JAX package's: clip every parameter's gradient
 to L2 norm `clip_grad` on its own (not a global norm) -> add
 `weight_decay * p` (coupled L2, as torch.optim.Adam does) -> Adam with bias
@@ -20,8 +20,19 @@ speech augmentation) a (micro)batch may first run a no-grad forward in
 train mode whose estimate, as fbank after CMVN where the recipe feeds
 fbank, becomes the enrollment of the loss forward; that pass's BatchNorm
 statistics are thrown away, as the JAX package throws them away.
+
+Data parallelism: when a process group of more than one rank is up, the
+train step runs the model through DistributedDataParallel, so each rank's
+gradient is the mean over every rank's rows; the wrapper sets the group
+on the model's BatchNorms, so their batch statistics are every rank's too
+(models/common.BatchNorm), and the loss the step
+returns is the mean over ranks. The update then applies the same chain to
+that gradient on every rank: the JAX package's step over a batch sharded
+on its data axis, whose loss and statistics are those of the global batch.
+Every rank must run the same number of steps.
 """
 
+import contextlib
 import dataclasses
 import random
 from typing import Callable, Dict, Optional, Sequence
@@ -29,22 +40,74 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from wesep_tpu_torch.models.common import BatchNorm
 from wesep_tpu_torch.ops.fbank import apply_cmvn, kaldi_fbank
 from wesep_tpu_torch.train.losses import is_ce
 
 __all__ = ["TrainState", "Optimizer", "per_param_clip", "make_optimizer",
            "weighted_loss", "make_train_step", "make_eval_step",
-           "batch_to_device"]
+           "batch_to_device", "data_parallel_group", "data_parallel",
+           "mean_over_ranks"]
 
 
 @dataclasses.dataclass
 class TrainState:
     """What a training run carries: the model (its parameters are updated
-    in place), the optimizer with its state, and the update count."""
+    in place), the optimizer with its state, the update count, and in a
+    data-parallel run the model's DistributedDataParallel wrapper."""
 
     model: torch.nn.Module
     optimizer: "Optimizer"
     step: int = 0
+    replica: Optional[torch.nn.Module] = dataclasses.field(default=None,
+                                                          repr=False)
+
+
+def data_parallel_group():
+    """The default process group while one of more than one rank is up
+    (a data-parallel run), else None."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        return dist.group.WORLD
+    return None
+
+
+def data_parallel(state: TrainState):
+    """The DistributedDataParallel wrapper of `state.model` while a process
+    group of more than one rank is up (made on first use; it broadcasts
+    rank 0's parameters), else None. Buffers are not broadcast: they start
+    equal, and the wrapper sets the group on the model's BatchNorms, which
+    then move them by every rank's statistics."""
+    group = data_parallel_group()
+    if group is None:
+        return None
+    if state.replica is None:
+        from torch.nn.parallel import DistributedDataParallel
+
+        for module in state.model.modules():
+            if isinstance(module, BatchNorm):
+                module.group = group
+        device = next(state.model.parameters()).device
+        state.replica = DistributedDataParallel(
+            state.model,
+            device_ids=[device.index] if device.type == "cuda" else None,
+            broadcast_buffers=False)
+    return state.replica
+
+
+def mean_over_ranks(value: torch.Tensor) -> torch.Tensor:
+    """A scalar's mean over the ranks of a data-parallel run (itself
+    otherwise)."""
+    group = data_parallel_group()
+    if group is None:
+        return value
+    import torch.distributed as dist
+
+    total = value.detach().clone()
+    dist.all_reduce(total, group=group)
+    return total / dist.get_world_size(group)
 
 
 def per_param_clip(grad: torch.Tensor, clip: float) -> torch.Tensor:
@@ -224,47 +287,67 @@ def make_train_step(
             frame_shift_ms=fa.get("frame_shift", 10), dither=0.0,
             input_scale=32768.0))
 
-    def loss_of(model, mb):
+    def loss_of(model, net, mb):
+        """The weighted loss of a (micro)batch through `net` (the model or
+        its data-parallel wrapper)."""
         enroll = mb["spk_embeds"]
         if ssa_enroll_prob > 0 and coin.random() < ssa_enroll_prob:
             enroll = ssa_enroll(model, mb)
-        return weighted_loss(model(*cast(mb["wav_mix"], enroll)),
+        return weighted_loss(net(*cast(mb["wav_mix"], enroll)),
                              mb["wav_targets"], mb.get("spk_label"),
                              criterion, loss_posi, loss_weight, multi_task)
+
+    def replica_grads(model, replica, mb_loss, params, sync):
+        """The data-parallel backward: DistributedDataParallel all-reduces
+        the gradients in the backward of the microbatch that syncs (the
+        others accumulate in .grad under no_sync)."""
+        with contextlib.nullcontext() if sync else replica.no_sync():
+            mb_loss.backward()
+        if not sync:
+            return None
+        grads = [p.grad for p in params]
+        for p in model.parameters():
+            p.grad = None
+        return grads
 
     def train_step(state: TrainState, batch):
         model, optimizer = state.model, state.optimizer
         model.train()
+        replica = data_parallel(state)
+        net = model if replica is None else replica
         names = list(optimizer.params)
         params = [optimizer.params[n] for n in names]
-        if accum_steps <= 1:
-            loss = loss_of(model, batch)
-            grads = torch.autograd.grad(loss, params)
-        else:
-            rows = next(iter(batch.values())).shape[0]
-            if rows % accum_steps:
-                raise ValueError(f"accum_steps={accum_steps} must divide "
-                                 f"batch rows {rows}")
-            size = rows // accum_steps
-            grads, loss = None, 0.0
-            for i in range(accum_steps):
-                mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
-                mb_loss = loss_of(model, mb)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % accum_steps:
+            raise ValueError(f"accum_steps={accum_steps} must divide "
+                             f"batch rows {rows}")
+        size = rows // accum_steps
+        grads, loss = None, 0.0
+        for i in range(accum_steps):
+            mb = batch if accum_steps <= 1 else {
+                k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            mb_loss = loss_of(model, net, mb)
+            if replica is not None:
+                grads = replica_grads(model, replica, mb_loss, params,
+                                      sync=i + 1 == accum_steps)
+            else:
                 mb_grads = torch.autograd.grad(mb_loss, params)
                 grads = mb_grads if grads is None else [
                     a + b for a, b in zip(grads, mb_grads)]
-                loss = loss + mb_loss.detach()
+            loss = loss + mb_loss.detach()
+        if accum_steps > 1:
             grads = [g / accum_steps for g in grads]
             loss = loss / accum_steps
         optimizer.update(dict(zip(names, grads)))
         state.step += 1
-        return state, {"loss": loss.detach()}
+        return state, {"loss": mean_over_ranks(loss)}
 
     return train_step
 
 
 def make_eval_step(criterion: Sequence[Callable]):
-    """Validation step: criterion[0] on the primary output, no gradient."""
+    """Validation step: criterion[0] on the primary output, no gradient;
+    in a data-parallel run the mean over every rank's rows."""
 
     def eval_step(state: TrainState, batch):
         state.model.eval()
@@ -272,6 +355,6 @@ def make_eval_step(criterion: Sequence[Callable]):
             flat = _flatten_outputs(
                 state.model(batch["wav_mix"], batch["spk_embeds"]))
             loss = criterion[0](flat[0], batch["wav_targets"]).mean()
-        return {"loss": loss}
+        return {"loss": mean_over_ranks(loss)}
 
     return eval_step

@@ -60,10 +60,17 @@ def set_seed(seed: int = 42):
     os.environ["PYTHONHASHSEED"] = str(seed)
 
 
-def setup_logger(exp_dir: str, name: str = "train.log"):
-    """File + console logger; rotates an old log to name.N."""
+def setup_logger(exp_dir: str, name: str = "train.log", rank: int = 0):
+    """File + console logger; rotates an old log to name.N. Another rank
+    than 0 of a data-parallel run logs warnings to the console only."""
     os.makedirs(exp_dir, exist_ok=True)
     log_path = os.path.join(exp_dir, name)
+    if rank != 0:
+        logger = logging.getLogger(f"wesep_tpu_torch.{name}.rank{rank}")
+        logger.setLevel(logging.WARNING)
+        if not logger.handlers:
+            logger.addHandler(logging.StreamHandler())
+        return logger
     if os.path.exists(log_path):
         for n in range(100, 0, -1):
             src = log_path if n == 1 else f"{log_path}.{n - 1}"

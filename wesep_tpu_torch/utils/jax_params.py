@@ -32,6 +32,22 @@ HWIO `kernel` without bias, BatchNorm `scale` / `bias`, Dense
 `seg_*` / `pred_linear`), and their bridges take its `batch_stats` as the
 ConvTasNet's does.
 
+The speaker encoders cross the same way inside a joint model's subtree or
+alone: ECAPA-TDNN's tpu layout (`layer1.Conv_0.kernel` [5, F, C], `bn1`,
+`layer{2,3,4}.{conv_in,res2.conv_{i},conv_out}.Conv_0.*`, `bn_in`, `bn_mid`,
+`bn_out`, `se.fc1` / `fc2`, `conv_agg`, `pool.linear1` / `linear2`,
+`pool_bn`, `linear`), its wespeaker layout (`layer1.{conv,bn}`,
+`res2.convs_{i}` / `bns_{i}`, `se.linear1` / `linear2`, `conv`, `pool`,
+`bn`, `linear`, `bn2`) and CAM++ (`head` with HWIO convs, `tdnn`,
+`block{s}_layer{i}.{bn1,conv1,bn2,cam.{linear_local,linear1,linear2}}`,
+`transit{s}_{bn,conv}`, `out_bn`, `dense` without bias, `dense_bn` with
+statistics only), each BatchNorm's `mean` / `var` from `batch_stats`. A
+model that takes only frame features (BSRNN_Feats' cross path) has no
+encoder head in either tree. BSRNN_Feats adds `cross_proj`,
+`cross_att.{q,k,v,out}_proj`, `cross_fuse_{j}.Dense_0` (or `fuse_{j}` for
+an embedding fuse) and band layers `bn_norm_{g}` / `bn_proj_{g}` three
+channel blocks wide when it appends a TF map.
+
 DPCCN crosses as a flatten: every conv block keeps its flax `conv.kernel`
 (HWIO, or [*k, out, in] for the transposed ones) and `conv.bias`, the TCN
 blocks their depthwise `dconv1.kernel` [3, 1, C] and `dconv2` Dense. The
