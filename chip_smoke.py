@@ -219,6 +219,23 @@ pass):
    ranks end bit for bit equal; only rank 0 writes).
    Phase 3 also holds K0's f32 forward (with cs) and backward at
    BSRNN_Feats' train shapes (band T 376 x B' 128, comm T 32 x B' 1504).
+17. online mixing (examples/voxceleb1/v2/confs/bsrnn_online.yaml: the joint
+   ResNet34 BSRNN at feature_dim 128, 6 repeats; reverb 0.5, noise 0.5,
+   random SNRs): (a) the simulation of a batch of the conf (8 mixtures x 2
+   x 3 s; data/augment.py: FRAM-RIR, cuFFT convolution, SNR mixing, noise)
+   on the card against the same call on the CPU on the same draws (RIRs
+   rel. L2 1e-4, the taps whose integer delay moved counted; mixture and
+   targets 1e-4 of their largest), a repeat from the same generator state
+   bit for bit, its time by CUDA events beside its bound; (b) the conf
+   through bin/train on synthetic single-speaker shards of 8 speakers (4-6
+   s utterances), a noise pack built by the port's tools/make_noise_db
+   from synthetic noise_*, music_* and speech_* wavs and a premixed
+   validation shard: 2 steps of 8 mixtures and a validation step with the
+   simulation on the card, 12 f32 forwards with cs and 12 of each f32
+   backward kernel a train step, 12 f32 forwards a validation step, finite
+   losses, the epoch's audio-s/s; a step's time, peak memory and the
+   simulation's share; (c) one step with device_augment false (the host
+   simulates), and the host chain's audio-s/s in one thread on both paths.
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
@@ -250,6 +267,10 @@ phase 15, and prints no final line.
 
 runs phases 1 and 2, phase 3's f32 K0 / K0b cases at BSRNN_Feats' train
 shapes and phase 16, and prints no final line.
+
+    python3 chip_smoke.py --only-phase17
+
+runs phases 1 and 2 and phase 17, and prints no final line.
 
     python3 chip_smoke.py --only-ddp
 
@@ -6590,6 +6611,431 @@ def phase16():
         "ddp": ddp, "ddp_cards": ddp_cards}
 
 
+# Phase 17: online mixing and the simulation on the card
+# (examples/voxceleb1/v2/confs/bsrnn_online.yaml: the joint ResNet34 BSRNN at
+# feature_dim 128, 6 repeats; 8 mixtures x 2 speakers x 3 s a step)
+ONLINE_CONF = os.path.join(HERE, "examples/voxceleb1/v2/confs/"
+                                 "bsrnn_online.yaml")
+ONLINE_STEPS = 2
+ONLINE_SPEAKERS, ONLINE_UTTS = 8, 3   # utterances of 4-6 s per speaker
+# the card against the CPU on the same draws: RIRs by relative L2, the
+# mixtures and targets relative to their largest value (cuFFT against
+# pocketfft, cuDNN's FIR against the CPU's)
+AUG_LIMIT = 1e-4
+
+
+def online_conf():
+    import yaml
+
+    with open(ONLINE_CONF) as f:
+        return yaml.safe_load(f)
+
+
+def augment_bound(batch, n_spk, samples, cfg, n_img):
+    """(ms, "bytes" or "operations") of the least time the card could take
+    for the simulation of a batch: the sources, noise and draws read once,
+    the mixture and targets written once; the operations of its three FFTs
+    a row (real, 2.5 n log2 n each, and the spectra's product) and its FIR
+    (taps x outputs a row)."""
+    rows = batch * n_spk
+    rir_len = int(math.ceil(cfg.sr * cfg.rt60[1]))
+    n = 2 ** int(math.ceil(math.log2(samples + rir_len - 1)))
+    taps = 32 * cfg.oversample + 1
+    flops = rows * (3 * 2.5 * n * math.log2(n) + 6 * (n // 2 + 1)
+                    + 2 * taps * rir_len)
+    nbytes = 4 * (2 * rows * samples + 2 * batch * samples
+                  + 2 * rows * n_img)
+    t_flops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES
+    return max(t_flops, t_bytes) * 1e3, (
+        "operations" if t_flops >= t_bytes else "bytes")
+
+
+def check_augment():
+    """Phase 17 (a): the simulation of a batch of the conf (8 mixtures x 2
+    sources x 3 s, reverb 0.5, random SNRs, noise 0.5) on the card against
+    the same call on the CPU on the same draws, the taps whose integer
+    delay moved between the two, a repeat with the same generator state bit
+    for bit, and its time by CUDA events beside its bound."""
+    from wesep_tpu_torch.bin.train import augment_config
+    from wesep_tpu_torch.data import augment
+
+    conf = online_conf()
+    da = conf["dataset_args"]
+    aug = augment_config(da)
+    b, s, t = conf["dataloader_args"]["batch_size"], da["num_speakers"], \
+        da["chunk_len"]
+    cfg = augment.RirConfig(sr=aug["sample_rate"], num_src=s)
+    gen = torch.Generator().manual_seed(SEED + 70)
+    srcs = voices(b * s, t, gen).view(b, s, t)
+    noise = 0.05 * torch.randn(b, t, generator=gen)
+
+    def draws_on(device):
+        return augment.draw_augment(
+            augment.step_generator(42, 0, 0, device), b, s, cfg,
+            aug["reverb_prob"], aug["use_random_snr"], aug["noise_prob"],
+            tuple(aug["noise_snr"]))
+
+    def run(draws, x, n):
+        return augment.augment_batch(x, draws, n, cfg, aug["reverb_prob"],
+                                     aug["noise_prob"])
+
+    def to(draws, device):
+        return {k: to(v, device) if isinstance(v, dict) else v.to(device)
+                for k, v in draws.items()}
+
+    def leaves(draws):
+        return [t for k in sorted(draws) for t in (
+            leaves(draws[k]) if isinstance(draws[k], dict) else [draws[k]])]
+
+    draws = draws_on("cuda")
+    card = run(draws, srcs.cuda(), noise.cuda())
+    torch.cuda.synchronize()
+    host_draws = to(draws, "cpu")
+    host = run(host_draws, srcs, noise)
+    rir_card = augment.sample_rirs(draws["rir"], cfg)[0].cpu()
+    rir_host = augment.sample_rirs(host_draws["rir"], cfg)[0]
+    rir_err = rel_l2(rir_card, rir_host)
+    delay_card = augment.image_taps(draws["rir"], cfg)[0].cpu()
+    delay_host = augment.image_taps(host_draws["rir"], cfg)[0]
+    moved = int((delay_card.floor() != delay_host.floor()).sum())
+    mix_err = rel_err(card[0].cpu(), host[0])
+    tgt_err = rel_err(card[1].cpu(), host[1])
+    again_draws = draws_on("cuda")
+    again = run(again_draws, srcs.cuda(), noise.cuda())
+    repeats = all(torch.equal(x, y) for x, y in zip(card, again)) and all(
+        torch.equal(x, y) for x, y in zip(leaves(draws), leaves(again_draws)))
+    reverbed = int((draws["reverb_coin"] < aug["reverb_prob"]).sum())
+    noised = int((draws["noise_coin"] < aug["noise_prob"]).sum())
+    x, n = srcs.cuda(), noise.cuda()
+    ms = time_ms(lambda: run(draws_on("cuda"), x, n), warmup=2, runs=10)
+    parts = {
+        "draws": time_ms(lambda: draws_on("cuda"), 2, 10),
+        "sample_rirs": time_ms(
+            lambda: augment.sample_rirs(draws["rir"], cfg), 2, 10),
+        "reverberate": time_ms(lambda: augment.reverberate(
+            x, rir_card.cuda(), draws["reverb_coin"], aug["reverb_prob"]),
+            2, 10),
+        "snr_mix": time_ms(lambda: augment.snr_mix(x, draws["snr"]), 2, 10),
+        "add_noise": time_ms(lambda: augment.add_noise_snr(
+            card[0], n, draws["noise_snr"], draws["noise_coin"],
+            aug["noise_prob"]), 2, 10)}
+    bound_ms, bound_by = augment_bound(b, s, t, cfg, cfg.n_image[1])
+    log(f"augment [{b} x {s} x {t}, reverb {aug['reverb_prob']} "
+        f"({reverbed} of {b * s} sources), noise {aug['noise_prob']} "
+        f"({noised} of {b}), random SNR {aug['use_random_snr']}]: card vs "
+        f"CPU on the same draws: RIR rel. L2 {rir_err:.3e} (limit "
+        f"{AUG_LIMIT}), taps moved {moved} of {delay_card.numel()}, mixture "
+        f"{mix_err:.3e}, targets {tgt_err:.3e} of the largest (limit "
+        f"{AUG_LIMIT}); repeat bit for bit {repeats}; {ms:.3f} ms a batch "
+        f"with its draws (parts {json.dumps({k: round(v, 3) for k, v in parts.items()})} "
+        f"ms), bound {bound_ms:.4f} ms ({bound_by})")
+    if not (rir_err <= AUG_LIMIT and mix_err <= AUG_LIMIT
+            and tgt_err <= AUG_LIMIT and repeats):
+        raise AssertionError("the simulation on the card is wrong")
+    return {"rir_rel_l2": rir_err, "taps_moved": moved,
+            "taps": delay_card.numel(), "mix_err": mix_err,
+            "targets_err": tgt_err, "repeats_bit_for_bit": repeats,
+            "reverberated": reverbed, "noised": noised, "ms": ms, "parts_ms": parts, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def write_single_speaker_shard(root, rng, name):
+    """ONLINE_SPEAKERS x ONLINE_UTTS single-speaker utterances of 4-6 s as a
+    shard (`name`.tar, {key}.wav + {key}.spk) with its list and utt2spk,
+    and spk2enroll.json naming each speaker's own wavs as its
+    enrollments."""
+    from wesep_tpu_torch.data.wav_io import wav_bytes, write_wav
+
+    tar_path = os.path.join(root, f"{name}.tar")
+    os.makedirs(os.path.join(root, f"{name}_wav"), exist_ok=True)
+    spk2enroll, utt2spk = {}, {}
+    with tarfile.open(tar_path, "w") as tar:
+        for u in range(ONLINE_UTTS):
+            for k in range(ONLINE_SPEAKERS):
+                spk, key = f"{name}_spk{k}", f"{name}_spk{k}_u{u}"
+                n = int(rng.uniform(4.0, 6.0) * 16000)
+                t = np.arange(n) / 16000.0
+                f0 = 90 + 20 * k
+                wav = 0.1 * sum(np.sin(2 * np.pi * f0 * h * t
+                                       + rng.uniform(0, 6)) / h
+                                for h in range(1, 6))
+                wav = (wav + 0.02 * rng.standard_normal(n)).astype(np.float32)
+                path = os.path.join(root, f"{name}_wav", key + ".wav")
+                write_wav(path, wav, 16000)
+                spk2enroll.setdefault(spk, []).append([key, path])
+                utt2spk[key] = spk
+                for member, data in ((f"{key}.spk", spk.encode()),
+                                     (f"{key}.wav", wav_bytes(wav, 16000))):
+                    info = tarfile.TarInfo(member)
+                    info.size = len(data)
+                    tar.addfile(info, io.BytesIO(data))
+    paths = {"data": os.path.join(root, f"{name}.list"),
+             "utt2spk": os.path.join(root, f"{name}.utt2spk"),
+             "spk2enroll": os.path.join(root, f"{name}_spk2enroll.json")}
+    with open(paths["data"], "w") as f:
+        f.write(tar_path + "\n")
+    with open(paths["utt2spk"], "w") as f:
+        f.writelines(f"{u} {s}\n" for u, s in utt2spk.items())
+    with open(paths["spk2enroll"], "w") as f:
+        json.dump(spk2enroll, f)
+    return paths
+
+
+def write_noise_pack(root, rng):
+    """A noise store of synthetic MUSAN-like wavs (noise_*, music_* at 22.05
+    kHz, speech_* in two channels), built by the port's make_noise_db."""
+    from wesep_tpu_torch.data.wav_io import write_wav
+    from wesep_tpu_torch.tools import make_noise_db
+
+    lines = []
+    for i, (kind, sr, ch, seconds) in enumerate((
+            ("noise", 16000, 1, 8.0), ("noise", 16000, 1, 1.5),
+            ("music", 22050, 1, 10.0), ("speech", 16000, 2, 7.0))):
+        n = int(sr * seconds)
+        wav = rng.standard_normal((ch, n)) * 0.05
+        if kind == "music":
+            wav += 0.1 * np.sin(2 * np.pi * 440 * np.arange(n) / sr)
+        path = os.path.join(root, f"{kind}_{i}.wav")
+        write_wav(path, wav.astype(np.float32), sr)
+        lines.append(f"{kind}_{i} {path}\n")
+    scp = os.path.join(root, "noise.scp")
+    with open(scp, "w") as f:
+        f.writelines(lines)
+    pack = os.path.join(root, "noise.pack")
+    make_noise_db.main([scp, pack])
+    return pack
+
+
+def augment_times(fn):
+    """Device ms of the simulation's calls (its draws and augment_batch)
+    within one fn(), by CUDA events around each, and of the whole fn()."""
+    from wesep_tpu_torch.data import augment
+
+    spent, saved = [], {}
+    for name in ("draw_augment", "augment_batch"):
+        real = saved[name] = getattr(augment, name)
+
+        def timed(*args, real=real, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(*args, **kw)
+            end.record()
+            spent.append((start, end))
+            return out
+
+        setattr(augment, name, timed)
+    try:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        for name, real in saved.items():
+            setattr(augment, name, real)
+    return sum(s.elapsed_time(e) for s, e in spent), start.elapsed_time(end)
+
+
+def host_chain_rate(tr, conf, pack, device_augment, batches):
+    """audio-s/s of target rows the train chain of the conf gives in one
+    thread (decode, chunk, pairing, noise and, on the host path, reverb and
+    mixing; the enrollments' fbank; the collate), over `batches` batches
+    after one, with a buffer of two batches' utterances."""
+    from wesep_tpu_torch.data import (
+        BatchLoader,
+        Dataset,
+        tse_collate_fn,
+        tse_collate_fn_device,
+    )
+    from wesep_tpu_torch.utils.file_utils import read_spk2enroll_json
+
+    da = dict(conf["dataset_args"])
+    b = conf["dataloader_args"]["batch_size"]
+    da["online_buffer_size"] = 2 * b
+    spk2enroll, _ = read_spk2enroll_json(tr["spk2enroll"])
+    chain = Dataset("shard", tr["data"], da, spk2enroll, state="train",
+                    joint_training=True, repeat_dataset=True,
+                    noise_prob=da["noise_prob"], reverb_prob=da["reverb_prob"],
+                    noise_lmdb_file=pack, online_mix=True,
+                    device_augment=device_augment)
+    collate = tse_collate_fn_device if device_augment else tse_collate_fn
+    loader = BatchLoader(chain, batch_size=b, prefetch=0,
+                         collate_fn=lambda x: collate(
+                             x, fixed_enroll_len=ENROLL_FRAMES))
+    loader.set_epoch(1)
+    audio = 0.0
+    for i, batch in enumerate(loader):
+        if i == 0:
+            t0 = time.perf_counter()
+            continue
+        audio += da["num_speakers"] * b * da["chunk_len"] / 16000.0
+        if i == batches:
+            break
+    return audio / (time.perf_counter() - t0)
+
+
+def train_online(root):
+    """Phase 17 (b), (c): bsrnn_online.yaml through bin/train on the card
+    (bf16 compute; the separator f32 after the fuse), data paths overridden
+    to synthetic single-speaker shards, a noise pack and a premixed
+    validation shard: 2 steps of 8 mixtures and a validation step with the
+    simulation on the card, then one step with device_augment false (the
+    host simulates); exact f32 LSTM launches, finite losses, the epoch's
+    audio-s/s; a step's time, peak memory and the simulation's share; the
+    host chain's audio-s/s on both paths."""
+    from wesep_tpu_torch.bin.train import augment_config, train
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    tag = "train online BSRNN"
+    conf = online_conf()
+    b = conf["dataloader_args"]["batch_size"]
+    n_spk, samples = conf["dataset_args"]["num_speakers"], \
+        conf["dataset_args"]["chunk_len"]
+    rng = np.random.default_rng(SEED + 71)
+    tr = write_single_speaker_shard(root, rng, "onlinetrain")
+    va, _ = enroll_shard(root, rng, "onlinedev", [3.5] * b)
+    pack = write_noise_pack(root, rng)
+    per_pass = 2 * conf["model_args"]["tse_model"]["num_repeat"]
+
+    def run(name, steps, extra=()):
+        exp = os.path.join(root, name)
+        overrides = [
+            f"exp_dir={exp}", "device=cuda", f"train_data={tr['data']}",
+            f"train_utt2spk={tr['utt2spk']}",
+            f"train_spk2utt={tr['spk2enroll']}", f"val_data={va['data']}",
+            f"val_spk2utt={va['spk2utt']}",
+            f"val_spk1_enroll={va['spk1_enroll']}",
+            f"val_spk2_enroll={va['spk2_enroll']}", "num_epochs=1",
+            "num_avg=1", "log_batch_interval=1",
+            f"dataset_args.noise_lmdb_file={pack}",
+            f"dataset_args.sample_num_per_epoch={steps * b}", *extra]
+        zero_counts()
+        t0 = time.perf_counter()
+        state = train(ONLINE_CONF, overrides=overrides)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        expect_counts(counts, per_pass * (steps + 1), per_pass * steps,
+                      "layer", f"{tag} ({name})", f32=True)
+        with open(os.path.join(exp, "train.log")) as f:
+            text = f.read()
+        losses = rows_loss(text)
+        epoch = re.findall(r"Epoch 1 train_loss (\S+) val_loss (\S+)", text)
+        meter = [float(v) for v in re.findall(r"-> (\S+) audio-s/s", text)]
+        if len(losses) != steps or len(epoch) != 1 or not all(
+                math.isfinite(v) for v in losses + [float(e)
+                                                    for e in epoch[0]]) \
+                or not meter or meter[0] <= 0:
+            raise AssertionError(f"{tag} ({name}): losses {losses} {epoch}, "
+                                 f"throughput {meter}")
+        log(f"{tag} ({name}): {steps} steps + 1 validation step through "
+            f"bin/train in {wall:.3f} s wall; launches "
+            f"{ {n: v for n, v in counts.items() if v} } (expected "
+            f"{per_pass} f32 forwards with cs and of each f32 backward "
+            f"kernel a train step, {per_pass} f32 forwards a validation "
+            f"step); running mean loss per step {losses}, epoch {epoch}, "
+            f"the epoch's {meter[0]} audio-s/s")
+        return state, counts, {"wall_s": wall, "running_mean_loss": losses,
+                               "epoch": epoch, "epoch_audio_s_per_s": meter}
+
+    state, counts, device_run = run("exp_online", ONLINE_STEPS)
+
+    # a step at the recipe's size: 8 mixtures x 2 x 3 s, their noise chunks
+    # and the 16 rows' fbank cues; its time, peak memory, launches and the
+    # simulation's share
+    gen = torch.Generator().manual_seed(SEED + 72)
+    model = state.model
+    del state
+    batch = {"wav_srcs": voices(b * n_spk, samples, gen).view(
+                 b, n_spk, samples).cuda(),
+             "wav_noise": (0.05 * torch.randn(b, samples,
+                                              generator=gen)).cuda(),
+             "spk_embeds": enroll_fbank(b * n_spk, gen).cuda()}
+    opt = make_optimizer(model, exponential_decrease(
+        num_epochs=1, epoch_iter=100, initial_lr=1e-3, final_lr=2.5e-5,
+        warm_up_epoch=0), weight_decay=1e-4, clip_grad=5.0)
+    tstate = TrainState(model=model, optimizer=opt, step=ONLINE_STEPS)
+    step = make_train_step(
+        parse_loss("SISDR"), compute_dtype=torch.bfloat16, seed=42,
+        device_augment=augment_config(conf["dataset_args"]))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step(tstate, batch)
+    per_step = read_counts()
+    expect_counts(per_step, per_pass, per_pass, "layer",
+                  f"{tag}: one train step", f32=True)
+    step_ms = time_ms(lambda: step(tstate, batch), warmup=1, runs=5)
+    peak = torch.cuda.max_memory_allocated()
+    aug_ms, timed_ms = augment_times(lambda: step(tstate, batch))
+    audio = b * n_spk * samples / 16000.0
+    log(f"{tag}: step [{b} mixtures x {n_spk} x 3 s simulated on the card, "
+        f"bf16 stream, f32 after the fuse] {step_ms:.3f} ms, "
+        f"{audio / (step_ms / 1e3):.1f} audio-s/s, peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; the simulation (draws + augment_batch) "
+        f"{aug_ms:.3f} ms of a {timed_ms:.3f} ms step, "
+        f"{100 * aug_ms / timed_ms:.2f} %")
+    del model, tstate, opt, step, batch
+    torch.cuda.empty_cache()
+
+    # (c) one step with the host simulating (the reference's path)
+    state, host_counts, host_run = run("exp_online_host", 1,
+                                       ["dataset_args.device_augment=false"])
+    del state
+    torch.cuda.empty_cache()
+    rates = {"device": host_chain_rate(tr, conf, pack, True, 4),
+             "host": host_chain_rate(tr, conf, pack, False, 2)}
+    log(f"{tag}: host chain (one thread, buffer of {2 * b} utterances) "
+        f"audio-s/s of target rows: device path {rates['device']:.1f}, host "
+        f"path (per-sample FRAM-RIR, scipy convolution) {rates['host']:.1f}; "
+        f"the step consumes {audio / (step_ms / 1e3):.1f}")
+    return {"online_train": counts, "online_host_train": host_counts}, {
+        "device_run": device_run, "host_run": host_run,
+        "step_ms": step_ms, "audio_s_per_s": audio / (step_ms / 1e3),
+        "peak_memory_bytes": peak, "augment_ms_in_step": aug_ms,
+        "timed_step_ms": timed_ms, "augment_share": aug_ms / timed_ms,
+        "host_chain_audio_s_per_s": rates,
+        "launches_per_step": {n: v for n, v in per_step.items() if v}}
+
+
+def phase17():
+    """Phase 17 whole: (a) the simulation on the card against the CPU, (b)
+    bsrnn_online.yaml through bin/train with it, (c) with device_augment
+    false, and the host chain on both paths; -> (launches by path,
+    summary)."""
+    t0 = time.perf_counter()
+    augmented = check_augment()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        launches, trained = train_online(root)
+    log("phase 17 summary", json.dumps({"augment": augmented,
+                                        "train": trained}))
+    log(f"phase 17 in {time.perf_counter() - t0:.1f} s")
+    return launches, {"augment": augmented, "train": trained}
+
+
+def phase17_only() -> int:
+    """`--only-phase17`: phases 1 and 2 and phase 17; no final line."""
+    from wesep_tpu_torch.ops import _build
+
+    log(card_line())
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build in {time.perf_counter() - t0:.2f} s")
+    launches, _ = phase17()
+    log("phase 17 launches", json.dumps(launches))
+    log(f"wall {time.perf_counter() - t0:.1f} s")
+    log(card_line())
+    return 0
+
+
 def feats_kernel_cases():
     """Phase 3's f32 K0 cases at BSRNN_Feats' train shapes (4 rows x 3 s):
     the forward with cs, and the backward (the old FMA kernels, which no
@@ -6711,6 +7157,8 @@ def main() -> int:
         return phase16_only()
     if sys.argv[1:] == ["--only-ddp"]:
         return ddp_only()
+    if sys.argv[1:] == ["--only-phase17"]:
+        return phase17_only()
 
     # 1. device
     card = card_line()
@@ -6990,6 +7438,12 @@ def main() -> int:
         k: v for k, v in phase16_summary.items() if k in ("encoders",
                                                            "ddp")}))
 
+    lap("16 BSRNN_Feats")
+    # 17. online mixing: (a) the simulation on the card against the CPU;
+    # (b) bsrnn_online.yaml through bin/train with it; (c) with the host
+    # simulating, and the host chain's rate on both paths
+    phase17_launches, _ = phase17()
+
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
     # training bf16); the routes' own FMA forward kernels, which f32 runs
@@ -7160,7 +7614,7 @@ def main() -> int:
         n: v for n, v in v2_others["TFGridNet"]["train_launches"].items()
         if n in by_path})
     for path, counts in list(phase15_launches.items()) + list(
-            phase16_launches.items()):
+            phase16_launches.items()) + list(phase17_launches.items()):
         add_path(path, counts)
     # the main path of a kernel: its training path; for the f32 cluster
     # forward, serving (phase 4); for the routes' own FMA forward kernels,
@@ -7301,7 +7755,7 @@ def main() -> int:
                      B=c["B"], D=c["D"], H=c["H"], rel_limit=c["rel_limit"])
                 for c in train_cases]
         kernels.append(entry)
-    lap("16 BSRNN_Feats, the kernel line")
+    lap("17 online mixing, the kernel line")
     log("chip_smoke: wall s by phase", json.dumps(laps))
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     log(card_line())

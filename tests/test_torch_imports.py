@@ -90,3 +90,15 @@ def test_the_bsrnn_feats_and_encoder_modules_are_checked():
                    "models/speaker/ecapa_ws.py", "models/speaker/campplus.py",
                    "train/trainer.py", "train/executor.py", "bin/train.py"):
         assert os.path.join("wesep_tpu_torch", module) in names, module
+
+
+def test_the_online_mixing_modules_are_checked():
+    """Online mixing's and the device simulation's modules, and the data
+    tools, are among the files checked."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for module in ("data/augment.py", "data/fram_rir.py",
+                   "data/noise_store.py", "data/processor.py",
+                   "data/dataset.py", "tools/__init__.py",
+                   "tools/make_noise_db.py", "tools/make_shard_online.py",
+                   "utils/profiling.py"):
+        assert os.path.join("wesep_tpu_torch", module) in names, module

@@ -333,11 +333,36 @@ def test_chunking_and_filtering():
 
 
 def test_unported_data_options_raise(sets, tmp_path):
+    """Online mixing, noise and reverb (on the mixture and the enrollment)
+    are ported: each option builds a chain, and noise on premixed data adds
+    noise to the mixture; a noise option without a store raises.
+    model_axis > 1 still raises."""
     _, tr, _ = sets
-    for kw in (dict(online_mix=True), dict(noise_prob=0.5),
-               dict(reverb_prob=0.5), dict(noise_enroll_prob=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Dataset("shard", tr["data"], _dataset_args(), {}, **kw)
+    from wesep_tpu_torch.data.noise_store import build_pack
+
+    noise = str(tmp_path / "noise_0.wav")
+    write_wav(noise, _voice(np.random.default_rng(5), 60.0, 8000), 16000)
+    pack = build_pack([noise], str(tmp_path / "noise.pack"))
+    emb = load_speaker_embeddings(tr["spk_embeds"], tr["utt2spk"])
+    for kw in (dict(online_mix=True), dict(online_mix=True,
+                                           device_augment=True),
+               dict(noise_prob=0.5), dict(reverb_prob=0.5),
+               dict(noise_enroll_prob=0.5), dict(reverb_enroll_prob=0.5)):
+        ds = Dataset("shard", tr["data"], _dataset_args(), emb,
+                     noise_lmdb_file=pack, **kw)
+        assert callable(getattr(ds, "set_epoch"))
+    random.seed(0)
+    plain = next(iter(Dataset("shard", tr["data"],
+                              dict(_dataset_args(), shuffle=False), emb)))
+    random.seed(0)
+    noisy = next(iter(Dataset("shard", tr["data"],
+                              dict(_dataset_args(), shuffle=False), emb,
+                              noise_prob=1.0, noise_lmdb_file=pack)))
+    assert noisy["key"] == plain["key"] and "snr" in noisy
+    assert not np.array_equal(noisy["wav_mix"], plain["wav_mix"])
+    np.testing.assert_array_equal(noisy["wav_spk1"], plain["wav_spk1"])
+    with pytest.raises(ValueError, match="noise_lmdb_file"):
+        Dataset("shard", tr["data"], _dataset_args(), emb, noise_prob=0.5)
     # joint training on fbank features is ported: the validation chain
     # gives each target the Kaldi fbank of its enrollment wav, [1, T', 80]
     wavs = {}

@@ -285,11 +285,22 @@ def test_accum_steps_and_bf16_compute_dtype():
 
 
 def test_unported_options_raise_with_their_roadmap_item():
-    # SSA is ported (tests/test_torch_joint_train.py): the step builds
+    # SSA (tests/test_torch_joint_train.py) and the simulation on the
+    # device (tests/test_torch_online_train.py) are ported: the steps build
     assert callable(trainer.make_train_step(parse_loss("SISDR"),
                                             ssa_enroll_prob=0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.make_train_step(parse_loss("SISDR"), device_augment={})
+    step = trainer.make_train_step(parse_loss("SISDR"), device_augment={})
+    assert callable(step)
+    # a device batch's rows are its mixtures
+    batch = {"wav_srcs": np.zeros((3, 2, 8), np.float32),
+             "spk_embeds": np.zeros((6, 4), np.float32)}
+    model = BSRNN(**MODEL_ARGS)
+    state = trainer.TrainState(model=model, optimizer=trainer.make_optimizer(
+        model, exponential_decrease(**SCHED)))
+    with pytest.raises(ValueError, match="batch rows 3 of wav_srcs"):
+        trainer.make_train_step(parse_loss("SISDR"), device_augment={},
+                                accum_steps=2)(
+            state, trainer.batch_to_device(batch, "cpu"))
 
 
 def test_eval_step_matches_jax():

@@ -6,7 +6,12 @@ enrollment wavs or their fbank (`speaker_feat`) and speaker labels), the
 model, the loss table, the optimizer chain (with `spk_model_freeze`, no
 update of `spk_model_net`) and the schedule come from the config, and
 `SSA_enroll_prob` turns on self-estimated speech augmentation in the
-train step; every epoch trains `epoch_iter` batches,
+train step; with `online_mix` the train chain pairs single-speaker
+utterances, and with `device_augment` (its default) the train step
+simulates the mixtures on the card (FRAM-RIR reverb at `reverb_prob`, SNR
+mixing with `use_random_snr`, noise from `noise_lmdb_file` at
+`noise_prob`; data/augment.py), without it the host does (the reference's
+per-sample path); every epoch trains `epoch_iter` batches,
 validates, and writes `models/checkpoint_<N>.ckpt` (parameters and BatchNorm
 statistics, optimizer state, step) with a `latest_checkpoint.ckpt` link, and `final_checkpoint
 .ckpt` at the end; `--checkpoint` resumes by file name; SIGTERM ends the
@@ -124,6 +129,7 @@ def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
         Dataset,
         MultiWorkerLoader,
         tse_collate_fn,
+        tse_collate_fn_device,
     )
 
     model_args = configs["model_args"]["tse_model"]
@@ -162,9 +168,14 @@ def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
 
     dataloader_args = dict(configs.get("dataloader_args", {}))
     batch_size = dataloader_args.get("batch_size", 8)
+    enroll_len = default_enroll_len(dataset_args, joint_training)
+    # the simulation on the card takes the dry sources; validation reads
+    # premixed data
     collate = functools.partial(
-        tse_collate_fn,
-        fixed_enroll_len=default_enroll_len(dataset_args, joint_training))
+        tse_collate_fn_device if device_augment else tse_collate_fn,
+        fixed_enroll_len=enroll_len)
+    val_collate = functools.partial(tse_collate_fn,
+                                    fixed_enroll_len=enroll_len)
     num_workers = dataloader_args.get("num_workers", 0)
     if num_workers and num_workers > 1:
         train_loader = MultiWorkerLoader(
@@ -178,7 +189,7 @@ def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
             prefetch=dataloader_args.get("prefetch_factor", 4),
         )
     val_loader = BatchLoader(
-        val_dataset, batch_size=batch_size, collate_fn=collate,
+        val_dataset, batch_size=batch_size, collate_fn=val_collate,
         drop_last=True, prefetch=2,
     )
     sample_num = dataset_args.get("sample_num_per_epoch", 0) or (
@@ -187,6 +198,19 @@ def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
     val_iter = max(len(val_spk2embed_dict) // 2 // world_size // batch_size,
                    1)
     return train_loader, val_loader, epoch_iter, val_iter
+
+
+def augment_config(dataset_args):
+    """The simulation on the card as the JAX package's bin/train configures
+    it from `dataset_args` (note: `use_random_snr` defaults to false here,
+    to true in the train step)."""
+    return {
+        "reverb_prob": dataset_args.get("reverb_prob", 0),
+        "use_random_snr": dataset_args.get("use_random_snr", False),
+        "noise_prob": dataset_args.get("noise_prob", 0),
+        "noise_snr": dataset_args.get("noise_snr", (-5.0, 25.0)),
+        "sample_rate": dataset_args.get("resample_rate", 16000),
+    }
 
 
 def check_one_device(configs, data_parallel: bool = False):
@@ -388,7 +412,8 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
         fbank_args=dataset_args.get("fbank_args"),
         sample_rate=dataset_args.get("resample_rate", 16000),
         seed=configs.get("seed", 42),
-        device_augment=dataset_args if device_augment else None,
+        device_augment=augment_config(dataset_args) if device_augment
+        else None,
     )
     eval_step = make_eval_step(criterion)
     state = TrainState(model=model, optimizer=optimizer, step=0)

@@ -6,7 +6,8 @@ from wesep_tpu_torch.data.dataset import (
     MultiWorkerLoader,
     tse_collate_fn,
     tse_collate_fn_2spk,
+    tse_collate_fn_device,
 )
 
 __all__ = ["BatchLoader", "Dataset", "MultiWorkerLoader", "tse_collate_fn",
-           "tse_collate_fn_2spk"]
+           "tse_collate_fn_2spk", "tse_collate_fn_device"]

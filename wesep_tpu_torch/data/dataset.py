@@ -1,18 +1,28 @@
 """Dataset chains, collators and loaders.
 
-Counterpart of wesep_tpu/data/dataset.py for premixed data
-(online_mix=False): a chain is a plain iterable of sample dicts, and the
-collators turn lists of samples into fixed-shape numpy batches {wav_mix,
-wav_targets, spk_embeds, spk_label, key, spk}, one row per target speaker.
-`state` picks the chain: "train" draws a random chunk and a random cue of
-each target speaker, "val" and "test" take the fixed enrollment the lists
-name. The cue is a pre-extracted embedding or, with `joint_training`, an
-enrollment waveform (and the speaker's class label where `dict_spk` is
-given) and, with the config's `speaker_feat`, that waveform's Kaldi fbank
-after CMVN (training adds SpecAugment with `specaug_enroll_prob`); the
-collators bring the enrollments to one length (`fixed_enroll_len`, in
-samples or frames). Online mixing, noise and reverberation are not ported
-yet.
+Counterpart of wesep_tpu/data/dataset.py: a chain is a plain iterable of
+sample dicts, and the collators turn lists of samples into fixed-shape
+numpy batches. `state` picks the chain: "train" draws a random chunk and a
+random cue of each target speaker, "val" and "test" take the fixed
+enrollment the lists name. The cue is a pre-extracted embedding or, with
+`joint_training`, an enrollment waveform (and the speaker's class label
+where `dict_spk` is given) and, with the config's `speaker_feat`, that
+waveform's Kaldi fbank after CMVN (training adds SpecAugment with
+`specaug_enroll_prob`, and reverb and noise on the enrollment wav with
+`reverb_enroll_prob`, `noise_enroll_prob`); the collators bring the
+enrollments to one length (`fixed_enroll_len`, in samples or frames).
+
+Premixed data (`online_mix` false) gives {wav_mix, wav_targets,
+spk_embeds, spk_label, key, spk} (`tse_collate_fn`), one row per target
+speaker, with noise added to the mixture at `noise_prob`. Online mixing
+reads single-speaker shards or lists and pairs speakers on the host
+(processor.mix_speakers); then either the host simulates each mixture
+(FRAM-RIR reverb at `reverb_prob`, SNR mixing, noise at `noise_prob`: the
+JAX package's reference-semantics path, `device_augment` false), or, for
+training with `device_augment`, the chain stops after the pairing (and a
+raw noise chunk per mixture) and `tse_collate_fn_device` gives the dry
+sources {wav_srcs [B, S, T], wav_noise [B, T]} that the train step mixes
+on the device (data/augment.py).
 """
 
 import logging
@@ -27,8 +37,8 @@ from wesep_tpu_torch.data import processor
 from wesep_tpu_torch.data.datalist import DataList
 from wesep_tpu_torch.utils.file_utils import read_lists
 
-__all__ = ["Dataset", "tse_collate_fn", "tse_collate_fn_2spk", "BatchLoader",
-           "MultiWorkerLoader"]
+__all__ = ["Dataset", "tse_collate_fn", "tse_collate_fn_2spk",
+           "tse_collate_fn_device", "BatchLoader", "MultiWorkerLoader"]
 
 
 class _Chain:
@@ -52,11 +62,10 @@ class _Chain:
         return _Chain(self, fn, *args, **kw)
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (see ROADMAP.md queue A); the port's data "
-        "chain reads premixed data with pre-extracted embeddings or "
-        "enrollment wavs")
+def _noise_store(path: Optional[str]) -> str:
+    if path is None:
+        raise ValueError("noise augmentation needs noise_lmdb_file")
+    return path
 
 
 def Dataset(
@@ -84,17 +93,14 @@ def Dataset(
     worker_id: int = 0,
     num_workers: int = 1,
 ):
-    """Build the streaming chain: open -> group/parse -> [filter] ->
-    [shuffle] -> resample -> [random chunk] -> embeddings or enrollment
-    wavs [-> fbank -> CMVN [-> SpecAugment]]."""
+    """Build the streaming chain: open -> group/parse (single-speaker with
+    `online_mix`) -> [filter] -> [shuffle, premixed only] -> resample ->
+    [random chunk] -> [online: pair speakers -> device: [noise chunk] |
+    host: [reverb] -> SNR mix -> [noise]] | [premixed: noise] -> embeddings
+    or enrollment wavs [-> enrollment reverb, noise] [-> fbank -> CMVN [->
+    SpecAugment]]. `device_augment` applies to online training only."""
     if data_type not in ("shard", "raw"):
         raise ValueError(f"data_type must be shard or raw, not {data_type}")
-    if online_mix or device_augment:
-        _not_ported("online mixing")
-    if noise_prob > 0 or noise_enroll_prob > 0:
-        _not_ported("noise augmentation")
-    if reverb_prob > 0 or reverb_enroll_prob > 0:
-        _not_ported("reverberation")
     shuffle = configs.get("shuffle", False)
     chain = _Chain(DataList(
         read_lists(data_list_file), shuffle=shuffle,
@@ -102,13 +108,15 @@ def Dataset(
         worker_id=worker_id, num_workers=num_workers))
     if data_type == "shard":
         chain = chain.apply(processor.url_opener)
-        chain = chain.apply(processor.tar_file_and_group)
+        chain = chain.apply(processor.tar_file_and_group_single_spk
+                            if online_mix else processor.tar_file_and_group)
     else:
-        chain = chain.apply(processor.parse_raw)
+        chain = chain.apply(processor.parse_raw_single_spk if online_mix
+                            else processor.parse_raw)
     if configs.get("filter_len", False) and state == "train":
         chain = chain.apply(processor.filter_len,
                             **configs.get("filter_args", {}))
-    if shuffle:
+    if shuffle and not online_mix:
         chain = chain.apply(processor.shuffle,
                             **configs.get("shuffle_args", {}))
     resample_rate = configs.get("resample_rate", 16000)
@@ -116,6 +124,25 @@ def Dataset(
     if not whole_utt:
         chain = chain.apply(processor.random_chunk,
                             configs.get("chunk_len", resample_rate * 3))
+    if online_mix:
+        chain = chain.apply(processor.mix_speakers,
+                            configs.get("num_speakers", 2),
+                            configs.get("online_buffer_size", 1000))
+        if device_augment and state == "train":
+            if noise_prob > 0:
+                chain = chain.apply(processor.fetch_noise_chunk,
+                                    _noise_store(noise_lmdb_file))
+        else:
+            if reverb_prob > 0:
+                chain = chain.apply(processor.add_reverb, reverb_prob)
+            chain = chain.apply(processor.snr_mixer,
+                                configs.get("use_random_snr", False))
+            if noise_prob > 0:
+                chain = chain.apply(processor.add_noise,
+                                    _noise_store(noise_lmdb_file), noise_prob)
+    elif noise_prob > 0:
+        chain = chain.apply(processor.add_noise,
+                            _noise_store(noise_lmdb_file), noise_prob)
     if not joint_training:
         if state == "train":
             return chain.apply(processor.sample_spk_embedding, spk2embed_dict)
@@ -124,6 +151,13 @@ def Dataset(
     if state == "train":
         chain = chain.apply(processor.sample_enrollment, spk2embed_dict,
                             dict_spk)
+        if reverb_enroll_prob > 0:
+            chain = chain.apply(processor.add_reverb_on_enroll,
+                                reverb_enroll_prob)
+        if noise_enroll_prob > 0:
+            chain = chain.apply(processor.add_noise_on_enroll,
+                                _noise_store(noise_lmdb_file),
+                                noise_enroll_prob)
     else:
         chain = chain.apply(processor.sample_fix_spk_enrollment,
                             spk2embed_dict, spk1_embed, spk2_embed, dict_spk)
@@ -191,6 +225,42 @@ def tse_collate_fn(batch: List[dict], mode: str = "min",
         "key": key,
         "spk_label": np.asarray(spk_label, np.int32),
     }
+
+
+def tse_collate_fn_device(batch: List[dict], mode: str = "min",
+                          fixed_enroll_len: Optional[int] = None) -> dict:
+    """Collate for the simulation on the device (online mixing): the dry
+    sources {wav_srcs [B, S, T]} and, where the chain fetched them, the raw
+    noise chunks {wav_noise [B, T]} instead of a mixture; the train step
+    mixes them and expands each mixture into one row per target. The
+    enrollments, labels, keys and speakers are expanded here, in the same
+    row order (sample-major, speaker-minor)."""
+    srcs, noise, spk_embeds = [], [], []
+    spk, key, spk_label = [], [], []
+    for s in batch:
+        ns = s["num_speaker"]
+        srcs.append(np.concatenate([s[f"wav_spk{i + 1}"] for i in range(ns)]))
+        if "noise_chunk" in s:
+            noise.append(s["noise_chunk"])
+        for i in range(ns):
+            spk.append(s[f"spk{i + 1}"])
+            key.append(s["key"])
+            spk_embeds.append(np.asarray(s[f"embed_spk{i + 1}"]))
+            if f"spk{i + 1}_label" in s:
+                spk_label.append(s[f"spk{i + 1}_label"])
+    spk_embeds, lengths = _pad_or_trim_embeds(spk_embeds, mode,
+                                              fixed_enroll_len)
+    out = {
+        "wav_srcs": np.stack(srcs).astype(np.float32),
+        "spk_embeds": np.concatenate(spk_embeds).astype(np.float32),
+        "length_spk_embeds": lengths,
+        "spk": spk,
+        "key": key,
+        "spk_label": np.asarray(spk_label, np.int32),
+    }
+    if noise:
+        out["wav_noise"] = np.concatenate(noise).astype(np.float32)
+    return out
 
 
 def tse_collate_fn_2spk(batch: List[dict], mode: str = "min",

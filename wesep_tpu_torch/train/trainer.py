@@ -21,6 +21,17 @@ train mode whose estimate, as fbank after CMVN where the recipe feeds
 fbank, becomes the enrollment of the loss forward; that pass's BatchNorm
 statistics are thrown away, as the JAX package throws them away.
 
+With `device_augment` (online mixing) a batch holds dry sources
+`wav_srcs` [B, S, T] (and raw noise chunks `wav_noise` [B, T]) and the step
+simulates each (micro)batch on its device in f32 (data/augment.py: FRAM-RIR
+reverb, SNR mixing, additive noise) before the `compute_dtype` cast, then
+repeats each mixture per target speaker (sample-major, speaker-minor) and
+takes the scaled sources as the targets. Its draws come from a generator on
+the batch's device seeded from (seed, step, microbatch); in a
+data-parallel run every rank draws those of the global (micro)batch and
+takes its own mixtures', so the ranks together simulate what one process
+simulates on all their rows.
+
 Data parallelism: when a process group of more than one rank is up, the
 train step runs the model through DistributedDataParallel, so each rank's
 gradient is the mean over every rank's rows; the wrapper sets the group
@@ -40,6 +51,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from wesep_tpu_torch.data import augment
 from wesep_tpu_torch.models.common import BatchNorm
 from wesep_tpu_torch.ops.fbank import apply_cmvn, kaldi_fbank
 from wesep_tpu_torch.train.losses import is_ce
@@ -227,6 +239,31 @@ def batch_to_device(batch: dict, device) -> dict:
     }
 
 
+def _split(batch: dict, accum_steps: int, i: int) -> dict:
+    """Microbatch i of `accum_steps`: every leaf split by its own rows (a
+    batch simulated on the device has B mixtures in `wav_srcs` and B * S
+    enrollment rows)."""
+    if accum_steps <= 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % accum_steps:
+            raise ValueError(f"accum_steps={accum_steps} must divide batch "
+                             f"rows {v.shape[0]} of {k}")
+        size = v.shape[0] // accum_steps
+        out[k] = v[i * size:(i + 1) * size]
+    return out
+
+
+def _rank_and_world():
+    group = data_parallel_group()
+    if group is None:
+        return 0, 1
+    import torch.distributed as dist
+
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
 def make_train_step(
     criterion: Sequence[Callable],
     loss_posi: Sequence[Sequence[int]] = ((0,),),
@@ -249,6 +286,10 @@ def make_train_step(
     their gradients and losses and applies one update. The loss comes back
     as a tensor on the device, so nothing waits on the host per batch.
 
+    `device_augment`: {reverb_prob, use_random_snr (default true),
+    noise_prob, noise_snr, sample_rate} of the simulation on the device;
+    the batch then holds `wav_srcs` (and `wav_noise`), see above.
+
     `ssa_enroll_prob`: each (micro)batch, with that probability (a coin
     from a generator seeded with `seed`, apart from Python's global
     `random` that the data chain draws from), the enrollment of the loss
@@ -257,12 +298,8 @@ def make_train_step(
     estimate's Kaldi fbank (`fbank_args`, dither 0, int16 scale) after
     CMVN, computed on the batch's device.
     """
-    if device_augment is not None:
-        raise NotImplementedError(
-            "device_augment (online mixing on the device) needs "
-            "data/augment, which is not ported yet; see ROADMAP.md queue A, "
-            "device augmentation")
     coin = random.Random(seed)
+    aug = dict(device_augment) if device_augment is not None else None
     fa = fbank_args or {}
 
     def cast(mix, enroll):
@@ -286,6 +323,31 @@ def make_train_step(
             frame_length_ms=fa.get("frame_length", 25),
             frame_shift_ms=fa.get("frame_shift", 10), dither=0.0,
             input_scale=32768.0))
+
+    def simulate(mb, step, micro):
+        """The (micro)batch with its mixtures simulated on its device: the
+        draws of the global (micro)batch, this rank's mixtures of them."""
+        srcs = mb["wav_srcs"].float()
+        b, n_spk, t = srcs.shape
+        noise = mb.get("wav_noise")
+        rank, world = _rank_and_world()
+        cfg = augment.RirConfig(sr=aug.get("sample_rate", sample_rate),
+                                num_src=n_spk)
+        reverb_prob = aug.get("reverb_prob", 0.0)
+        noise_prob = aug.get("noise_prob", 0.0) if noise is not None else 0.0
+        draws = augment.draw_augment(
+            augment.step_generator(seed, step, micro, srcs.device),
+            b * world, n_spk, cfg, reverb_prob,
+            aug.get("use_random_snr", True), noise_prob,
+            tuple(aug.get("noise_snr", (-5.0, 25.0))))
+        mix, scaled = augment.augment_batch(
+            srcs, augment.take_rows(draws, rank * b, b),
+            None if noise is None else noise.float(), cfg, reverb_prob,
+            noise_prob)
+        out = dict(mb)
+        out["wav_mix"] = mix.repeat_interleave(n_spk, 0)
+        out["wav_targets"] = scaled.reshape(b * n_spk, t)
+        return out
 
     def loss_of(model, net, mb):
         """The weighted loss of a (micro)batch through `net` (the model or
@@ -317,15 +379,11 @@ def make_train_step(
         net = model if replica is None else replica
         names = list(optimizer.params)
         params = [optimizer.params[n] for n in names]
-        rows = next(iter(batch.values())).shape[0]
-        if rows % accum_steps:
-            raise ValueError(f"accum_steps={accum_steps} must divide "
-                             f"batch rows {rows}")
-        size = rows // accum_steps
         grads, loss = None, 0.0
         for i in range(accum_steps):
-            mb = batch if accum_steps <= 1 else {
-                k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            mb = _split(batch, accum_steps, i)
+            if aug is not None:
+                mb = simulate(mb, state.step, i)
             mb_loss = loss_of(model, net, mb)
             if replica is not None:
                 grads = replica_grads(model, replica, mb_loss, params,

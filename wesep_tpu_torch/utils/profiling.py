@@ -22,10 +22,16 @@ class ThroughputMeter:
         self.start = time.perf_counter()
 
     def update(self, batch):
-        """Call once per step with the (host) batch dict."""
+        """Call once per step with the (host) batch dict: its rows x T of
+        wav_mix, or for a batch simulated on the device B x S x T of
+        wav_srcs (the rows the step expands it into)."""
         wav = batch.get("wav_mix")
+        srcs = batch.get("wav_srcs")
         if wav is not None and hasattr(wav, "shape") and len(wav.shape) == 2:
             self.audio_sec += wav.shape[0] * wav.shape[1] / self.sample_rate
+        elif srcs is not None and len(getattr(srcs, "shape", ())) == 3:
+            self.audio_sec += (srcs.shape[0] * srcs.shape[1] * srcs.shape[2]
+                               / self.sample_rate)
         self.steps += 1
 
     @property
