@@ -27,8 +27,8 @@ pass):
    the weight gradients repeated bit for bit; and the plain layer's
    kernels at TF-GridNet's materialised shapes (D = H = 192); then the
    tensor-core bf16 backward of the LSTM layers (gate products, cluster
-   chain, dx, dW) at every training shape of the four routes, each kernel
-   against its plain version, the whole backward against the route's plain
+   chain, dx, dW) at the training shapes of K0 and K3 and at the pBSRNN's
+   training band on K2 and K1, each kernel against its plain version, the whole backward against the route's plain
    backward, run twice bit for bit, timed beside cuBLAS; the tensor-core
    bf16 forward of the LSTM layers (the projection in the chain's order,
    the cluster recurrence) at the same shapes, likewise, timed beside
@@ -37,7 +37,8 @@ pass):
    cuda_lstm_tc.forward_fits takes run these kernels); the f32 cluster
    forward of the LSTM layers (the FMA projection in the chain's order, the
    recurrence over clusters of H / 32 blocks with Wh in registers) at every
-   f32 shape serving and the validation step run, each kernel against its
+   f32 shape serving and the validation step run (K2 and K1 at the
+   pBSRNN's band only, beside their own FMA kernels), each kernel against its
    plain version, the whole forward against the route's plain forward,
    twice bit for bit, timed beside cuBLAS's f32 projection, cuDNN's f32
    LSTM forward (TF32 off), the route's own FMA forward kernel and the
@@ -47,7 +48,7 @@ pass):
    the chain's order, the adjoint chain over clusters of H / 32 blocks
    with Wh in registers, dx, dW) at every f32 training shape (K0 at the
    pBSRNN's band and comm and the v2 TF-GridNet's two shapes, K3 at the
-   latter, K2 and K1 at the former), each kernel against its plain
+   latter, K2 and K1 at the band), each kernel against its plain
    version, the whole backward against the route's plain backward, twice
    bit for bit, timed beside cuBLAS's f32 products, cuDNN's whole f32
    backward (TF32 off), the route's own FMA backward kernels and the
@@ -131,14 +132,14 @@ pass):
    recurrence on the f32 cluster chain in f32, its adjoint and dWh K2b):
    12 launches of the f32 cluster chain per forward and none of the fused
    layer's kernels or K2, 12 of the gates, chain and dW kernels per
-   bf16 train step (K2b's own kernels on the f32 gradient check); the
+   bf16 train step (the f32 cluster kernels on the f32 gradient check); the
    forward and a train step also timed on the default route in the same
    process, in turns;
 13. the unidirectional pBSRNN (`--set
    model_args.tse_model.use_bidirectional=false`): phases 4 and 5 again
    with 12 launches of the f32 cluster chain per forward (none of K1) and
-   12 of the gates, chain and dW kernels per bf16 train step (K1b's own on
-   the f32 gradient check).
+   12 of the gates, chain and dW kernels per bf16 train step (the f32
+   cluster kernels on the f32 gradient check).
 14. the joint v2 recipes (examples/librimix/tse/v2/confs: ResNet34 on the
    enrollment's 80-bin fbank, whose f32 embedding promotes everything
    after the speaker fuse to f32 in a bf16 step, as in the JAX package):
@@ -254,7 +255,20 @@ pass):
    model_axis 2 over 2 or 4 of them (1 x 2 or 2 x 2) against one process
    on the same rows, at the CPU tests' limits, each rank's BiLSTMs on half
    the folded rows (12 f32 forwards and 12 of each backward kernel a
-   step), then bin/train on tfgridnet.yaml under model_axis 2 across them.
+   step), the one process run twice against itself beside them, and
+   bin/train's refusal of the model axis across cards (ROADMAP.md C.3a).
+19. The v1 recipe's stages without JAX: extract_embed (a seeded ResNet34)
+   over 10 enrollments, make_shard_list_premix, bin/infer of the v1
+   pBSRNN on the 10 requests (60 f32 K0 chains and projections), bin/score
+   writing RESULTS; a reference-layout .pt of the same weights through
+   tools/convert_torch_checkpoint, whose bin/infer wavs equal the torch
+   bundle's byte for byte; the Extractor on the full-width joint v2 BSRNN
+   (3 s and a chunked 40 s mixture, each timed); bin/export of the v1
+   pBSRNN at [2, 81280]: the loaded program on the card launches 12 f32
+   K0 chains and projections a call, equals the eager forward bit for bit
+   and is timed beside it; runtime_host on the export dir and the model
+   dir equal to the eager forward; profiling.trace of one exported call
+   holding the K0 kernels.
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
@@ -294,6 +308,10 @@ runs phases 1 and 2 and phase 17, and prints no final line.
     python3 chip_smoke.py --only-phase18
 
 runs phases 1 and 2 and phase 18 (a), (b), and prints no final line.
+
+    python3 chip_smoke.py --only-phase19
+
+runs phases 1 and 2 and phase 19, and prints no final line.
 
     python3 chip_smoke.py --only-ddp
 
@@ -2557,15 +2575,7 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
         "bf16_grad_rel_l2": bf16,
         "launches_per_step": {n: v for n, v in per_step.items() if v},
     }
-    if route == "layer":
-        for m in lstms:
-            m.plain = True
-        summary["plain_step_ms"] = time_ms(lambda: step(tstate, batch),
-                                           warmup=0, runs=1)
-        for m in lstms:
-            m.plain = False
-        other = ""
-    elif route == "two_kernel":
+    if route == "two_kernel":
         # the default route's kernels on the same model and batch, in turns:
         # two-kernel, fused layer, fused layer, two-kernel
         set_env({"WESEP_LSTM_LAYER": None})
@@ -2579,8 +2589,6 @@ def _train_route(route, tag, config, overrides, model_args, init, env):
                  f"{summary['step_ms_again']:.3f} ms")
     else:
         other = ""
-    if "plain_step_ms" in summary:
-        other += f", {summary['plain_step_ms']:.3f} ms with the plain LSTM"
     log(f"{tag}: step [16 rows x 3 s, bf16] {step_ms:.3f} ms with the "
         f"kernels{other}; {audio / (step_ms / 1e3):.1f} audio-s/s; peak "
         f"memory {peak / 2 ** 30:.2f} GiB")
@@ -2984,6 +2992,16 @@ def serve_spex(root):
             plain_step_ms = time_ms(lambda: model(mix, enr), 1, 3)
         finally:
             set_plain(blocks, False)
+        op_ms, fn_ms, fn_ests = dispatch_times(model, mix, enr)
+    same = all(torch.equal(a, b) for a, b in zip(ests, fn_ests))
+    log(f"serve SpEx+: forward [2 x 3 s] through the operator "
+        f"wesep::tcn_block_gln {op_ms} ms, through the autograd Function "
+        f"(the served path before the operators) {fn_ms} ms (in turns: "
+        f"operator, Function, Function, operator; median of 5 each); "
+        f"outputs bit for bit {same}")
+    if not same:
+        raise AssertionError("the operator's forward differs from the "
+                             "Function's")
     if per_forward != SPEX_BLOCKS or len(blocks) != SPEX_BLOCKS:
         raise AssertionError(f"{per_forward} launches in one forward of "
                              f"{len(blocks)} blocks, expected {SPEX_BLOCKS}")
@@ -3002,8 +3020,43 @@ def serve_spex(root):
         "requests": 2 * len(lengths), "steps": steps, "wall_s": wall,
         "rtf_wall": wall / audio_s, "step_ms": step_ms,
         "plain_step_ms": plain_step_ms, "rel_l2_vs_plain": rel,
-        "avg_sisnri": avg_sisnri,
+        "avg_sisnri": avg_sisnri, "operator_step_ms": op_ms,
+        "function_step_ms": fn_ms,
     }
+
+
+def dispatch_times(model, mix, enr):
+    """SpEx+'s served forward with every fused block through the operator
+    wesep::tcn_block_gln (what a served forward calls) and through
+    TCNBlockFn (what it called before the operators), in turns: operator,
+    Function, Function, operator -> (operator ms, Function ms, the
+    Function's estimates)."""
+    from wesep_tpu_torch.models import convtasnet
+    from wesep_tpu_torch.ops.cuda_tcn import TCNBlockFn
+
+    wrapper = convtasnet.tcn_block_gln
+
+    def through_function(*args, plain=False):
+        *tensors, dilation, k, causal, eps = args
+        return TCNBlockFn.apply(plain, False, int(dilation), int(k),
+                                bool(causal), float(eps), *tensors)
+
+    def timed(fn):
+        convtasnet.tcn_block_gln = fn
+        try:
+            return time_ms(lambda: model(mix, enr), 1, 5)
+        finally:
+            convtasnet.tcn_block_gln = wrapper
+
+    op_ms = [timed(wrapper)]
+    fn_ms = [timed(through_function), timed(through_function)]
+    op_ms.append(timed(wrapper))
+    convtasnet.tcn_block_gln = through_function
+    try:
+        fn_ests = model(mix, enr)[0]
+    finally:
+        convtasnet.tcn_block_gln = wrapper
+    return op_ms, fn_ms, fn_ests
 
 
 def spex_param_grads(model, batch, criterion, table):
@@ -6638,8 +6691,7 @@ def check_ddp_across_cards(world):
             "steps": DDP_CARD_STEPS, "losses": losses, "errors": errs,
             "limits": DDP_CARD_LIMITS, "ranks_bit_for_bit": equal,
             "last_step_ms_rank": ranks[0]["last_step_ms"],
-            "last_step_ms_one_process": one["last_step_ms"],
-            "bin_train_refused": refused}
+            "last_step_ms_one_process": one["last_step_ms"]}
 
 
 # Phase 18 (c), (d), with --only-ddp: the GAN step under data parallelism
@@ -6960,7 +7012,8 @@ def check_model_axis_across_cards(world):
     DDP_CARD_LIMITS, the ranks bit for bit equal; every rank's first step
     launches 12 f32 K0 forwards (chain and projection) and 12 of each f32
     backward kernel on half the folded rows; each rank's step time and
-    peak memory beside the one process's. bin/train itself refuses the
+    peak memory beside the one process's; the one process run again
+    against itself is printed beside them. bin/train itself refuses the
     model axis across cards for now (ROADMAP.md C.3a): that refusal is
     checked."""
     tag = f"model_axis {GRID_CARD_AXIS} across {world} cards"
@@ -6973,6 +7026,12 @@ def check_model_axis_across_cards(world):
                 for r in ranks]
         leaves = [grid_leaf_errors(r["steps"][0][1], one["steps"][0][1])
                   for r in ranks]
+        # the one process against itself: how far its own first gradient
+        # moves between two runs of the same step
+        repeat = grid_card_steps(world)
+        again = ddp_step_errors(repeat["steps"], one["steps"], one["init"])
+        again_leaves = grid_leaf_errors(repeat["steps"][0][1],
+                                        one["steps"][0][1])
         last = ranks[0]["steps"][-1][2]
         equal = all(torch.equal(v, r["steps"][-1][2][n])
                     for r in ranks[1:] for n, v in last.items())
@@ -7002,6 +7061,9 @@ def check_model_axis_across_cards(world):
                 f"gradient {DDP_CARD_LIMITS[0]['grad_rel_l2']}, "
                 f"{GRID_CARD_NOISE} of the norm for noise-only leaves, the "
                 f"parameters' bounds)")
+        log(f"{tag}: the one process run again against itself, by step "
+            f"{json.dumps(again)}; the first gradient by parameter "
+            f"{json.dumps(again_leaves)}")
         if not (equal and all(grid_errors_ok(e, leaf)
                               for e, leaf in zip(errs, leaves))
                 and all(r["seen"] == half for r in ranks)
@@ -7009,8 +7071,9 @@ def check_model_axis_across_cards(world):
             raise AssertionError(f"{tag}: the grid differs from the one "
                                  f"process: {errs}, ranks equal {equal}")
 
-    # bin/train refuses the model axis across cards for now: on four cards
-    # its 2 x 2 run stopped in its second step (ROADMAP.md C.3a)
+    # bin/train refuses the model axis across cards for now: the grid's
+    # first gradient is not yet shown to hold against one process's on
+    # the card (ROADMAP.md C.3a)
     from wesep_tpu_torch.bin.train import check_model_axis_device
 
     try:
@@ -7033,6 +7096,7 @@ def check_model_axis_across_cards(world):
             "last_step_ms_one_process": one["last_step_ms"],
             "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
             "peak_bytes_one_process": one["peak_bytes"],
+            "one_process_against_itself": again,
             "bin_train_refused": refused}
 
 
@@ -7885,6 +7949,409 @@ def phase18():
         "gan_dist": gan, "jax_bundles": bundles}
 
 
+# Phase 19: the v1 recipe's stages without JAX (extract_embed,
+# make_shard_list_premix, bin/infer, bin/score), a reference-layout .pt of
+# the v1 pBSRNN through the converter, the extractor on the joint v2 BSRNN,
+# bin/export and runtime_host, and the profiler's trace
+P19_SECONDS = (3.0, 3.0, 3.5, 4.0, 4.37)  # 5 mixtures: 10 requests
+P19_SPK_ARGS = dict(m_channels=32, embed_dim=256, pooling_func="TSTP",
+                    two_emb_layer=False)  # v2 confs' ResNet34
+EXPORT_SHAPE = (2, 81280)  # bin/export's default mix shape
+P19_TIMING_RUNS = 5
+
+
+def p19_sources(root, rng):
+    """The v1 recipe's data dir before sharding: per mixture its wav, each
+    speaker's clean source and a 3 s enrollment of each speaker, as
+    wav.scp, spk{1,2}.scp, utt2spks, the enrollment wav.scp and the
+    spk{1,2}_enroll lists -> (paths, keys, lengths)."""
+    from wesep_tpu_torch.data.wav_io import write_wav
+
+    def voice(n):
+        t = np.arange(n) / 16000.0
+        f0 = rng.uniform(90, 250)
+        s = sum(np.sin(2 * np.pi * f0 * k * t + rng.uniform(0, 6)) / k
+                for k in range(1, 6))
+        return (0.1 * s + 0.02 * rng.standard_normal(n)).astype(np.float32)
+
+    lists = {name: [] for name in ("wav", "spk1", "spk2", "utt2spks",
+                                   "enroll", "spk1_enroll", "spk2_enroll",
+                                   "keys")}
+    keys, lengths = [], []
+    for i, seconds in enumerate(P19_SECONDS):
+        key, n = f"p19mix{i:02d}", int(round(seconds * 16000))
+        srcs = [voice(n), voice(n)]
+        wavs = {"wav": srcs[0] + srcs[1], "spk1": srcs[0], "spk2": srcs[1]}
+        for name, wav in wavs.items():
+            path = os.path.join(root, f"{key}_{name}.wav")
+            write_wav(path, wav, 16000)
+            lists[name].append(f"{key} {path}\n")
+        lists["utt2spks"].append(f"{key} {key}_s1 {key}_s2\n")
+        for spk in (1, 2):
+            utt = f"{key}_enr{spk}"
+            path = os.path.join(root, f"{utt}.wav")
+            write_wav(path, voice(CHUNK), 16000)
+            lists["enroll"].append(f"{utt} {path}\n")
+            lists[f"spk{spk}_enroll"].append(f"{key} {utt}\n")
+        lists["keys"].append(f"{key} {key}\n")
+        keys.append(key)
+        lengths.append(n)
+    paths = {}
+    for name, lines in lists.items():
+        paths[name] = os.path.join(root, f"p19_{name}.scp")
+        with open(paths[name], "w") as f:
+            f.writelines(lines)
+    return paths, keys, lengths
+
+
+def check_recipe_stages(root):
+    """Phase 19 (a), (b): the v1 recipe's stages through the port's entry
+    points, then a reference-layout .pt of the same pBSRNN weights through
+    the converter and bin/infer -> (launches by path, summary)."""
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from torch_reference_layouts import reference_state_dict
+
+    from wesep_tpu_torch.bin import score
+    from wesep_tpu_torch.bin.infer import infer
+    from wesep_tpu_torch.models.bsrnn import BSRNN
+    from wesep_tpu_torch.models.speaker import get_speaker_model
+    from wesep_tpu_torch.tools import extract_embed, make_shard_list_premix
+    from wesep_tpu_torch.tools.convert_torch_checkpoint import convert
+    from wesep_tpu_torch.train.checkpoint import (
+        load_checkpoint,
+        model_state,
+        save_checkpoint,
+        split_state,
+    )
+    from wesep_tpu_torch.utils.file_utils import read_vec_scp_file
+
+    tag = "phase 19 (a)"
+    rng = np.random.default_rng(SEED + 190)
+    paths, keys, lengths = p19_sources(root, rng)
+    walls = {}
+
+    # stage 1: speaker embeddings of the enrollments (seeded ResNet34)
+    torch.manual_seed(SEED + 191)
+    encoder = get_speaker_model("ResNet34")(feat_dim=80, **P19_SPK_ARGS)
+    enc_params, enc_buffers = split_state(encoder)
+    enc_ckpt = os.path.join(root, "resnet34.ckpt")
+    save_checkpoint(enc_ckpt, [enc_params], batch_stats=[enc_buffers])
+    t0 = time.perf_counter()
+    extract_embed.main(["--wav_scp", paths["enroll"], "--checkpoint",
+                        enc_ckpt, "--spk_model", "ResNet34", "--spk_args",
+                        json.dumps(P19_SPK_ARGS), "--out_base",
+                        os.path.join(root, "embed")])
+    walls["extract_embed_s"] = time.perf_counter() - t0
+    embeds = read_vec_scp_file(os.path.join(root, "embed.scp"))
+    if len(embeds) != 2 * len(keys) or not all(
+            v.shape == (256,) and np.isfinite(v).all()
+            for v in embeds.values()):
+        raise AssertionError(f"{tag}: extract_embed wrote {len(embeds)} "
+                             "embeddings")
+
+    # stage 2: premixed shards
+    t0 = time.perf_counter()
+    make_shard_list_premix.main([
+        "--num_utts_per_shard", "2", paths["wav"],
+        f"{paths['spk1']},{paths['spk2']}", paths["utt2spks"],
+        os.path.join(root, "shards"), os.path.join(root, "shards.list")])
+    walls["make_shard_list_premix_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, "shards.list")) as f:
+        shards = [line.strip() for line in f]
+    with tarfile.open(shards[0]) as tar:
+        members = tar.getnames()
+    if len(shards) != 3 or members[:5] != [
+            f"{keys[0]}.spk1", f"{keys[0]}.spk2", f"{keys[0]}.wav",
+            f"{keys[0]}_spk1.wav", f"{keys[0]}_spk2.wav"]:
+        raise AssertionError(f"{tag}: shards {shards}, members {members}")
+
+    # stage 3: bin/infer of the v1 pBSRNN on the shards and embeddings
+    torch.manual_seed(SEED + 192)
+    model = BSRNN(**V1_MODEL_ARGS)
+    params, buffers = split_state(model)
+    bundle = os.path.join(root, "avg_model.ckpt")
+    save_checkpoint(bundle, [params], batch_stats=[buffers])
+    config = {"model": {"tse_model": "BSRNN"},
+              "model_args": {"tse_model": dict(V1_MODEL_ARGS)},
+              "data_type": "shard", "dataset_args": {"resample_rate": 16000},
+              "length_bucket": BUCKET, "test_data": os.path.join(
+                  root, "shards.list"),
+              "test_spk_embeds": os.path.join(root, "embed.scp"),
+              "test_spk1_enroll": paths["spk1_enroll"],
+              "test_spk2_enroll": paths["spk2_enroll"]}
+
+    def decode(ckpt, exp):
+        zero_counts()
+        t0 = time.perf_counter()
+        result = infer(dict(config, checkpoint=ckpt,
+                            exp_dir=os.path.join(root, exp)))
+        torch.cuda.synchronize()
+        return result, read_counts(), time.perf_counter() - t0
+
+    result, infer_launches, walls["infer_s"] = decode(bundle, "exp_infer")
+    steps = forward_steps(lengths)
+    expect_counts(infer_launches, 2 * V1_MODEL_ARGS["num_repeat"] * steps, 0,
+                  "layer", f"{tag}: bin/infer", f32=True)
+    audio = os.path.join(root, "exp_infer", "audio")
+
+    # stage 4: bin/score against the clean sources
+    t0 = time.perf_counter()
+    score.main(["--output_dir", os.path.join(root, "scores"), "--key_file",
+                paths["keys"], "--ref_scp", paths["spk1"], paths["spk2"],
+                "--inf_scp", os.path.join(audio, "spk1.scp"),
+                os.path.join(audio, "spk2.scp")])
+    walls["score_s"] = time.perf_counter() - t0
+    with open(os.path.join(root, "scores", "RESULTS")) as f:
+        results = dict(line.strip().split(": ") for line in f)
+    with open(os.path.join(root, "scores", "SI_SNR_spk1")) as f:
+        scored = [line.split()[0] for line in f]
+    if list(results) != list(score.METRICS) or scored != keys or not all(
+            math.isfinite(float(v)) for v in results.values()):
+        raise AssertionError(f"{tag}: RESULTS {results}, keys {scored}")
+    log(f"{tag}: extract_embed ({len(embeds)} enrollments, ResNet34), "
+        f"make_shard_list_premix ({len(shards)} shards), bin/infer "
+        f"({2 * len(keys)} requests, {steps} forward steps; SI-SNR, SI-SNRi "
+        f"{result}; launches {({n: v for n, v in infer_launches.items() if v})}"
+        f"), bin/score RESULTS {results}; wall s {json.dumps(walls)}")
+
+    # (b) the reference's layout of the same weights, converted
+    tag = "phase 19 (b)"
+    ref = reference_state_dict("bsrnn", model.state_dict(),
+                               num_repeat=V1_MODEL_ARGS["num_repeat"])
+    pt = os.path.join(root, "reference_avg_model.pt")
+    torch.save({"models": [{k: torch.from_numpy(v) for k, v in ref.items()}]},
+               pt)
+    cfg = os.path.join(root, "config.yaml")
+    with open(cfg, "w") as f:
+        json.dump(config, f)  # JSON is YAML
+    converted = os.path.join(root, "converted.ckpt")
+    t0 = time.perf_counter()
+    convert(pt, cfg, converted, log=lambda line: None)
+    convert_s = time.perf_counter() - t0
+    state = model_state(load_checkpoint(converted))
+    same_state = state.keys() == model.state_dict().keys() and all(
+        torch.equal(state[k], v) for k, v in model.state_dict().items())
+    again, again_launches, _ = decode(converted, "exp_converted")
+    names = sorted(n for n in os.listdir(audio) if n.endswith(".wav"))
+
+    def wav_bytes(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    same_wavs = names == sorted(
+        n for n in os.listdir(os.path.join(root, "exp_converted", "audio"))
+        if n.endswith(".wav")) and all(
+        wav_bytes(os.path.join(audio, n)) == wav_bytes(os.path.join(
+            root, "exp_converted", "audio", n)) for n in names)
+    log(f"{tag}: a reference-layout .pt of the v1 pBSRNN ({len(ref)} "
+        f"tensors) converted in {convert_s:.3f} s: the state equal bit for "
+        f"bit {same_state}; bin/infer on it {again} against {result}, its "
+        f"{len(names)} wavs equal byte for byte {same_wavs}")
+    if not (same_state and same_wavs and again == result
+            and again_launches == infer_launches):
+        raise AssertionError(f"{tag}: the converted bundle decodes "
+                             "otherwise")
+    walls["convert_s"] = convert_s
+    return ({"recipe_infer": infer_launches, "converted_infer":
+             again_launches},
+            {"infer": result, "results": results, "wall_s": walls,
+             "converted_bit_for_bit": same_wavs and same_state},
+            (bundle, config, model))
+
+
+def check_extractor(root):
+    """Phase 19 (c): the Extractor on a local dir of the full-width joint
+    v2 BSRNN (ResNet34 on the enrollment's fbank), a 3 s mixture (one
+    forward of the 16000-sample bucket) and a 40 s one (two 30 s windows),
+    each timed on its second call -> (launches, summary)."""
+    from wesep_tpu_torch.cli.extractor import Extractor
+    from wesep_tpu_torch.data.wav_io import write_wav
+    from wesep_tpu_torch.models.bsrnn import BSRNN
+    from wesep_tpu_torch.train.checkpoint import save_checkpoint, split_state
+
+    tag = "phase 19 (c)"
+    torch.manual_seed(SEED + 193)
+    params, buffers = split_state(BSRNN(**V2_BSRNN_ARGS))
+    save_checkpoint(os.path.join(root, "avg_model.ckpt"), [params],
+                    batch_stats=[buffers])
+    with open(os.path.join(root, "config.yaml"), "w") as f:
+        json.dump({"model": {"tse_model": "BSRNN"},
+                   "model_args": {"tse_model": V2_BSRNN_ARGS},
+                   "dataset_args": {"resample_rate": 16000}}, f)
+    gen = torch.Generator().manual_seed(SEED + 194)
+    enroll = voices(1, 6 * 16000, gen)[0].numpy()
+    extractor = Extractor(root)
+    out, launches = {}, {}
+    for seconds, forwards in ((3, 1), (40, 2)):
+        mix = voices(2, seconds * 16000, gen).sum(0).numpy()
+        pcm_mix, pcm_enroll = mix[None], enroll[None]
+        est, _ = extractor.extract_speech_from_pcm(pcm_mix, 16000,
+                                                   pcm_enroll, 16000)
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again, sr = extractor.extract_speech_from_pcm(pcm_mix, 16000,
+                                                      pcm_enroll, 16000)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[f"extractor_{seconds}s"] = read_counts()
+        expect_counts(launches[f"extractor_{seconds}s"],
+                      2 * V2_BSRNN_ARGS["num_repeat"] * forwards, 0,
+                      "layer", f"{tag}: {seconds} s", f32=True)
+        ok = (est.shape == (seconds * 16000,) and sr == 16000
+              and np.isfinite(est).all() and np.array_equal(est, again)
+              and abs(np.abs(est).max() - 0.9) < 1e-6)
+        out[f"{seconds}s"] = {"ms": ms, "forwards": forwards,
+                              "repeats_bit_for_bit": bool(
+                                  np.array_equal(est, again))}
+        if not ok:
+            raise AssertionError(f"{tag}: the {seconds} s mixture gave "
+                                 f"{est.shape}, finite "
+                                 f"{np.isfinite(est).all()}")
+    path = os.path.join(root, "mix40.wav")
+    write_wav(path, again, 16000)
+    log(f"{tag}: the Extractor on the joint v2 BSRNN (full width, ResNet34 "
+        f"fbank cue): {json.dumps(out)} (host clock, the whole call: "
+        "resampling, fbank and CMVN, the forwards, the copy back)")
+    return launches, out
+
+
+def check_export_and_host(root, bundle, config, model):
+    """Phase 19 (d), (e): bin/export of the v1 pBSRNN at EXPORT_SHAPE, the
+    loaded program on the card against the eager forward (bit for bit, 12
+    f32 K0 chains and projections a call, each timed), runtime_host on the
+    export dir and on the model dir, and profiling.trace of one served step
+    -> (launches, summary)."""
+    from wesep_tpu_torch import runtime_host
+    from wesep_tpu_torch.bin.export import (
+        ServedForward,
+        export_model,
+        load_program,
+    )
+    from wesep_tpu_torch.utils.profiling import device_memory_stats, trace
+
+    tag = "phase 19 (d)"
+    model_dir = os.path.join(root, "model_dir")
+    os.makedirs(model_dir)
+    os.link(bundle, os.path.join(model_dir, "avg_model.ckpt"))
+    with open(os.path.join(model_dir, "config.yaml"), "w") as f:
+        json.dump(config, f)
+    export_dir = os.path.join(root, "export")
+    t0 = time.perf_counter()
+    _, program = export_model(os.path.join(model_dir, "config.yaml"),
+                              os.path.join(model_dir, "avg_model.ckpt"),
+                              export_dir, batch=EXPORT_SHAPE[0],
+                              samples=EXPORT_SHAPE[1])
+    export_s = time.perf_counter() - t0
+    ops = [str(n.target) for n in program.graph.nodes
+           if str(n.target).startswith("wesep.")]
+    with open(os.path.join(export_dir, "export.json")) as f:
+        manifest = json.load(f)
+    t0 = time.perf_counter()
+    loaded = load_program(export_dir)
+    load_s = time.perf_counter() - t0
+    eager = ServedForward(model.cuda().eval())
+    gen = torch.Generator().manual_seed(SEED + 195)
+    mix = (0.1 * torch.randn(EXPORT_SHAPE, generator=gen)).cuda()
+    emb = torch.randn(EXPORT_SHAPE[0], 256, generator=gen).cuda()
+    with torch.inference_mode():
+        want = eager(mix, emb)
+        zero_counts()
+        got = loaded(mix, emb)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        expect_counts(launches, 2 * V1_MODEL_ARGS["num_repeat"], 0, "layer",
+                      f"{tag}: the exported program", f32=True)
+        same = torch.equal(got, want)
+        # in turns: eager, exported, eager, exported
+        eager_ms = [time_ms(lambda: eager(mix, emb), 1, P19_TIMING_RUNS)]
+        export_ms = [time_ms(lambda: loaded(mix, emb), 1, P19_TIMING_RUNS)]
+        eager_ms.append(time_ms(lambda: eager(mix, emb), 0, P19_TIMING_RUNS))
+        export_ms.append(time_ms(lambda: loaded(mix, emb), 0,
+                                 P19_TIMING_RUNS))
+    # runtime_host on both dirs, a request of the program's length
+    mix_np = mix[0].cpu().numpy()
+    e1, e2 = emb.cpu().numpy()
+    with torch.inference_mode():
+        ref = eager(torch.stack([mix[0], mix[0]]), emb).cpu().numpy()
+    host = {}
+    for name, path in (("export", export_dir), ("model", model_dir)):
+        runtime_host.load(path)
+        host[name] = bool(np.array_equal(runtime_host.separate(mix_np, e1, e2),
+                                         ref))
+    log(f"{tag}: bin/export of the v1 pBSRNN at {list(EXPORT_SHAPE)} in "
+        f"{export_s:.3f} s (load {load_s:.3f} s; manifest {manifest}; "
+        f"{len(ops)} wesep operators: {sorted(set(ops))}); the loaded "
+        f"program on the card equal to the eager forward bit for bit {same}, "
+        f"launches {({n: v for n, v in launches.items() if v})}; ms by CUDA "
+        f"events (median of {P19_TIMING_RUNS}, in turns): exported "
+        f"{export_ms}, eager {eager_ms}; runtime_host.separate equal to the "
+        f"eager forward {host}")
+    if not (same and all(host.values()) and manifest["platforms"] == ["cuda"]
+            and ops == ["wesep.bilstm_layer.default"]
+            * (2 * V1_MODEL_ARGS["num_repeat"])):
+        raise AssertionError(f"{tag}: export {same}, host {host}, ops {ops}")
+
+    tag = "phase 19 (e)"
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+        with torch.inference_mode(), trace(logdir) as path:
+            loaded(mix, emb)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        size = os.path.getsize(path)
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in kernels)
+             for k in ("f32_project_kernel", "f32_chain_kernel")}
+    ops_seen = sum("wesep::bilstm_layer" in e.get("name", "")
+                   for e in events)
+    memory = device_memory_stats()["cuda:0"]
+    log(f"{tag}: profiling.trace of one exported step: {size} bytes, "
+        f"{len(events)} events, {len(kernels)} device kernels; the K0 "
+        f"kernels {found}, the operator's host spans {ops_seen}; "
+        f"device_memory_stats peak {memory['allocated_bytes.all.peak']} B")
+    if min(found.values()) < 2 * V1_MODEL_ARGS["num_repeat"] \
+            or ops_seen < 2 * V1_MODEL_ARGS["num_repeat"]:
+        raise AssertionError(f"{tag}: the trace lacks the K0 kernels: "
+                             f"{found}, {ops_seen}")
+    return {"export_serve": launches}, {
+        "export_s": export_s, "load_s": load_s, "bit_for_bit": same,
+        "exported_ms": export_ms, "eager_ms": eager_ms, "runtime_host": host,
+        "trace_kernels": found, "trace_bytes": size}
+
+
+def phase19():
+    """Phase 19 whole -> (launches by path, summary)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        launches, recipe, (bundle, config, model) = check_recipe_stages(root)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as sub:
+            extractor_launches, extractor = check_extractor(sub)
+        export_launches, export = check_export_and_host(root, bundle, config,
+                                                        model)
+    launches.update(extractor_launches)
+    launches.update(export_launches)
+    summary = {"recipe": recipe, "extractor": extractor, "export": export,
+               "wall_s": time.perf_counter() - t0}
+    log("phase 19 summary", json.dumps(summary))
+    log(f"phase 19 in {summary['wall_s']:.1f} s")
+    return launches, summary
+
+
+def phase19_only() -> int:
+    """`--only-phase19`: phases 1 and 2 and phase 19; no final line."""
+    from wesep_tpu_torch.ops import _build
+
+    log(card_line())
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build in {time.perf_counter() - t0:.2f} s")
+    launches, _ = phase19()
+    log("phase 19 launches", json.dumps(launches))
+    log(f"wall {time.perf_counter() - t0:.1f} s")
+    log(card_line())
+    return 0
+
+
 def phase18_only() -> int:
     """`--only-phase18`: phases 1 and 2 and phase 18; no final line."""
     from wesep_tpu_torch.ops import _build
@@ -7966,7 +8433,15 @@ def ddp_only() -> int:
             ("phase 18 (d)", check_model_axis_across_cards,
              world - world % GRID_CARD_AXIS),
             ("phase 16 (e)", check_ddp_across_cards, world)):
-        # every check runs, each failure is printed, the run then fails
+        # every check runs, each failure is printed, the run then fails;
+        # this process's one-process baselines run on card 0, which the
+        # next check's rank 0 shares: its cached blocks (61.6 GiB after
+        # TF-GridNet's step) are released first, or that rank's cuBLAS may
+        # find no memory for a handle (ROADMAP.md C.3a)
+        held = torch.cuda.memory_reserved(0)
+        torch.cuda.empty_cache()
+        log(f"{name}: this process released {held / 2 ** 30:.2f} GiB it "
+            "held on card 0")
         try:
             log(f"{name} summary", json.dumps(check(n)))
         except Exception as e:  # noqa: BLE001
@@ -8055,6 +8530,8 @@ def main() -> int:
         return phase17_only()
     if sys.argv[1:] == ["--only-phase18"]:
         return phase18_only()
+    if sys.argv[1:] == ["--only-phase19"]:
+        return phase19_only()
 
     # 1. device
     card = card_line()
@@ -8080,6 +8557,7 @@ def main() -> int:
     train_cases = [check_training_kernels(name, t_len, batch, dtype)
                    for name, (t_len, batch) in TRAIN_SHAPES.items()
                    for dtype in (torch.float32, torch.bfloat16)]
+    lap("3 K0 / K0b FMA at the pBSRNN's shapes")
     tcn_cases = [check_tcn(name, batch, dtype, dilation)
                  for name, batch in (("spex_serve", ROWS_PER_STEP),
                                      ("spex_train", 2 * TRAIN_BATCH))
@@ -8087,6 +8565,7 @@ def main() -> int:
                  for dilation in (1, 128)]
     fused_cases = [check_fused_tcn_block(dtype)
                    for dtype in (torch.float32, torch.bfloat16)]
+    lap("3 K4 / K4b")
     # the unfold-fused layer at TF-GridNet's four shapes, and once at hs 2
     unfold_cases = [check_unfold_kernels(name, rows, length, dtype)
                     for name, (rows, length) in UNFOLD_SHAPES.items()
@@ -8116,6 +8595,7 @@ def main() -> int:
             grid_d, GRID_H))
         unfold_cases.append(check_unfold_kernels(name, rows, length,
                                                  torch.float32))
+    lap("3 K3 / K3b FMA, K0 / K0b FMA at TF-GridNet's shapes")
 
     # the two-kernel layers at the pBSRNN's shapes, both directions (K2)
     # and one (K1): the forward at the serving shapes in f32, the forward,
@@ -8125,13 +8605,17 @@ def main() -> int:
         for shapes, dtype, train in ((MAIN_SHAPES, torch.float32, False),
                                      (TRAIN_SHAPES, torch.bfloat16, True))
         for name, (t_len, batch) in shapes.items() for dirs in (2, 1)]
+    lap("3 K1 / K2 FMA")
 
-    # the tensor-core backward of every LSTM route at its training shapes
-    # (bf16): the pBSRNN's band and comm on K0, K2 and K1; TF-GridNet's
-    # intra and inter on K3 and on K0 over the materialised frames
-    tc_cases = [check_tc_backward(route, "train_" + name, t_len, batch)
-                for route in ("layer", "two_kernel", "unidirectional")
-                for name, (t_len, batch) in TRAIN_SHAPES.items()]
+    # the tensor-core backward at the LSTM routes' training shapes (bf16):
+    # the pBSRNN's band and comm on K0 and its band on K2 and K1 (the same
+    # kernels with no dx, xw from its own projection, K1 one direction);
+    # TF-GridNet's intra and inter on K3 and on K0 over the materialised
+    # frames
+    tc_cases = [check_tc_backward("layer", "train_" + name, t_len, batch)
+                for name, (t_len, batch) in TRAIN_SHAPES.items()] + [
+        check_tc_backward(route, "train_band", *TRAIN_SHAPES["band"])
+        for route in ("two_kernel", "unidirectional")]
     for name, (rows, length) in UNFOLD_SHAPES.items():
         if name.startswith("train"):
             tc_cases.append(check_tc_backward(
@@ -8140,10 +8624,12 @@ def main() -> int:
                 "layer", "train_grid_" + name[len("train_"):],
                 length - GRID_KS + 1, rows, grid_d, GRID_H))
 
-    # the tensor-core forward of every LSTM route at the same shapes
-    tc_fwd_cases = [check_tc_forward(route, "train_" + name, t_len, batch)
-                    for route in ("layer", "two_kernel", "unidirectional")
-                    for name, (t_len, batch) in TRAIN_SHAPES.items()]
+    lap("3 bf16 backward")
+    # the tensor-core forward at the same shapes and routes
+    tc_fwd_cases = [check_tc_forward("layer", "train_" + name, t_len, batch)
+                    for name, (t_len, batch) in TRAIN_SHAPES.items()] + [
+        check_tc_forward(route, "train_band", *TRAIN_SHAPES["band"])
+        for route in ("two_kernel", "unidirectional")]
     for name, (rows, length) in UNFOLD_SHAPES.items():
         if name.startswith("train"):
             tc_fwd_cases.append(check_tc_forward(
@@ -8151,17 +8637,18 @@ def main() -> int:
             tc_fwd_cases.append(check_tc_forward(
                 "layer", "train_grid_" + name[len("train_"):],
                 length - GRID_KS + 1, rows, grid_d, GRID_H))
+    lap("3 bf16 forward")
     from wesep_tpu_torch.ops.cuda_lstm_tc import forward_clusters
 
     clusters = {h: forward_clusters(h) for h in (64, 128, 192, 256)}
     log(f"forward chain: clusters of 4 blocks the card runs at once, by H: "
         f"{clusters}")
 
-    # the f32 cluster forward of every LSTM route at every f32 shape that
-    # serving and the validation step run: the pBSRNN's band and comm at
-    # the serving and (with cs) the training sizes on K0, K2 and K1;
-    # TF-GridNet's intra and inter on K3 and on K0 over the materialised
-    # frames
+    # the f32 cluster forward at every f32 shape that serving and the
+    # validation step run: the pBSRNN's band and comm at the serving and
+    # (with cs) the training sizes on K0, the band at both sizes on K2 and
+    # K1 (beside their own FMA kernels, the kernel line's); TF-GridNet's
+    # intra and inter on K3 and on K0 over the materialised frames
     from wesep_tpu_torch.ops import cuda_lstm_f32
 
     f32_clusters = {
@@ -8171,12 +8658,16 @@ def main() -> int:
     log(f"f32 cluster forward: clusters of H / 32 blocks the card runs at "
         f"once, by H and rows a cluster: {f32_clusters}")
     f32_cases = [
-        check_f32_forward(route, path + name, t_len, batch,
+        check_f32_forward("layer", path + name, t_len, batch,
                           with_cs=path == "train_")
-        for route in ("layer", "two_kernel", "unidirectional")
         for path, shapes in (("serve_", MAIN_SHAPES),
                              ("train_", TRAIN_SHAPES))
-        for name, (t_len, batch) in shapes.items()]
+        for name, (t_len, batch) in shapes.items()] + [
+        check_f32_forward(route, path + "band", *shapes["band"],
+                          with_cs=path == "train_")
+        for route in ("two_kernel", "unidirectional")
+        for path, shapes in (("serve_", MAIN_SHAPES),
+                             ("train_", TRAIN_SHAPES))]
     for name, (rows, length) in list(UNFOLD_SHAPES.items()) + list(
             V2_GRID_SHAPES.items()):
         train = not name.startswith("serve")
@@ -8186,20 +8677,23 @@ def main() -> int:
         f32_cases.append(check_f32_forward(
             "layer", "grid_" + name, length - GRID_KS + 1, rows, grid_d,
             GRID_H, with_cs=train))
-    # the f32 backward (gates, adjoint chain, dx, dW) of every LSTM route at
-    # the f32 training shapes: K0 at the pBSRNN's band and comm (the joint
-    # v2 BSRNN's step) and at the v2 TF-GridNet's intra and inter over the
-    # materialised frames (its default route), K3 at the v2 TF-GridNet's
-    # shapes, K2 and K1 at the pBSRNN's band and comm
+    lap("3 f32 forward")
+    # the f32 backward (gates, adjoint chain, dx, dW) at the f32 training
+    # shapes: K0 at the pBSRNN's band and comm (the joint v2 BSRNN's step),
+    # K2 and K1 at its band, K0 at the v2 TF-GridNet's intra and inter over
+    # the materialised frames (its default route), K3 at the v2
+    # TF-GridNet's shapes
     f32_bwd_clusters = {
         h: {r: cuda_lstm_f32.f32_adjoint_clusters(h, r)
             for r in cuda_lstm_f32.F32_ROWS}
         for h in cuda_lstm_f32.F32_HIDDEN}
     log(f"f32 adjoint chain: clusters of H / 32 blocks the card runs at "
         f"once, by H and rows a cluster: {f32_bwd_clusters}")
-    f32_bwd_cases = [check_f32_backward(route, "train_" + name, t_len, batch)
-                     for route in ("layer", "two_kernel", "unidirectional")
-                     for name, (t_len, batch) in TRAIN_SHAPES.items()]
+    f32_bwd_cases = [check_f32_backward("layer", "train_" + name, t_len,
+                                        batch)
+                     for name, (t_len, batch) in TRAIN_SHAPES.items()] + [
+        check_f32_backward(route, "train_band", *TRAIN_SHAPES["band"])
+        for route in ("two_kernel", "unidirectional")]
     for name, (rows, length) in V2_GRID_SHAPES.items():
         f32_bwd_cases.append(check_f32_backward(
             "layer", "grid_" + name, length - GRID_KS + 1, rows, grid_d,
@@ -8216,7 +8710,7 @@ def main() -> int:
             grid_d, GRID_H, length=length, hs=hs))
     # and K0's f32 forward (with cs) and backward at BSRNN_Feats' train
     # shapes (4 rows x 3 s, phase 16)
-    lap("3 kernels (but BSRNN_Feats' shapes)")
+    lap("3 f32 backward")
     feats_fwd, feats_bwd = feats_kernel_cases()
     lap("3 kernels at BSRNN_Feats' shapes")
     f32_cases += feats_fwd
@@ -8234,7 +8728,7 @@ def main() -> int:
     # the TCN block and the Conv2dBlock past one grid dimension
     large_cases = check_large_grids()
 
-    lap("3 kernels (but BSRNN_Feats' shapes)")
+    lap("3 refused shapes, K5 / K5b, large grids")
     # 4. serve
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         serve_launches, served = serve(root)
@@ -8345,6 +8839,11 @@ def main() -> int:
     # plain run; (b) the JAX package's msgpack bundles through bin/infer,
     # bin/train's resume and bin/average_model
     phase18_launches, _ = phase18()
+
+    lap("18 train_gan under WESEP_DIST, JAX bundles")
+    # 19. the v1 recipe's stages without JAX, a reference .pt converted, the
+    # extractor, bin/export and runtime_host, the profiler's trace
+    phase19_launches, _ = phase19()
 
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
@@ -8517,7 +9016,7 @@ def main() -> int:
         if n in by_path})
     for path, counts in list(phase15_launches.items()) + list(
             phase16_launches.items()) + list(phase17_launches.items()) + list(
-            phase18_launches.items()):
+            phase18_launches.items()) + list(phase19_launches.items()):
         add_path(path, counts)
     # the main path of a kernel: its training path; for the f32 cluster
     # forward, serving (phase 4); for the routes' own FMA forward kernels,
@@ -8658,7 +9157,7 @@ def main() -> int:
                      B=c["B"], D=c["D"], H=c["H"], rel_limit=c["rel_limit"])
                 for c in train_cases]
         kernels.append(entry)
-    lap("18 train_gan under WESEP_DIST, JAX bundles, the kernel line")
+    lap("19 recipe stages, checkpoints, extractor, export, the kernel line")
     log("chip_smoke: wall s by phase", json.dumps(laps))
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -117,3 +117,18 @@ def test_the_checkpoint_and_grid_modules_are_checked():
         assert os.path.join("wesep_tpu_torch", module) in names, module
     assert _forbidden("msgpack") and not _forbidden(
         "wesep_tpu_torch.utils.msgpack_bundle")
+
+
+def test_the_recipe_stage_checkpoint_and_serving_modules_are_checked():
+    """The scoring stage, the data tools, the reference checkpoints' maps
+    and converter, the extractor with its VAD and hub, the model host, the
+    export and the profiler are among the files checked."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for module in ("utils/score.py", "utils/bss_eval.py", "utils/stoi.py",
+                   "bin/score.py", "tools/make_shard_list_premix.py",
+                   "tools/extract_embed.py", "tools/test_dataset.py",
+                   "utils/torch_port.py", "tools/convert_torch_checkpoint.py",
+                   "data/vad.py", "cli/__init__.py", "cli/utils.py",
+                   "cli/hub.py", "cli/extractor.py", "runtime_host.py",
+                   "bin/export.py", "utils/profiling.py"):
+        assert os.path.join("wesep_tpu_torch", module) in names, module

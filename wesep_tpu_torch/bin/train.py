@@ -250,15 +250,17 @@ def check_model_axis(model, model_name, model_axis, logger, rank):
 
 
 def check_model_axis_device(model_axis, world_size, device):
-    """`model_axis` > 1 across several cards is refused for now: bin/train
-    on tfgridnet.yaml at 2 x 2 on four H100s (NCCL, bf16) stopped in its
-    second step, with and without DistributedDataParallel, and the cause is
-    not known (ROADMAP.md C.3a). Processes on the CPU (gloo) run it."""
+    """`model_axis` > 1 across several cards is refused for now: on four
+    H100s the model-axis step's first gradient once differed from one
+    process's by 6.3e-4 (rel. L2) and once by 1.7e-6 on the same rows, and
+    no run of bin/train at 2 x 2 has ended whole (ROADMAP.md C.3a).
+    Processes on the CPU (gloo) run it."""
     if model_axis > 1 and world_size > 1 and device.type == "cuda":
         raise NotImplementedError(
             f"model_axis={model_axis} across {world_size} cards is not "
-            "ported yet: bin/train under it stopped in its second step on "
-            "four H100s (ROADMAP.md C.3a); it runs on CPU processes (gloo)")
+            "ported yet: its gradients on four H100s are not yet shown to "
+            "match one process's (ROADMAP.md C.3a); it runs on CPU "
+            "processes (gloo)")
 
 
 def init_distributed(device):

@@ -413,7 +413,30 @@ def conv2d_block_in(x, kernel, bias, eps: float = 1e-5, plain: bool = False):
     Differentiable in x, the kernel and the bias."""
     save = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, kernel, bias))
+    if not (save or plain) and x.device.type in ("cpu", "cuda"):
+        return conv2d_block_in_op(x, kernel, bias, float(eps))
     return Conv2dBlockFn.apply(plain, save, float(eps), x, kernel, bias)
+
+
+@torch.library.custom_op("wesep::conv2d_block_in", mutates_args=(),
+                         device_types="cpu")
+def conv2d_block_in_op(x: torch.Tensor, kernel: torch.Tensor,
+                       bias: torch.Tensor, eps: float) -> torch.Tensor:
+    """The block's forward as the operator `wesep::conv2d_block_in` (a
+    served forward's; one node under torch.export): on the CPU the plain
+    version, on CUDA tensors the kernels."""
+    return conv2d_block_in_reference(x, kernel, bias, eps,
+                                     return_stats=True)[0]
+
+
+@conv2d_block_in_op.register_kernel("cuda")
+def _conv2d_block_in_op_cuda(x, kernel, bias, eps):
+    return _forward_cuda(x, kernel, bias, eps)[0]
+
+
+@conv2d_block_in_op.register_fake
+def _conv2d_block_in_op_fake(x, kernel, bias, eps):
+    return x.new_empty(x.shape[:-1] + (kernel.shape[-1],))
 
 
 conv2d_block_in.launches = 0

@@ -399,12 +399,38 @@ class BiLSTMLayerFn(torch.autograd.Function):
                 *(dw.to(w.dtype) for dw, w in zip(dws, weights)))
 
 
+@torch.library.custom_op("wesep::bilstm_layer", mutates_args=(),
+                         device_types="cpu")
+def bilstm_layer_op(x: torch.Tensor, wx_f: torch.Tensor, b_f: torch.Tensor,
+                    wh_f: torch.Tensor, wx_b: torch.Tensor, b_b: torch.Tensor,
+                    wh_b: torch.Tensor) -> torch.Tensor:
+    """The layer's forward as the operator `wesep::bilstm_layer`, which a
+    served forward calls and torch.export keeps as one node: on the CPU
+    the plain version, on CUDA tensors the kernels (registered below)."""
+    return bilstm_layer_reference(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b)
+
+
+@bilstm_layer_op.register_kernel("cuda")
+def _bilstm_layer_op_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b):
+    return _forward_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b,
+                         with_cs=False)[0]
+
+
+@bilstm_layer_op.register_fake
+def _bilstm_layer_op_fake(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b):
+    return x.new_empty(x.shape[0], x.shape[1], 2 * wh_f.shape[0])
+
+
 def bilstm_layer(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, plain: bool = False):
     """Fused bidirectional LSTM layer -> [B, T, 2H] (argument order of
     pallas_lstm.bilstm_layer: input weight, bias, recurrent weight).
-    Differentiable in x and every weight."""
+    Differentiable in x and every weight. A forward that keeps nothing for
+    a gradient (serving) goes through `bilstm_layer_op`; on any other
+    device than the CPU or CUDA the Function raises."""
     tensors = (x, wx_f, b_f, wh_f, wx_b, b_b, wh_b)
     save = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if not (save or plain) and x.device.type in ("cpu", "cuda"):
+        return bilstm_layer_op(*tensors)
     return BiLSTMLayerFn.apply(plain, save, *tensors)
 
 

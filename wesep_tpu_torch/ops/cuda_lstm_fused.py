@@ -465,15 +465,69 @@ def _save(tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+# A served forward (nothing kept for a gradient) goes through the operators
+# `wesep::bilstm_fused` and `wesep::lstm_fused`, which torch.export keeps as
+# one node each: on the CPU the plain versions, on CUDA tensors the kernels.
+
+
+@torch.library.custom_op("wesep::bilstm_fused", mutates_args=(),
+                         device_types="cpu")
+def bilstm_fused_op(x: torch.Tensor, wx_f: torch.Tensor, b_f: torch.Tensor,
+                    wh_f: torch.Tensor, wx_b: torch.Tensor, b_b: torch.Tensor,
+                    wh_b: torch.Tensor) -> torch.Tensor:
+    """`bilstm_fused`'s forward as an operator (the plain version here)."""
+    return _layer_forward(None, _BIDIRECTIONAL, True, False, False, x,
+                          (wx_f, b_f, wh_f, wx_b, b_b, wh_b))
+
+
+@bilstm_fused_op.register_kernel("cuda")
+def _bilstm_fused_op_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b):
+    return _layer_forward(None, _BIDIRECTIONAL, False, False, False, x,
+                          (wx_f, b_f, wh_f, wx_b, b_b, wh_b))
+
+
+@bilstm_fused_op.register_fake
+def _bilstm_fused_op_fake(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b):
+    return x.new_empty(x.shape[0], x.shape[1], 2 * wh_f.shape[0])
+
+
+@torch.library.custom_op("wesep::lstm_fused", mutates_args=(),
+                         device_types="cpu")
+def lstm_fused_op(x: torch.Tensor, wx: torch.Tensor, b: torch.Tensor,
+                  wh: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """`lstm_fused`'s forward as an operator (the plain version here)."""
+    return _layer_forward(None, _UNIDIRECTIONAL, True, False, reverse, x,
+                          (wx, b, wh))
+
+
+@lstm_fused_op.register_kernel("cuda")
+def _lstm_fused_op_cuda(x, wx, b, wh, reverse):
+    return _layer_forward(None, _UNIDIRECTIONAL, False, False, reverse, x,
+                          (wx, b, wh))
+
+
+@lstm_fused_op.register_fake
+def _lstm_fused_op_fake(x, wx, b, wh, reverse):
+    return x.new_empty(x.shape[0], x.shape[1], wh.shape[0])
+
+
 def bilstm_fused(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, plain: bool = False):
     """Two-kernel bidirectional LSTM layer -> [B, T, 2H] (argument order of
-    pallas_lstm.bilstm_fused). Differentiable in x and every weight."""
+    pallas_lstm.bilstm_fused). Differentiable in x and every weight; a
+    served forward goes through `bilstm_fused_op`."""
     tensors = (x, wx_f, b_f, wh_f, wx_b, b_b, wh_b)
-    return BiLSTMFusedFn.apply(plain, _save(tensors), *tensors)
+    save = _save(tensors)
+    if not (save or plain) and x.device.type in ("cpu", "cuda"):
+        return bilstm_fused_op(*tensors)
+    return BiLSTMFusedFn.apply(plain, save, *tensors)
 
 
 def lstm_fused(x, wx, b, wh, reverse: bool = False, plain: bool = False):
     """Two-kernel unidirectional LSTM layer -> [B, T, H] (argument order of
-    pallas_lstm.lstm_fused). Differentiable in x and every weight."""
+    pallas_lstm.lstm_fused). Differentiable in x and every weight; a
+    served forward goes through `lstm_fused_op`."""
     tensors = (x, wx, b, wh)
-    return LSTMFusedFn.apply(plain, _save(tensors), bool(reverse), *tensors)
+    save = _save(tensors)
+    if not (save or plain) and x.device.type in ("cpu", "cuda"):
+        return lstm_fused_op(*tensors, bool(reverse))
+    return LSTMFusedFn.apply(plain, save, bool(reverse), *tensors)

@@ -288,7 +288,37 @@ def bilstm_layer_unfold(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ks: int,
     x and every weight."""
     tensors = (x, wx_f, b_f, wh_f, wx_b, b_b, wh_b)
     save = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if not (save or plain) and x.device.type in ("cpu", "cuda"):
+        return bilstm_layer_unfold_op(*tensors, int(ks), int(hs))
     return BiLSTMUnfoldFn.apply(plain, save, ks, hs, *tensors)
+
+
+@torch.library.custom_op("wesep::bilstm_layer_unfold", mutates_args=(),
+                         device_types="cpu")
+def bilstm_layer_unfold_op(x: torch.Tensor, wx_f: torch.Tensor,
+                           b_f: torch.Tensor, wh_f: torch.Tensor,
+                           wx_b: torch.Tensor, b_b: torch.Tensor,
+                           wh_b: torch.Tensor, ks: int, hs: int
+                           ) -> torch.Tensor:
+    """The layer's forward as the operator `wesep::bilstm_layer_unfold`
+    (a served forward's; one node under torch.export): on the CPU the
+    plain version, on CUDA tensors the kernels."""
+    return bilstm_layer_unfold_reference(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b,
+                                         ks, hs)
+
+
+@bilstm_layer_unfold_op.register_kernel("cuda")
+def _bilstm_layer_unfold_op_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ks,
+                                 hs):
+    return _forward_cuda(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ks, hs,
+                         with_cs=False)[0]
+
+
+@bilstm_layer_unfold_op.register_fake
+def _bilstm_layer_unfold_op_fake(x, wx_f, b_f, wh_f, wx_b, b_b, wh_b, ks,
+                                 hs):
+    return x.new_empty(x.shape[0], _frames(x.shape[1], ks, hs),
+                       2 * wh_f.shape[0])
 
 
 bilstm_layer_unfold.launches = 0

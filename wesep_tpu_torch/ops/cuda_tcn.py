@@ -523,8 +523,40 @@ def tcn_block_gln(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w, g1b,
     parameter."""
     tensors = (x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2, g1w, g1b)
     save = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    if not (save or plain) and x.device.type in ("cpu", "cuda"):
+        return tcn_block_gln_op(*tensors, int(dilation), int(k), bool(causal),
+                                float(eps))
     return TCNBlockFn.apply(plain, save, int(dilation), int(k), bool(causal),
                             float(eps), *tensors)
+
+
+@torch.library.custom_op("wesep::tcn_block_gln", mutates_args=(),
+                         device_types="cpu")
+def tcn_block_gln_op(x: torch.Tensor, b1_eff: torch.Tensor, w1: torch.Tensor,
+                     p0: torch.Tensor, kd: torch.Tensor, bd: torch.Tensor,
+                     g0w: torch.Tensor, g0b: torch.Tensor, p1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor, g1w: torch.Tensor,
+                     g1b: torch.Tensor, dilation: int, k: int, causal: bool,
+                     eps: float) -> torch.Tensor:
+    """The block's forward as the operator `wesep::tcn_block_gln` (a served
+    forward's; one node under torch.export): on the CPU the plain version,
+    on CUDA tensors the kernels."""
+    return tcn_block_gln_reference(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1,
+                                   w2, b2, g1w, g1b, dilation, k, causal,
+                                   eps, return_stats=True)[0]
+
+
+@tcn_block_gln_op.register_kernel("cuda")
+def _tcn_block_gln_op_cuda(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2,
+                           g1w, g1b, dilation, k, causal, eps):
+    return _forward_cuda(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2,
+                         g1w, g1b, dilation, k, causal, eps)[0]
+
+
+@tcn_block_gln_op.register_fake
+def _tcn_block_gln_op_fake(x, b1_eff, w1, p0, kd, bd, g0w, g0b, p1, w2, b2,
+                           g1w, g1b, dilation, k, causal, eps):
+    return torch.empty_like(x)
 
 
 tcn_block_gln.launches = 0

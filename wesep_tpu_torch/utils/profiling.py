@@ -1,10 +1,52 @@
-"""Throughput counters for train loops (the ThroughputMeter of
-wesep_tpu/utils/profiling.py; tracing is not ported)."""
+"""Tracing, device memory and throughput counters.
 
+Counterpart of wesep_tpu/utils/profiling.py:
+
+  * `trace(logdir)`: a context manager around torch.profiler (the host's
+    operators, and the card's kernels where there is one) that writes a
+    Chrome trace (chrome://tracing, Perfetto) into `logdir`;
+  * `device_memory_stats()`: each card's allocator counters
+    (torch.cuda.memory_stats);
+  * `ThroughputMeter`: audio-seconds per second of a train loop.
+"""
+
+import contextlib
+import os
 import time
 from typing import Optional
 
-__all__ = ["ThroughputMeter"]
+__all__ = ["trace", "ThroughputMeter", "device_memory_stats"]
+
+
+@contextlib.contextmanager
+def trace(logdir: str, record_shapes: bool = False):
+    """Profile the enclosed block; yields the path of the Chrome trace,
+    written there when the block ends."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    path = os.path.join(logdir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    with profile(activities=activities, record_shapes=record_shapes) as prof:
+        yield path
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+
+
+def device_memory_stats():
+    """{"cuda:i": the allocator's counters (bytes in use, peak, reserved,
+    ...) from torch.cuda.memory_stats} for every visible card; {} without
+    one."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return {}
+    return {f"cuda:{i}": torch.cuda.memory_stats(i)
+            for i in range(torch.cuda.device_count())}
 
 
 class ThroughputMeter:

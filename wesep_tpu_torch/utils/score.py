@@ -1,15 +1,17 @@
-"""SI-SNR, SI-SNRi and normalised PESQ in numpy (as wesep_tpu/utils/score.py).
+"""SI-SNR, SI-SNRi, SNR, normalised PESQ and batch evaluation in numpy (as
+wesep_tpu/utils/score.py).
 
 `cal_PESQ` uses the ITU `pesq` package where it is installed; otherwise the
 in-repo P.862 model (ops/pesq.py) scores the pair on the CPU after a crude
 envelope cross-correlation alignment. Silent inputs give None.
 """
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["cal_SISNR", "cal_SISNRi", "cal_PESQ", "cal_PESQ_norm"]
+__all__ = ["cal_SISNR", "cal_SISNRi", "cal_SNR", "cal_PESQ", "cal_PESQ_norm",
+           "batch_evaluation"]
 
 EPS = 1e-8
 
@@ -32,6 +34,15 @@ def cal_SISNRi(est: np.ndarray, ref: np.ndarray, mix: np.ndarray):
     """(SI-SNR, SI-SNR improvement over the mixture)."""
     sisnr = cal_SISNR(est, ref)
     return sisnr, sisnr - cal_SISNR(mix, ref)
+
+
+def cal_SNR(est: np.ndarray, ref: np.ndarray) -> float:
+    """SNR of the estimate against the reference in dB."""
+    est = np.asarray(est, np.float64).reshape(-1)
+    ref = np.asarray(ref, np.float64).reshape(-1)
+    return float(
+        10 * np.log10((ref**2).sum() / (((ref - est) ** 2).sum() + EPS) + EPS)
+    )
 
 
 def cal_PESQ(est: np.ndarray, ref: np.ndarray, fs: int = 16000
@@ -91,3 +102,17 @@ def cal_PESQ_norm(est: np.ndarray, ref: np.ndarray, fs: int = 16000
     """PESQ mapped to (0, 1): (pesq + 0.5) / 5, or None."""
     p = cal_PESQ(est, ref, fs)
     return None if p is None else (p + 0.5) / 5.0
+
+
+def batch_evaluation(metric, ests: List, refs: List, n_jobs: int = 1):
+    """metric(est, ref) over the pairs; with n_jobs > 1 through joblib
+    where it is installed, else one after another."""
+    if n_jobs > 1:
+        try:
+            from joblib import Parallel, delayed
+        except ImportError:
+            Parallel = None
+        if Parallel is not None:
+            return Parallel(n_jobs=n_jobs)(
+                delayed(metric)(e, r) for e, r in zip(ests, refs))
+    return [metric(e, r) for e, r in zip(ests, refs)]
