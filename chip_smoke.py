@@ -256,7 +256,12 @@ pass):
    on the same rows, at the CPU tests' limits, each rank's BiLSTMs on half
    the folded rows (12 f32 forwards and 12 of each backward kernel a
    step), the one process run twice against itself beside them, and
-   bin/train's refusal of the model axis across cards (ROADMAP.md C.3a).
+   bin/train's refusal of the model axis across cards (ROADMAP.md C.3a);
+   (e) TF-GridNet's first f32 gradient in one process (the grid step of
+   (d) without a mesh, 4 rows x 1 s) taken twice under cuDNN's
+   deterministic algorithms, scoped to the step and restored: bit for bit
+   equal (ROADMAP.md C.3b; without them the gradient moves by up to 6e-4
+   rel. L2 from run to run, tools/grid_repeat.py).
 19. The v1 recipe's stages without JAX: extract_embed (a seeded ResNet34)
    over 10 enrollments, make_shard_list_premix, bin/infer of the v1
    pBSRNN on the 10 requests (60 f32 K0 chains and projections), bin/score
@@ -269,6 +274,14 @@ pass):
    and is timed beside it; runtime_host on the export dir and the model
    dir equal to the eager forward; profiling.trace of one exported call
    holding the K0 kernels.
+20. tools/validate_synthetic's battery (wesep_tpu_torch.tools.
+   validate_synthetic: FLOORS at SMALL, the JAX package's floors of
+   tests/test_quality_floors.py) through the port's run() on the card, after
+   this process's cached blocks are released: BSRNN 3 epochs, DPCCN 3,
+   ConvTasNet 16, TF-GridNet 10, online mixing 5 and the GAN 4 (bf16 train
+   steps, f32 validation and bin/infer), one line a row with its SI-SNRi,
+   floor, margin, epochs, train steps, wall time, peak memory and the
+   kernels it launched; a row under its floor fails the phase.
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
@@ -307,11 +320,15 @@ runs phases 1 and 2 and phase 17, and prints no final line.
 
     python3 chip_smoke.py --only-phase18
 
-runs phases 1 and 2 and phase 18 (a), (b), and prints no final line.
+runs phases 1 and 2 and phase 18 (a), (b), (e), and prints no final line.
 
     python3 chip_smoke.py --only-phase19
 
 runs phases 1 and 2 and phase 19, and prints no final line.
+
+    python3 chip_smoke.py --only-phase20
+
+runs phases 1 and 2 and phase 20, and prints no final line.
 
     python3 chip_smoke.py --only-ddp
 
@@ -341,6 +358,12 @@ TRAIN_SHAPES = {"band": (376, 512), "comm": (32, 6016)}  # at 16 rows x 3 s
 TRAIN_BATCH = 8     # mixtures per step; the collator makes 2 rows of each
 TRAIN_STEPS = 4     # epoch_iter of the training run
 CHUNK = 48000       # 3 s
+# the training runs' shuffle buffer: bin/train fills it twice as it starts
+# (the one-batch draw of the JAX package's init, then the first epoch), and
+# the recipes' 2500 samples would read and decode 2500 utterances each time
+SHUFFLE_ARGS = {"shuffle_size": 64}
+SHUFFLE_OVERRIDE = ("dataset_args.shuffle_args.shuffle_size="
+                    f"{SHUFFLE_ARGS['shuffle_size']}")  # for a recipe conf
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM
 PEAK_BYTES = 3.35e12
 V1_MODEL_ARGS = dict(sr=16000, win=512, stride=128, feature_dim=128,
@@ -2408,7 +2431,7 @@ def train_phase(root, route="layer"):
         "dataset_args": {"resample_rate": 16000,
                          "sample_num_per_epoch": TRAIN_STEPS * TRAIN_BATCH,
                          "shuffle": True,
-                         "shuffle_args": {"shuffle_size": 2500},
+                         "shuffle_args": SHUFFLE_ARGS,
                          "chunk_len": CHUNK, "speaker_feat": False},
         "compute_dtype": "bfloat16", "log_batch_interval": 1,
         "loss": "SISDR", "loss_args": {},
@@ -3117,7 +3140,7 @@ def train_spex(root):
                          "sample_num_per_epoch":
                              SPEX_TRAIN_STEPS * TRAIN_BATCH,
                          "shuffle": True,
-                         "shuffle_args": {"shuffle_size": 2500},
+                         "shuffle_args": SHUFFLE_ARGS,
                          "chunk_len": CHUNK, "speaker_feat": False,
                          "enroll_sec": ENROLL_SECONDS},
         "compute_dtype": "bfloat16", "log_batch_interval": 1,
@@ -3697,7 +3720,7 @@ def train_tfgridnet(root):
                          "sample_num_per_epoch":
                              GRID_TRAIN_STEPS * GRID_BATCH,
                          "shuffle": True,
-                         "shuffle_args": {"shuffle_size": 2500},
+                         "shuffle_args": SHUFFLE_ARGS,
                          "chunk_len": GRID_CHUNK, "speaker_feat": False},
         "compute_dtype": "bfloat16", "log_batch_interval": 1,
         "loss": "SISDR", "loss_args": {},
@@ -4217,7 +4240,7 @@ def train_dpccn(root):
                          "sample_num_per_epoch":
                              DPCCN_TRAIN_STEPS * DPCCN_BATCH,
                          "shuffle": True,
-                         "shuffle_args": {"shuffle_size": 2500},
+                         "shuffle_args": SHUFFLE_ARGS,
                          "chunk_len": CHUNK, "speaker_feat": False},
         "compute_dtype": "bfloat16", "log_batch_interval": 1,
         "loss": "SISDR", "loss_args": {},
@@ -4526,7 +4549,7 @@ def v2_dataset_args(steps):
     """dataset_args of the v2 confs; an epoch of `steps` batches."""
     return {"resample_rate": 16000, "sample_num_per_epoch":
             steps * TRAIN_BATCH, "shuffle": True,
-            "shuffle_args": {"shuffle_size": 2500}, "chunk_len": CHUNK,
+            "shuffle_args": SHUFFLE_ARGS, "chunk_len": CHUNK,
             "speaker_feat": True, "enroll_sec": ENROLL_SECONDS,
             "fbank_args": dict(V2_FBANK), "noise_prob": 0,
             "specaug_enroll_prob": 0, "reverb_enroll_prob": 0,
@@ -5260,7 +5283,8 @@ def gan_overrides(exp_dir, tr, va, steps, epochs=1):
             f"val_spk1_enroll={va['spk1_enroll']}",
             f"val_spk2_enroll={va['spk2_enroll']}",
             f"num_epochs={epochs}", "log_batch_interval=1",
-            f"dataset_args.sample_num_per_epoch={steps * GAN_BATCH}"]
+            f"dataset_args.sample_num_per_epoch={steps * GAN_BATCH}",
+            SHUFFLE_OVERRIDE]
 
 
 class FirstStates:
@@ -5743,7 +5767,8 @@ def train_bsrnn_multi(root):
         f"val_spk1_enroll={va['spk1_enroll']}",
         f"val_spk2_enroll={va['spk2_enroll']}", "num_epochs=1",
         "log_batch_interval=1", f"dataloader_args.batch_size={MULTI_BATCH}",
-        f"dataset_args.sample_num_per_epoch={MULTI_STEPS * MULTI_BATCH}"]
+        f"dataset_args.sample_num_per_epoch={MULTI_STEPS * MULTI_BATCH}",
+        SHUFFLE_OVERRIDE]
     val_steps = 1
     zero_counts()
     t0 = time.perf_counter()
@@ -6164,7 +6189,8 @@ def train_bsrnn_feats(root):
         "num_avg=1", "log_batch_interval=1",
         f"model_init.tse_model={init_path}",
         f"dataloader_args.batch_size={FEATS_BATCH}",
-        f"dataset_args.sample_num_per_epoch={FEATS_STEPS * FEATS_BATCH}"]
+        f"dataset_args.sample_num_per_epoch={FEATS_STEPS * FEATS_BATCH}",
+        SHUFFLE_OVERRIDE]
     per_pass = 2 * conf["model_args"]["tse_model"]["num_repeat"]
     val_steps = 1
     zero_counts()
@@ -6354,7 +6380,7 @@ def check_ddp_one_process(root):
             "dataset_args": {"resample_rate": 16000,
                              "sample_num_per_epoch": DDP_STEPS * TRAIN_BATCH,
                              "shuffle": True,
-                             "shuffle_args": {"shuffle_size": 2500},
+                             "shuffle_args": SHUFFLE_ARGS,
                              "chunk_len": CHUNK, "speaker_feat": False},
             "compute_dtype": "bfloat16", "log_batch_interval": 1,
             "loss": "SISDR", "loss_args": {},
@@ -6667,7 +6693,7 @@ def check_ddp_across_cards(world):
             "num_avg=1", "log_batch_interval=1",
             f"dataloader_args.batch_size={FEATS_BATCH}",
             "dataset_args.sample_num_per_epoch="
-            f"{FEATS_STEPS * FEATS_BATCH * world}"]
+            f"{FEATS_STEPS * FEATS_BATCH * world}", SHUFFLE_OVERRIDE]
         t0 = time.perf_counter()
         runs = run_ranks(world, root, "bin_train", overrides)
         bin_wall = time.perf_counter() - t0
@@ -6853,18 +6879,22 @@ def gan_errors_ok(errs):
     return all(ok(i, e) for i, e in enumerate(errs))
 
 
-def grid_card_steps(world, rank=None):
-    """GRID_CARD_STEPS f32 train steps (TF32 off) of tfgridnet.yaml's
-    TF-GridNet at full width through make_train_step, on a seeded batch of
-    GRID_CARD_ROWS rows of 1 s: in one process on all of them, or as
-    `rank` of a (world / GRID_CARD_AXIS) x GRID_CARD_AXIS grid on its data
-    rank's share, with shard_model_axis -> {"steps": for each step (loss,
-    gradient, parameters, {} statistics), "init", the LSTM launches of the
-    first step, the folded rows its first intra and inter BiLSTMs saw,
+def grid_card_steps(world, rank=None, steps=GRID_CARD_STEPS):
+    """`steps` f32 train steps (TF32 off) of tfgridnet.yaml's TF-GridNet at
+    full width through make_train_step, under cuDNN's deterministic
+    algorithms (ROADMAP.md C.3b), on a seeded batch of GRID_CARD_ROWS rows
+    of 1 s: in one process on all of them, or as `rank` of a (world /
+    GRID_CARD_AXIS) x GRID_CARD_AXIS grid on its data rank's share, with
+    shard_model_axis -> {"steps": for each step (loss, gradient,
+    parameters, {} statistics), "init", the LSTM launches of the first
+    step, the folded rows its first intra and inter BiLSTMs saw,
     "last_step_ms", "peak_bytes"}."""
     from wesep_tpu_torch.models.tfgridnet import TFGridNet
     from wesep_tpu_torch.train.losses import parse_loss
-    from wesep_tpu_torch.train.mesh import make_mesh
+    from wesep_tpu_torch.train.mesh import (
+        deterministic_convolutions,
+        make_mesh,
+    )
     from wesep_tpu_torch.train.schedulers import exponential_decrease
     from wesep_tpu_torch.train.trainer import (
         TrainState,
@@ -6905,11 +6935,12 @@ def grid_card_steps(world, rank=None):
     init = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
     out, launches = [], None
     torch.cuda.reset_peak_memory_stats()
-    for i in range(GRID_CARD_STEPS):
+    for i in range(steps):
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, metrics = step(state, batch)
+        with deterministic_convolutions():
+            state, metrics = step(state, batch)
         loss = float(metrics["loss"])
         ms = (time.perf_counter() - t0) * 1e3
         if i == 0:
@@ -6923,6 +6954,29 @@ def grid_card_steps(world, rank=None):
                                                mesh.model_rank),
             "last_step_ms": ms,
             "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def check_grid_repeat():
+    """C.3b on one card: TF-GridNet's first f32 gradient in one process
+    (grid_card_steps, cuDNN's deterministic algorithms) taken twice from
+    the same seed, bit for bit equal, its loss too; the two runs' worst
+    leaf is printed beside it, and the step's time -> summary."""
+    runs = [grid_card_steps(1, steps=1) for _ in range(2)]
+    (loss_a, grads_a, _, _), (loss_b, grads_b, _, _) = (
+        r["steps"][0] for r in runs)
+    equal = loss_a == loss_b and all(torch.equal(g, grads_b[n])
+                                     for n, g in grads_a.items())
+    leaf = grid_leaf_errors(grads_b, grads_a)
+    summary = {"loss": loss_a, "bit_for_bit": equal,
+               "worst_leaf": leaf["leaf_worst_at"],
+               "leaf_rel_l2": leaf["leaf_rel_l2"],
+               "step_ms": [r["last_step_ms"] for r in runs]}
+    log(f"C.3b: TF-GridNet's first f32 gradient in one process, twice "
+        f"under cuDNN's deterministic algorithms: {json.dumps(summary)}")
+    if not equal:
+        raise AssertionError("C.3b: the first gradient does not repeat bit "
+                             "for bit")
+    return summary
 
 
 def grid_leaf_errors(got, want):
@@ -7848,7 +7902,7 @@ def check_jax_bundles(root):
             "dataset_args": {"resample_rate": 16000,
                              "sample_num_per_epoch": TRAIN_BATCH,
                              "shuffle": True,
-                             "shuffle_args": {"shuffle_size": 2500},
+                             "shuffle_args": SHUFFLE_ARGS,
                              "chunk_len": CHUNK, "speaker_feat": False},
             "compute_dtype": "bfloat16", "log_batch_interval": 1,
             "loss": "SISDR", "loss_args": {},
@@ -7933,20 +7987,24 @@ def check_jax_bundles(root):
 def phase18():
     """Phase 18 whole: (a) bin/train_gan under WESEP_DIST in one NCCL
     process against the plain run, (b) the JAX package's bundles through
-    bin/infer, bin/train's resume and bin/average_model; -> (launches by
-    path, summary)."""
+    bin/infer, bin/train's resume and bin/average_model, (e) TF-GridNet's
+    first f32 gradient in one process twice, bit for bit (C.3b); ->
+    (launches by path, summary)."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         gan_launches, gan = check_gan_dist_one_process(root)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         bundle_launches, bundles = check_jax_bundles(root)
+    grid_repeat = check_grid_repeat()
     log("phase 18 summary", json.dumps({"gan_dist": gan,
-                                        "jax_bundles": bundles}))
+                                        "jax_bundles": bundles,
+                                        "grid_repeat": grid_repeat}))
     log(f"phase 18 in {time.perf_counter() - t0:.1f} s")
     return {"gan_dist_one_process": gan_launches,
             "jax_bundle_serve": bundle_launches["serve"],
             "jax_bundle_train": bundle_launches["train"]}, {
-        "gan_dist": gan, "jax_bundles": bundles}
+        "gan_dist": gan, "jax_bundles": bundles,
+        "grid_repeat": grid_repeat}
 
 
 # Phase 19: the v1 recipe's stages without JAX (extract_embed,
@@ -8352,6 +8410,81 @@ def phase19_only() -> int:
     return 0
 
 
+def kernel_counters():
+    """Every wrapper's counter: the LSTM routes', K4/K4b's and K5/K5b's."""
+    from wesep_tpu_torch.ops import cuda_tcn
+
+    counters = dict(lstm_counters(), **conv_counters())
+    counters.update(tcn_block_gln=cuda_tcn.tcn_block_gln,
+                    tcn_block_gln_backward=cuda_tcn.tcn_block_gln_backward)
+    return counters
+
+
+def phase20():
+    """Phase 20: tools/validate_synthetic's battery (its FLOORS, each at
+    SMALL) through the port's run() on the card: one line a row with its
+    SI-SNRi beside its floor, the epochs, train steps, wall time, peak
+    memory and the kernels it launched; raises if a row falls under its
+    floor, after every row ran -> (launches by row, summary)."""
+    from wesep_tpu_torch.tools.validate_synthetic import FLOORS, SMALL, run
+    from wesep_tpu_torch.train.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    # earlier phases leave tens of GiB of cached blocks on the card
+    held = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    log(f"phase 20: released {held / 2 ** 30:.2f} GiB of cached blocks")
+    set_route(False)  # the default LSTM route, as a user's run takes it
+    counters = kernel_counters()
+    rows, launches, low = [], {}, []
+    for name, kwargs, floor in FLOORS:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+            sisnri = run(root, **SMALL, **kwargs)
+            steps = load_checkpoint(os.path.join(
+                root, "exp/models/final_checkpoint.ckpt"))["step"]
+        torch.cuda.synchronize()
+        row = {"name": name, "si_snri": sisnri, "floor": floor,
+               "margin": sisnri - floor, "epochs": kwargs["num_epochs"],
+               "train_steps": steps, "wall_s": time.perf_counter() - t0,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "launches": {n: fn.launches for n, fn in counters.items()
+                            if fn.launches}}
+        launches[f"synthetic_{name}"] = row["launches"]
+        rows.append(row)
+        log(f"phase 20 {name}: SI-SNRi {sisnri:.3f} dB, floor {floor}, "
+            f"margin {row['margin']:+.3f}; {row['epochs']} epochs, "
+            f"{steps} train steps, {row['wall_s']:.1f} s wall, peak "
+            f"{row['peak_gib']:.3f} GiB; launches "
+            f"{json.dumps(row['launches'])}")
+        if not (math.isfinite(sisnri) and sisnri >= floor):
+            low.append(name)
+    summary = {"rows": rows, "wall_s": time.perf_counter() - t_phase}
+    log("phase 20 summary", json.dumps(summary))
+    log(f"phase 20 in {summary['wall_s']:.1f} s")
+    if low:
+        raise AssertionError(f"phase 20: {low} under their floors")
+    return launches, summary
+
+
+def phase20_only() -> int:
+    """`--only-phase20`: phases 1 and 2 and phase 20; no final line."""
+    from wesep_tpu_torch.ops import _build
+
+    log(card_line())
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build in {time.perf_counter() - t0:.2f} s")
+    launches, _ = phase20()
+    log("phase 20 launches", json.dumps(launches))
+    log(f"wall {time.perf_counter() - t0:.1f} s")
+    log(card_line())
+    return 0
+
+
 def phase18_only() -> int:
     """`--only-phase18`: phases 1 and 2 and phase 18; no final line."""
     from wesep_tpu_torch.ops import _build
@@ -8532,6 +8665,8 @@ def main() -> int:
         return phase18_only()
     if sys.argv[1:] == ["--only-phase19"]:
         return phase19_only()
+    if sys.argv[1:] == ["--only-phase20"]:
+        return phase20_only()
 
     # 1. device
     card = card_line()
@@ -8845,6 +8980,10 @@ def main() -> int:
     # extractor, bin/export and runtime_host, the profiler's trace
     phase19_launches, _ = phase19()
 
+    lap("19 recipe stages, checkpoints, extractor, export")
+    # 20. tools/validate_synthetic's battery: the six convergence floors
+    phase20_launches, _ = phase20()
+
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
     # training bf16); the routes' own FMA forward kernels, which f32 runs
@@ -9016,7 +9155,8 @@ def main() -> int:
         if n in by_path})
     for path, counts in list(phase15_launches.items()) + list(
             phase16_launches.items()) + list(phase17_launches.items()) + list(
-            phase18_launches.items()) + list(phase19_launches.items()):
+            phase18_launches.items()) + list(phase19_launches.items()) + list(
+            phase20_launches.items()):
         add_path(path, counts)
     # the main path of a kernel: its training path; for the f32 cluster
     # forward, serving (phase 4); for the routes' own FMA forward kernels,
@@ -9157,7 +9297,7 @@ def main() -> int:
                      B=c["B"], D=c["D"], H=c["H"], rel_limit=c["rel_limit"])
                 for c in train_cases]
         kernels.append(entry)
-    lap("19 recipe stages, checkpoints, extractor, export, the kernel line")
+    lap("20 synthetic battery, the kernel line")
     log("chip_smoke: wall s by phase", json.dumps(laps))
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -132,3 +132,11 @@ def test_the_recipe_stage_checkpoint_and_serving_modules_are_checked():
                    "cli/hub.py", "cli/extractor.py", "runtime_host.py",
                    "bin/export.py", "utils/profiling.py"):
         assert os.path.join("wesep_tpu_torch", module) in names, module
+
+
+def test_the_synthetic_validation_module_is_checked():
+    """tools/validate_synthetic, the synthetic battery's entry point, is
+    among the files checked."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    assert os.path.join("wesep_tpu_torch", "tools",
+                        "validate_synthetic.py") in names

@@ -121,11 +121,13 @@ def default_enroll_len(dataset_args, joint_training):
     return enroll_len
 
 
-def build_model(configs):
-    """The configured TSE model -> (model, model args); under `model_axis`
-    > 1 a model that can shard over it does unless the config says
-    `shard_model_axis: false`."""
+def build_model(configs, device=None):
+    """The configured TSE model, with the JAX package's initial weights at
+    the config's seed (drawn on `device` when it is a card) -> (model,
+    model args); under `model_axis` > 1 a model that can shard over it
+    does unless the config says `shard_model_axis: false`."""
     from wesep_tpu_torch.models import get_model
+    from wesep_tpu_torch.utils.jax_init import init_like_jax, jax_scope_names
 
     model_cls = get_model(configs["model"]["tse_model"])
     model_args = dict(configs["model_args"]["tse_model"])
@@ -133,7 +135,10 @@ def build_model(configs):
     if int(configs.get("model_axis", 1)) > 1 and hasattr(
             model_cls, "set_model_group"):
         model_args.setdefault("shard_model_axis", True)
-    return model_cls(**model_args), model_args
+    model = model_cls(**model_args)
+    init_like_jax(model, configs.get("seed", 42), jax_scope_names(model),
+                  device)
+    return model, model_args
 
 
 def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
@@ -211,6 +216,12 @@ def build_loaders(configs, tr_spk2embed_dict, dict_spk, n_train_utts,
         val_dataset, batch_size=batch_size, collate_fn=val_collate,
         drop_last=True, prefetch=2,
     )
+    # the JAX package draws one batch here for its init shapes, which moves
+    # Python's random: the same draw keeps the port's batches the JAX
+    # package's at the same seed
+    train_loader.set_epoch(0)
+    next(iter(BatchLoader(train_dataset, batch_size=batch_size,
+                          collate_fn=collate, prefetch=0)))
     sample_num = dataset_args.get("sample_num_per_epoch", 0) or (
         n_train_utts // 2)
     epoch_iter = max(sample_num // world_size // batch_size, 1)
@@ -395,7 +406,10 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
         split_state,
     )
     from wesep_tpu_torch.train.executor import Executor
-    from wesep_tpu_torch.train.mesh import make_mesh
+    from wesep_tpu_torch.train.mesh import (
+        deterministic_convolutions,
+        make_mesh,
+    )
     from wesep_tpu_torch.train.schedulers import get_scheduler
     from wesep_tpu_torch.train.trainer import (
         TrainState,
@@ -421,6 +435,11 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     model_args = configs["model_args"]["tse_model"]
     joint_training = model_args.get("joint_training", False)
     multi_task = model_args.get("multi_task", False)
+    # the model first: building it draws nothing from Python's random, and
+    # a model the config cannot build raises before any data is read
+    model, model_args = build_model(configs, device)
+    check_model_axis(model, configs["model"]["tse_model"], model_axis,
+                     logger, rank)
     enroll_maps = load_enroll_maps(configs, joint_training, multi_task)
     train_loader, val_loader, epoch_iter, val_iter = build_loaders(
         configs, *enroll_maps, rank=data_rank, world_size=data_world)
@@ -431,9 +450,6 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     logger.info("val iteration number: %d", val_iter)
 
     # model / optimizer / scheduler
-    model, model_args = build_model(configs)
-    check_model_axis(model, configs["model"]["tse_model"], model_axis,
-                     logger, rank)
     model = model.to(device)
     if mesh is not None:
         mesh.attach(model)
@@ -503,7 +519,10 @@ def train(config, checkpoint=None, overrides=None, **kwargs):
     executor = Executor()
     log_interval = configs.get("log_batch_interval", 100)
     logger.info(table_row(("Train/Val", "Epoch", "iter", "Loss", "rate")))
-    with sigterm_stop() as stop_requested:
+    # the grid's steps take cuDNN's deterministic algorithms (C.3b)
+    exact = deterministic_convolutions() if mesh is not None \
+        else contextlib.nullcontext()
+    with sigterm_stop() as stop_requested, exact:
         for epoch in range(start_epoch, configs["num_epochs"] + 1):
             train_loader.set_epoch(epoch)
             state, train_loss = executor.train(

@@ -102,7 +102,7 @@ def train_gan(config, checkpoint=None, overrides=None, **kwargs):
     logger.info("val iteration number: %d", val_iter)
 
     # generator + discriminator, each with its own schedule and optimizer
-    gen = build_model(configs)[0].to(device)
+    gen = build_model(configs, device)[0].to(device)
     disc_name = configs["model"].get("discriminator", "CMGAN_Discriminator")
     disc_args = configs.get("model_args", {}).get("discriminator") or {}
     disc = get_model(disc_name)(**disc_args).to(device)

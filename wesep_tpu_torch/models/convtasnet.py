@@ -55,6 +55,7 @@ class ConvTranspose1d(nn.Module):
         bound = fan_in ** -0.5
         for p in held.parameters():
             nn.init.uniform_(p, -bound, bound)
+            p.jax_init = ("uniform", bound)
         self.ConvTranspose_0 = held
 
     def forward(self, x):
@@ -298,9 +299,10 @@ class ConvTasNet(nn.Module):
 
     `remat`, `fuse_gln` and `pallas_tcn` steer how the JAX package computes
     the TCN blocks (rematerialisation, an algebraic rewrite, its kernel) and
-    change no result; they are accepted and ignored here: a fused block
+    change no result; they are accepted and ignored here (a fused block
     already saves only its input and four statistics per sample for the
-    backward."""
+    backward), but for `remat`'s block names, which the JAX package's
+    initial weights are drawn under (utils/jax_init.py)."""
 
     def __init__(self, N: int = 256, L: int = 20, B: int = 256, H: int = 512,
                  P: int = 3, X: int = 8, R: int = 4, spk_emb_dim: int = 256,
@@ -325,7 +327,7 @@ class ConvTasNet(nn.Module):
         self.encoder_type, self.decoder_type = encoder_type, decoder_type
         self.joint_training, self.multi_task = joint_training, multi_task
         self.multi_fuse, self.spk_fuse_type = multi_fuse, spk_fuse_type
-        self.norm, self.R = norm, R
+        self.norm, self.R, self.remat = norm, R, remat
         stride = L // 2
 
         if encoder_type == "Multi":

@@ -22,15 +22,36 @@ into that share. The mean over all N ranks that the train step takes
 after the backward (train/trainer.py) then gives M / N = 1 / (N / M)
 times the sum of the data groups' gradients: the data-parallel mean, for
 sharded and redundant parameters alike.
+
+Convolutions: cuDNN's default backward algorithms for TF-GridNet's
+convolutions sum in an order that changes from call to call, so one
+process's first f32 gradient of the same step differs from itself by up to
+6e-4 rel. L2 on the card; the grid steps run under
+`deterministic_convolutions` (ROADMAP.md C.3b).
 """
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
 
 import torch
 
-__all__ = ["Mesh", "make_mesh", "shard_rows", "gather_rows"]
+__all__ = ["Mesh", "make_mesh", "shard_rows", "gather_rows",
+           "deterministic_convolutions"]
+
+
+@contextlib.contextmanager
+def deterministic_convolutions():
+    """cuDNN's deterministic algorithms, benchmark off, inside the block;
+    both flags restored after it."""
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
 
 
 @dataclasses.dataclass(frozen=True)
