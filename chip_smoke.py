@@ -336,6 +336,7 @@ runs phases 1 and 2 and phase 20, and prints no final line.
 and prints no final line.
 """
 
+import contextlib
 import io
 import json
 import math
@@ -5192,6 +5193,7 @@ def check_discriminator():
         CMGANDiscriminator,
         SpectralNormed,
     )
+    from wesep_tpu_torch.utils import jax_init
 
     torch.manual_seed(SEED)
     cpu_d = CMGANDiscriminator()
@@ -5203,7 +5205,7 @@ def check_discriminator():
     rows = 2 * GAN_BATCH
     ref = voices(rows, CHUNK, gen)
     est = ref + 0.05 * torch.randn(rows, CHUNK, generator=gen)
-    mask = cpu_d.dropout_mask(rows, torch.Generator().manual_seed(3), "cpu")
+    mask = cpu_d.dropout_mask(rows, jax_init.seed_key(3), "cpu")
     u0 = {n: m.u.clone() for n, m in cpu_d.named_modules()
           if isinstance(m, SpectralNormed)}
     res = []
@@ -6525,7 +6527,7 @@ def ddp_card_rank(rank, world, port, out_dir, task, overrides=None,
                   limit=210):
     """One process of the across-cards checks, on card `rank`: "steps",
     "gan_steps" and "grid_steps" join an NCCL group of `world` and run
-    ddp_card_steps, gan_card_steps or grid_card_steps; "bin_train" runs
+    ddp_card_steps, gan_card_steps or grid_rank_steps; "bin_train" runs
     bin/train on bsrnn_feats.yaml under WESEP_DIST=1, which joins it
     itself. Writes its result to `out_dir`/{task}{rank}.pt. A rank still
     running `limit` s after its start prints every thread's stack and exits
@@ -6541,7 +6543,7 @@ def ddp_card_rank(rank, world, port, out_dir, task, overrides=None,
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(rank)
     steps = {"steps": ddp_card_steps, "gan_steps": gan_card_steps,
-             "grid_steps": grid_card_steps}
+             "grid_steps": grid_rank_steps}
     try:
         if task in steps:
             dist.init_process_group(
@@ -6747,14 +6749,19 @@ GAN_CARD_FIRST_GRAD = 2e-5
 GRID_CARD_ROWS, GRID_CARD_STEPS, GRID_CARD_AXIS = 4, 2, 2
 # TF-GridNet's first gradient is held to the CPU test's limit, DDP_CARD_
 # LIMITS' 1e-5 rel. L2 over the whole gradient (tests/test_torch_model_axis
-# .py): four cards measured 7.8e-6 once the step all-reduced the gradients
-# after the backward (6.5e-4 and 1.15e-4 while DDP's bucket all-reduces ran
-# beside the gathers'); each parameter's worst rel. L2 and the
+# .py), against the per-share reference in one process: each data rank's
+# rows in turn, each block's sharded branches on each model rank's share in
+# turn, so that every convolution sees the rows it sees on a rank and cuDNN
+# picks the same deterministic algorithm (against one process on all the
+# rows four cards measured 1.168e-4: the f32 step itself sits 1.17e-4 from
+# f64, ROADMAP.md C.3b). Each parameter's worst rel. L2 and the
 # GRID_NOISE_ONLY leaves (their error against the whole gradient's norm,
 # within GRID_CARD_NOISE) are printed beside it. The second step starts
 # from weights whose eps-divided elements moved apart, so its loss (1e-4),
-# not its gradient, is held
+# not its gradient, is held. A planted fault, data rank 1's loss times
+# GRID_FAULT_SCALE, must fail the first-gradient limit
 GRID_CARD_NOISE = 1e-5
+GRID_FAULT_SCALE = 1 + 1e-4
 
 
 def card_batch(rows, samples, emb, gen):
@@ -6879,15 +6886,25 @@ def gan_errors_ok(errs):
     return all(ok(i, e) for i, e in enumerate(errs))
 
 
-def grid_card_steps(world, rank=None, steps=GRID_CARD_STEPS):
+def grid_card_steps(world, rank=None, steps=GRID_CARD_STEPS, shares=None,
+                    dtype=torch.float32, loss_scale=None, mesh=None):
     """`steps` f32 train steps (TF32 off) of tfgridnet.yaml's TF-GridNet at
     full width through make_train_step, under cuDNN's deterministic
     algorithms (ROADMAP.md C.3b), on a seeded batch of GRID_CARD_ROWS rows
     of 1 s: in one process on all of them, or as `rank` of a (world /
-    GRID_CARD_AXIS) x GRID_CARD_AXIS grid on its data rank's share, with
-    shard_model_axis -> {"steps": for each step (loss, gradient,
-    parameters, {} statistics), "init", the LSTM launches of the first
-    step, the folded rows its first intra and inter BiLSTMs saw,
+    GRID_CARD_AXIS) x GRID_CARD_AXIS grid (`mesh`, made here if None) on
+    its data rank's share, with shard_model_axis. In one process,
+    `shares` = (data shares, model shares) takes each step on each data
+    rank's share of the rows in turn (make_train_step's accum_steps: the
+    shares' gradients summed and averaged, as the grid's all-reduced mean
+    over the ranks combines them; its loss the shares' mean, as the
+    grid's) with each block's sharded branches run on each model rank's
+    share in turn (TFGridNet.set_model_group with an int). `dtype`
+    float64 runs the model, the batch and the LSTMs' plain versions in f64,
+    on cuDNN's default algorithms. `loss_scale` multiplies data rank 1's
+    loss (a planted fault) -> {"steps": for each step (loss,
+    gradient, parameters, {} statistics), "init", the LSTM launches of the
+    first step, the folded rows its first intra and inter BiLSTMs saw,
     "last_step_ms", "peak_bytes"}."""
     from wesep_tpu_torch.models.tfgridnet import TFGridNet
     from wesep_tpu_torch.train.losses import parse_loss
@@ -6904,17 +6921,24 @@ def grid_card_steps(world, rank=None, steps=GRID_CARD_STEPS):
 
     gen = torch.Generator().manual_seed(SEED + 85)
     batch = card_batch(GRID_CARD_ROWS, GRID_CHUNK, 256, gen)
-    mesh = None
     if rank is not None:
-        mesh = make_mesh(GRID_CARD_AXIS)
+        mesh = mesh or make_mesh(GRID_CARD_AXIS)
         share = GRID_CARD_ROWS // mesh.data_size
         first = mesh.data_rank * share
         batch = {k: v[first:first + share] for k, v in batch.items()}
-    batch = {k: v.cuda() for k, v in batch.items()}
+    batch = {k: v.to("cuda", dtype) for k, v in batch.items()}
     torch.manual_seed(SEED)
-    model = TFGridNet(**GRID_MODEL_ARGS, shard_model_axis=True).cuda()
+    model = TFGridNet(**GRID_MODEL_ARGS, shard_model_axis=True)
+    model = model.to("cuda", dtype)
+    if dtype == torch.float64:
+        for m in grid_lstms(model):
+            m.plain = True
     if mesh is not None:
         mesh.attach(model)
+    data_shares = 1
+    if shares is not None:
+        data_shares, model_shares = shares
+        model.set_model_group(model_shares)
     seen = {}
 
     def record(name):
@@ -6931,7 +6955,11 @@ def grid_card_steps(world, rank=None, steps=GRID_CARD_STEPS):
     grads = []
     recorded(opt, grads)
     state = TrainState(model=model, optimizer=opt, mesh=mesh)
-    step = make_train_step(parse_loss("SISDR"))
+    criterion = parse_loss("SISDR")
+    if loss_scale is not None and mesh is not None and mesh.data_rank == 1:
+        criterion = [lambda est, ref, c=c: c(est, ref) * loss_scale
+                     for c in criterion]
+    step = make_train_step(criterion, accum_steps=data_shares)
     init = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
     out, launches = [], None
     torch.cuda.reset_peak_memory_stats()
@@ -6939,7 +6967,8 @@ def grid_card_steps(world, rank=None, steps=GRID_CARD_STEPS):
         zero_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with deterministic_convolutions():
+        with deterministic_convolutions() if dtype == torch.float32 \
+                else contextlib.nullcontext():
             state, metrics = step(state, batch)
         loss = float(metrics["loss"])
         ms = (time.perf_counter() - t0) * 1e3
@@ -6954,6 +6983,64 @@ def grid_card_steps(world, rank=None, steps=GRID_CARD_STEPS):
                                                mesh.model_rank),
             "last_step_ms": ms,
             "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def grid_rank_steps(world, rank):
+    """A rank of phase 18 (d): grid_card_steps, then the first step once
+    more from the same seed with GRID_FAULT_SCALE on data rank 1's loss
+    (the planted fault), its gradient as "fault_grad"."""
+    from wesep_tpu_torch.train.mesh import make_mesh
+
+    mesh = make_mesh(GRID_CARD_AXIS)
+    result = grid_card_steps(world, rank, mesh=mesh)
+    fault = grid_card_steps(world, rank, steps=1,
+                            loss_scale=GRID_FAULT_SCALE, mesh=mesh)
+    result["fault_grad"] = fault["steps"][0][1]
+    return result
+
+
+def deterministic_cost(rounds=3, steps=3):
+    """The one-process grid step (4 rows x 1 s, f32) timed under cuDNN's
+    deterministic algorithms and under its defaults, in turns: each round
+    takes `steps` steps in each setting after one warm step, the host clock
+    between synchronisations -> {setting: each round's median ms}."""
+    from wesep_tpu_torch.models.tfgridnet import TFGridNet
+    from wesep_tpu_torch.train.losses import parse_loss
+    from wesep_tpu_torch.train.mesh import deterministic_convolutions
+    from wesep_tpu_torch.train.schedulers import exponential_decrease
+    from wesep_tpu_torch.train.trainer import (
+        TrainState,
+        make_optimizer,
+        make_train_step,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 85)
+    batch = {k: v.cuda() for k, v in
+             card_batch(GRID_CARD_ROWS, GRID_CHUNK, 256, gen).items()}
+    torch.manual_seed(SEED)
+    model = TFGridNet(**GRID_MODEL_ARGS).cuda()
+    state = TrainState(model=model, optimizer=make_optimizer(
+        model, exponential_decrease(
+            num_epochs=1, epoch_iter=100, initial_lr=DDP_CARD_LR,
+            final_lr=2.5e-5, warm_up_epoch=0), weight_decay=1e-4,
+        clip_grad=5.0))
+    step = make_train_step(parse_loss("SISDR"))
+    settings = {"deterministic": deterministic_convolutions,
+                "default": contextlib.nullcontext}
+    times = {name: [] for name in settings}
+    for _ in range(rounds):
+        for name, setting in settings.items():
+            ms = []
+            for i in range(steps + 1):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with setting():
+                    state, metrics = step(state, batch)
+                float(metrics["loss"])
+                if i:
+                    ms.append((time.perf_counter() - t0) * 1e3)
+            times[name].append(statistics.median(ms))
+    return times
 
 
 def check_grid_repeat():
@@ -7058,76 +7145,105 @@ def check_gan_ddp_across_cards(world):
             "last_step_ms_one_process": one["last_step_ms"]}
 
 
+def grad_rel_l2(got, want):
+    """The whole gradient's relative L2 error (by name, in f64)."""
+    num = sum(float((got[n].double() - w.double()).square().sum())
+              for n, w in want.items())
+    return math.sqrt(num / sum(float(w.double().square().sum())
+                               for w in want.values()))
+
+
 def check_model_axis_across_cards(world):
     """Phase 18 (d), with `world` >= 2 cards: TF-GridNet (tfgridnet.yaml,
     full width) under model_axis GRID_CARD_AXIS, (world / 2) x 2 ranks
-    (grid_card_steps), against one process on the same GRID_CARD_ROWS
-    rows: every rank's losses, gradients and parameters within
-    DDP_CARD_LIMITS, the ranks bit for bit equal; every rank's first step
-    launches 12 f32 K0 forwards (chain and projection) and 12 of each f32
-    backward kernel on half the folded rows; each rank's step time and
-    peak memory beside the one process's; the one process run again
-    against itself is printed beside them. bin/train itself refuses the
-    model axis across cards for now (ROADMAP.md C.3a): that refusal is
-    checked."""
+    (grid_rank_steps), against the per-share reference in one process on
+    the same GRID_CARD_ROWS rows (grid_card_steps with `shares`: every
+    convolution sees a rank's rows): every rank's losses, gradients and
+    parameters within DDP_CARD_LIMITS, its BiLSTMs on the reference's
+    folded rows, the ranks bit for bit equal, every rank's first step
+    launching 12 f32 K0 forwards (chain and projection) and 12 of each f32
+    backward kernel; the planted fault (data rank 1's loss times
+    GRID_FAULT_SCALE) outside the first gradient's limit on every rank.
+    Printed beside them: the ranks against one process on all the rows
+    (the earlier reference), the first gradients of a rank, of the
+    reference and of that one process against the f64 step, the reference
+    run again against itself, each rank's step time and peak memory beside
+    the reference's, and the one-process step with and without cuDNN's
+    deterministic algorithms in turns (deterministic_cost). bin/train
+    itself refuses the model axis across cards until such runs pass
+    (ROADMAP.md C.3a): that refusal is checked."""
     tag = f"model_axis {GRID_CARD_AXIS} across {world} cards"
+    shares = (world // GRID_CARD_AXIS, GRID_CARD_AXIS)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         t0 = time.perf_counter()
         ranks = run_ranks(world, root, "grid_steps")
         wall = time.perf_counter() - t0
-        one = grid_card_steps(world)
-        errs = [ddp_step_errors(r["steps"], one["steps"], one["init"])
-                for r in ranks]
-        leaves = [grid_leaf_errors(r["steps"][0][1], one["steps"][0][1])
-                  for r in ranks]
-        # the one process against itself: how far its own first gradient
-        # moves between two runs of the same step
-        repeat = grid_card_steps(world)
-        again = ddp_step_errors(repeat["steps"], one["steps"], one["init"])
-        again_leaves = grid_leaf_errors(repeat["steps"][0][1],
-                                        one["steps"][0][1])
-        last = ranks[0]["steps"][-1][2]
-        equal = all(torch.equal(v, r["steps"][-1][2][n])
-                    for r in ranks[1:] for n, v in last.items())
-        # a rank's share: its data rank's folded rows, over the model axis
-        data_ranks = world // GRID_CARD_AXIS
-        half = {n: -(-(v // data_ranks) // GRID_CARD_AXIS)
-                for n, v in one["seen"].items()}
-        want = dict.fromkeys(("lstm_f32_project", "lstm_f32_forward_chain",
-                              "lstm_f32_gates", "lstm_f32_adjoint_chain",
-                              "lstm_f32_dx", "lstm_f32_wgrad"), GRID_RNNS)
-        log(f"{tag}: {GRID_CARD_STEPS} f32 steps of TF-GridNet "
-            f"({GRID_CARD_ROWS} rows x 1 s; grid {[r['mesh'] for r in ranks]}"
-            f", NCCL, {wall:.1f} s wall with spawn and set-up) against one "
-            f"process: losses {[round(s[0], 6) for s in one['steps']]}; "
-            f"ranks bit for bit {equal}; folded rows a rank's first BiLSTMs "
-            f"saw {[r['seen'] for r in ranks]}, one process {one['seen']}; "
-            f"first-step launches a rank {ranks[0]['launches']}; last step "
-            f"{[round(r['last_step_ms'], 3) for r in ranks]} ms by rank, "
-            f"{one['last_step_ms']:.3f} ms in one process; peak memory "
-            f"{[round(r['peak_bytes'] / 2 ** 30, 3) for r in ranks]} GiB by "
-            f"rank, {one['peak_bytes'] / 2 ** 30:.3f} GiB in one process")
-        for rank, (e, leaf) in enumerate(zip(errs, leaves)):
-            losses = [lim["loss_rtol"] for lim in DDP_CARD_LIMITS]
-            log(f"{tag}: rank {rank} against the one process, by step "
-                f"{json.dumps(e)}; the first gradient by parameter "
-                f"{json.dumps(leaf)} (limits: loss {losses}, the first "
-                f"gradient {DDP_CARD_LIMITS[0]['grad_rel_l2']}, "
-                f"{GRID_CARD_NOISE} of the norm for noise-only leaves, the "
-                f"parameters' bounds)")
-        log(f"{tag}: the one process run again against itself, by step "
-            f"{json.dumps(again)}; the first gradient by parameter "
-            f"{json.dumps(again_leaves)}")
-        if not (equal and all(grid_errors_ok(e, leaf)
-                              for e, leaf in zip(errs, leaves))
-                and all(r["seen"] == half for r in ranks)
-                and all(r["launches"] == want for r in ranks)):
-            raise AssertionError(f"{tag}: the grid differs from the one "
-                                 f"process: {errs}, ranks equal {equal}")
-
-    # bin/train refuses the model axis across cards for now: the grid's
-    # first gradient is not yet shown to hold against one process's on
-    # the card (ROADMAP.md C.3a)
+    ref = grid_card_steps(world, shares=shares)
+    first = ref["steps"][0][1]
+    errs = [ddp_step_errors(r["steps"], ref["steps"], ref["init"])
+            for r in ranks]
+    leaves = [grid_leaf_errors(r["steps"][0][1], first) for r in ranks]
+    fault = [grad_rel_l2(r["fault_grad"], first) for r in ranks]
+    # the reference against itself: how far its own first gradient moves
+    # between two runs of the same step
+    again = grad_rel_l2(grid_card_steps(world, steps=1, shares=shares)[
+        "steps"][0][1], first)
+    whole = grid_card_steps(world)
+    old = [ddp_step_errors(r["steps"], whole["steps"], whole["init"])
+           for r in ranks]
+    f64 = grid_card_steps(world, steps=1, dtype=torch.float64)
+    to_f64 = {"rank 0": grad_rel_l2(ranks[0]["steps"][0][1],
+                                    f64["steps"][0][1]),
+              "per-share reference": grad_rel_l2(first, f64["steps"][0][1]),
+              "one process on all rows": grad_rel_l2(whole["steps"][0][1],
+                                                     f64["steps"][0][1])}
+    cost = deterministic_cost()
+    last = ranks[0]["steps"][-1][2]
+    equal = all(torch.equal(v, r["steps"][-1][2][n])
+                for r in ranks[1:] for n, v in last.items())
+    want = dict.fromkeys(("lstm_f32_project", "lstm_f32_forward_chain",
+                          "lstm_f32_gates", "lstm_f32_adjoint_chain",
+                          "lstm_f32_dx", "lstm_f32_wgrad"), GRID_RNNS)
+    limit = DDP_CARD_LIMITS[0]["grad_rel_l2"]
+    log(f"{tag}: {GRID_CARD_STEPS} f32 steps of TF-GridNet "
+        f"({GRID_CARD_ROWS} rows x 1 s; grid {[r['mesh'] for r in ranks]}, "
+        f"NCCL, {wall:.1f} s wall with spawn and set-up) against the "
+        f"per-share reference in one process: losses "
+        f"{[round(s[0], 6) for s in ref['steps']]}; ranks bit for bit "
+        f"{equal}; folded rows a rank's first BiLSTMs saw "
+        f"{[r['seen'] for r in ranks]}, the reference's first share "
+        f"{ref['seen']}, one process on all rows {whole['seen']}; first-step "
+        f"launches a rank {ranks[0]['launches']}; last step "
+        f"{[round(r['last_step_ms'], 3) for r in ranks]} ms by rank, "
+        f"{ref['last_step_ms']:.3f} ms the reference, "
+        f"{whole['last_step_ms']:.3f} ms one process on all rows; peak "
+        f"memory {[round(r['peak_bytes'] / 2 ** 30, 3) for r in ranks]} GiB "
+        f"by rank, {ref['peak_bytes'] / 2 ** 30:.3f} GiB the reference")
+    for rank, (e, leaf, o) in enumerate(zip(errs, leaves, old)):
+        log(f"{tag}: rank {rank} against the per-share reference, by step "
+            f"{json.dumps(e)}; the first gradient by parameter "
+            f"{json.dumps(leaf)} (limits: loss "
+            f"{[lim['loss_rtol'] for lim in DDP_CARD_LIMITS]}, the first "
+            f"gradient {limit}, {GRID_CARD_NOISE} of the norm for "
+            f"noise-only leaves, the parameters' bounds); against one "
+            f"process on all rows (printed only): first gradient "
+            f"{o[0]['grad_rel_l2']}, losses "
+            f"{[x['loss_rtol'] for x in o]}")
+    log(f"{tag}: planted fault (data rank 1's loss x {GRID_FAULT_SCALE}): "
+        f"the first gradient by rank against the reference {fault} (must "
+        f"exceed {limit}); the reference run again against itself "
+        f"{again}; first gradients against the f64 step {json.dumps(to_f64)}")
+    log(f"{tag}: the one-process f32 step ({GRID_CARD_ROWS} rows x 1 s) in "
+        f"turns, ms by round: {json.dumps(cost)} on {card_line()}")
+    if not (equal and all(grid_errors_ok(e, leaf)
+                          for e, leaf in zip(errs, leaves))
+            and all(r["seen"] == ref["seen"] for r in ranks)
+            and all(r["launches"] == want for r in ranks)):
+        raise AssertionError(f"{tag}: the grid differs from the per-share "
+                             f"reference: {errs}, ranks equal {equal}, "
+                             f"launches {[r['launches'] for r in ranks]}")
+    if not all(f > limit for f in fault):
+        raise AssertionError(f"{tag}: the planted fault passes: {fault}")
     from wesep_tpu_torch.bin.train import check_model_axis_device
 
     try:
@@ -7143,15 +7259,17 @@ def check_model_axis_across_cards(world):
     return {"world": world, "grid": [r["mesh"] for r in ranks],
             "rows": GRID_CARD_ROWS, "steps": GRID_CARD_STEPS, "errors": errs,
             "first_gradient_by_parameter": leaves,
-            "ranks_bit_for_bit": equal,
-            "seen_rank": ranks[0]["seen"], "seen_one_process": one["seen"],
+            "against_one_process_on_all_rows": old,
+            "planted_fault": fault, "reference_against_itself": again,
+            "first_gradient_against_f64": to_f64,
+            "ranks_bit_for_bit": equal, "seen_rank": ranks[0]["seen"],
+            "seen_reference": ref["seen"],
             "launches_a_rank": ranks[0]["launches"],
             "last_step_ms_by_rank": [r["last_step_ms"] for r in ranks],
-            "last_step_ms_one_process": one["last_step_ms"],
+            "last_step_ms_reference": ref["last_step_ms"],
             "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
-            "peak_bytes_one_process": one["peak_bytes"],
-            "one_process_against_itself": again,
-            "bin_train_refused": refused}
+            "peak_bytes_reference": ref["peak_bytes"],
+            "deterministic_cost_ms": cost, "bin_train_refused": refused}
 
 
 def phase16():

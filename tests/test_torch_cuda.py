@@ -22,6 +22,7 @@ from wesep_tpu_torch.ops import (
     cuda_lstm_unfold,
     cuda_tcn,
 )
+from wesep_tpu_torch.utils import jax_init
 
 pytestmark = pytest.mark.cuda
 
@@ -1385,7 +1386,7 @@ def test_discriminator_on_the_card_matches_the_cpu(cuda):
     ref = _voices(2, 48000, 6)
     est = ref + 0.1 * torch.randn(2, 48000,
                                   generator=torch.Generator().manual_seed(7))
-    mask = cpu_d.dropout_mask(2, torch.Generator().manual_seed(8), "cpu")
+    mask = cpu_d.dropout_mask(2, jax_init.seed_key(8), "cpu")
     outs = []
     for model, dev in ((cpu_d, "cpu"), (card_d, cuda)):
         out = model(ref.to(dev), est.to(dev), [m.to(dev) for m in mask])

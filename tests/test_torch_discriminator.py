@@ -2,13 +2,14 @@
 (wesep_tpu_torch/models/discriminator.py) against the JAX package's, through
 the weight bridge, at hid_chans 4 with numpy-seeded inputs.
 
-JAX's dropout draws its mask from a PRNG key the port cannot reproduce, so
-flax.linen.Dropout is replaced in these tests (monkeypatch; no JAX file
-changes) by one that applies a fixed mask, and the port is given the same
-mask. The forward agrees within 1e-5 of the largest value, the
-spectral-norm state (u, sigma) after 1 and after 3 chained train-mode
-calls within 1e-6, and the gradients of every parameter and of the
-estimate within 1e-4 relative L2.
+In the forward and gradient tests flax.linen.Dropout is replaced
+(monkeypatch; no JAX file changes) by one that applies a fixed mask, and
+the port is given the same mask; the port's own draw is held against
+flax's in test_dropout_mask_is_flax_dropouts_draw, and its initial D
+against flax's init in test_init_like_jax_is_flax_init. The forward
+agrees within 1e-5 of the largest value, the spectral-norm state (u,
+sigma) after 1 and after 3 chained train-mode calls within 1e-6, and the
+gradients of every parameter and of the estimate within 1e-4 relative L2.
 """
 
 import functools
@@ -23,6 +24,7 @@ import torch
 from wesep_tpu.models.discriminator import CMGANDiscriminator as JaxD
 from wesep_tpu_torch.models import get_model
 from wesep_tpu_torch.models.discriminator import CMGANDiscriminator
+from wesep_tpu_torch.utils import jax_init
 from wesep_tpu_torch.utils.jax_params import discriminator_state_dict_from_jax
 
 torch.set_num_threads(1)  # one intra-op thread per test worker
@@ -178,12 +180,84 @@ def test_gradients_match_jax(fixed_dropout):
 
 def test_dropout_mask_draw():
     model = CMGANDiscriminator(hid_chans=HID)
-    a = model.dropout_mask(3, torch.Generator().manual_seed(4))
-    b = model.dropout_mask(3, torch.Generator().manual_seed(4))
+    a = model.dropout_mask(3, jax_init.seed_key(4))
+    b = model.dropout_mask(3, jax_init.seed_key(4))
     assert len(a) == 1 and a[0].shape == (3, 4 * HID)
     assert torch.equal(a[0], b[0])
     kept = torch.tensor(1.0 / 0.7, dtype=torch.float32).item()
     assert set(a[0].unique().tolist()) <= {0.0, kept}
+
+
+def _ulps(got, want):
+    return np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("hid", [HID, 16])
+def test_init_like_jax_is_flax_init(hid):
+    """CMGANDiscriminator.init_like_jax(1) against wesep_tpu/bin/train_gan's
+    `discriminator.init({"params": PRNGKey(1), "dropout": PRNGKey(2)}, ...,
+    train=True)`, at hid_chans 4 and the recipes' 16: the kernels (flax's
+    lecun_normal in the HWIO / [in, out] layout, divided by sigma as flax's
+    init stores them), u and sigma after the init's power step within 1e-6
+    of their largest (the draws within tests/test_torch_jax_init.DRAW_ULPS,
+    the power step in torch matmuls), every other parameter bit for bit."""
+    ref, est = _inputs()
+    variables = jax.jit(functools.partial(JaxD(hid_chans=hid).init,
+                                          train=True))(
+        {"params": jax.random.PRNGKey(1), "dropout": jax.random.PRNGKey(2)},
+        ref, est)
+    want = discriminator_state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, variables["params"]),
+        jax.tree_util.tree_map(np.asarray, variables["batch_stats"]))
+    model = CMGANDiscriminator(hid_chans=hid).init_like_jax(1)
+    got = model.state_dict()
+    assert set(got) == set(want)
+    for name, value in got.items():
+        have, expect = value.numpy(), want[name].numpy()
+        if name.endswith((".weight", ".u", ".sigma")):
+            np.testing.assert_allclose(have, expect, rtol=0, atol=1e-6
+                                       * np.abs(expect).max(), err_msg=name)
+        else:
+            np.testing.assert_array_equal(have, expect, err_msg=name)
+
+
+_FlaxDropout = fnn.Dropout
+
+
+class Dropout(_FlaxDropout):
+    """flax's Dropout (the same name, so the same scope and key), keeping
+    which elements it kept ("intermediates", "keep")."""
+
+    def __call__(self, inputs, deterministic=None, rng=None):
+        out = _FlaxDropout.__call__(self, inputs, deterministic, rng)
+        self.sow("intermediates", "keep", out != 0)
+        return out
+
+
+def test_dropout_mask_is_flax_dropouts_draw(monkeypatch):
+    """D's dropout mask at steps 0, 1 and 2 of a GAN step seeded 42
+    (trainer_gan.dropout_key) against the elements flax's Dropout keeps in
+    the JAX discriminator applied with the JAX step's key,
+    fold_in(PRNGKey(42), step): the same elements, the kept ones scaled by
+    1 / 0.7."""
+    from wesep_tpu_torch.train.trainer_gan import dropout_key
+
+    monkeypatch.setattr(fnn, "Dropout", Dropout)
+    d, variables = _jax_vars()
+    ref, est = _inputs()
+    model = CMGANDiscriminator(hid_chans=HID)
+    kept = torch.tensor(1.0 / 0.7, dtype=torch.float32).item()
+    for step in range(3):
+        _, state = d.apply(
+            variables, ref, est, train=True,
+            rngs={"dropout": jax.random.fold_in(jax.random.PRNGKey(42),
+                                                step)},
+            mutable=["batch_stats", "intermediates"])
+        want = np.asarray(state["intermediates"]["Dropout_0"]["keep"][0])
+        (mask,) = model.dropout_mask(ROWS, dropout_key(42, step))
+        np.testing.assert_array_equal(mask.numpy() != 0, want)
+        assert set(mask.unique().tolist()) <= {0.0, kept}
 
 
 def test_train_mode_needs_the_step_mask():

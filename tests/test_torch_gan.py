@@ -297,8 +297,7 @@ def test_one_dropout_mask_per_step():
     assert all(torch.equal(m, first[0]) for m in first)
     assert all(torch.equal(m, second[0]) for m in second)
     assert not torch.equal(first[0], second[0])
-    want = d_state.model.dropout_mask(
-        2, trainer_gan.dropout_generator(42, 0))[0]
+    want = d_state.model.dropout_mask(2, trainer_gan.dropout_key(42, 0))[0]
     assert torch.equal(first[0], want)
 
 

@@ -140,3 +140,12 @@ def test_the_synthetic_validation_module_is_checked():
     names = {os.path.relpath(p, ROOT) for p in _port_files()}
     assert os.path.join("wesep_tpu_torch", "tools",
                         "validate_synthetic.py") in names
+
+
+def test_the_last_host_modules_are_checked():
+    """utils/datadir_writer and tools/print_train_val_curve are among the
+    files checked."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for module in ("utils/datadir_writer.py",
+                   "tools/print_train_val_curve.py"):
+        assert os.path.join("wesep_tpu_torch", module) in names, module

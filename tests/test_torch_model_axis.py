@@ -70,6 +70,9 @@ NOISE_ONLY = ("attn_norm_K_bias", "deconv.bias")
 # limits for the same reason)
 ONE_LIMITS = ((1e-6, 1e-5, 1e-6), (1e-6, 1e-5, 1e-6))
 JAX_LIMITS = ((1e-5, 2e-5, 1e-6), (1e-4, 2e-3, 0.05 * LR))
+# the first gradient of the per-share reference (grid_steps' `shares`)
+# against the whole batch's and against every rank of the 2 x 2 grid
+SHARE_LIMIT = 1e-6
 
 
 def _jax_steps(rows, data, model, steps=2):
@@ -216,16 +219,19 @@ def test_four_ranks_at_2_by_2(tmp_path):
     bin/train at 2 x 2 (each model group's first rank reads its data
     rank's rows and sends them to the other; 2 steps and a validation
     step): every rank takes its 2 steps, the four end bit for bit equal,
-    and only rank 0 writes the log."""
+    and only rank 0 writes the log. Every rank's first gradient is within
+    SHARE_LIMIT of the per-share reference in one process (measured
+    4.2e-7)."""
     root = str(tmp_path)
     config = _bin_config(root)
     grid = dict(config, exp_dir=os.path.join(root, "exp_grid"),
                 model_axis=2,
                 dataset_args=dict(config["dataset_args"],
                                   sample_num_per_epoch=4))
-    ranks, (want, jax_want) = run_ranks(
+    ranks, (want, jax_want, shares) = run_ranks(
         rank_grid, 4, tmp_path, 2, 6, grid,
-        meanwhile=lambda: (grid_steps(6), _jax_steps(6, 2, 2)))
+        meanwhile=lambda: (grid_steps(6), _jax_steps(6, 2, 2),
+                           grid_steps(6, steps=1, shares=(2, 2))[0]))
     assert [r["mesh"] for r in ranks] == [(0, 2, 0), (0, 2, 1), (1, 2, 0),
                                           (1, 2, 1)]
     assert want[1] == {"intra": 492, "inter": 138}
@@ -233,6 +239,8 @@ def test_four_ranks_at_2_by_2(tmp_path):
         assert r["seen"] == {"intra": 123, "inter": 35}
         _assert_steps(r["steps"], want[0], ONE_LIMITS)
         _assert_steps(r["steps"], jax_want, JAX_LIMITS)
+        # the per-share reference of chip_smoke.py's phase 18 (d)
+        assert _rel_l2(r["steps"][0][1], shares[0][1]) <= SHARE_LIMIT
     for r in ranks[1:]:
         for k, v in ranks[0]["steps"][-1][2].items():
             np.testing.assert_array_equal(v, r["steps"][-1][2][k])
@@ -246,6 +254,27 @@ def test_four_ranks_at_2_by_2(tmp_path):
     text = open(os.path.join(exp, "train.log")).read()
     assert "mesh: 2 data x 2 model devices" in text
     assert "epoch iteration number: 2" in text
+
+
+def test_per_share_reference_is_the_full_batch_step():
+    """The grid's reference in one process (chip_smoke.py phase 18 (d)):
+    each data rank's 3 rows in turn as make_train_step's microbatches, each
+    block's sharded branches on each model rank's share in turn
+    (mesh.run_sharded with an int). Its BiLSTMs see a rank's folded rows
+    (123 intra, 35 inter). The loss is SI-SDR's mean over rows and each
+    data share holds 3 of the 6, so the shares' mean is the whole batch's
+    mean (the count agrees): the loss at rtol 1e-6 and the combined
+    gradient within SHARE_LIMIT rel. L2 of the whole batch's step
+    (measured: loss 0, gradient 6.6e-7). The four ranks at 2 x 2 are held
+    to it in test_four_ranks_at_2_by_2 (measured 4.2e-7; 7.3e-7 from the
+    whole batch's)."""
+    (got,), seen = grid_steps(6, steps=1, shares=(2, 2))
+    (want,), whole = grid_steps(6, steps=1)
+    assert seen == {"intra": 123, "inter": 35}
+    assert whole == {"intra": 492, "inter": 138}
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
+    assert set(got[1]) == set(want[1])
+    assert _rel_l2(got[1], want[1]) <= SHARE_LIMIT, _rel_l2(got[1], want[1])
 
 
 def test_model_axis_checks_as_the_jax_package(tmp_path, caplog):

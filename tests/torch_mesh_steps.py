@@ -162,14 +162,22 @@ def seeded_grid(**kw):
     return TFGridNet(**GRID_ARGS, **kw)
 
 
-def grid_steps(rows, mesh=None, steps=2):
+def grid_steps(rows, mesh=None, steps=2, shares=None):
     """`steps` port train steps of seeded_grid(shard_model_axis=True) on
-    the data rank's share of grid_batch(rows) (all of it without a mesh)
-    -> ([(loss, the gradient handed to the optimizer, parameters)], the
-    folded rows the first forward's intra and inter BiLSTMs saw)."""
+    the data rank's share of grid_batch(rows) (all of it without a mesh;
+    `shares` = (data ranks, model ranks) takes each step in one process as
+    chip_smoke.py's one-card reference of the grid does: each data rank's
+    rows in turn as make_train_step's microbatches, each block's sharded
+    branches on each model rank's share in turn) -> ([(loss, the gradient
+    handed to the optimizer, parameters)], the folded rows the first
+    forward's intra and inter BiLSTMs saw)."""
     model = seeded_grid(shard_model_axis=True)
     if mesh is not None:
         mesh.attach(model)
+    data_shares = 1
+    if shares is not None:
+        data_shares, model_shares = shares
+        model.set_model_group(model_shares)
     opt = trainer.make_optimizer(model, exponential_decrease(**GRID_SCHED),
                                  weight_decay=1e-4, clip_grad=5.0)
     grads, update = [], opt.update
@@ -192,7 +200,8 @@ def grid_steps(rows, mesh=None, steps=2):
     batch = trainer.batch_to_device(
         {k: v[data_rank * share:(data_rank + 1) * share]
          for k, v in grid_batch(rows).items()}, "cpu")
-    step = trainer.make_train_step(parse_loss("SISDR"))
+    step = trainer.make_train_step(parse_loss("SISDR"),
+                                   accum_steps=data_shares)
     out = []
     for _ in range(steps):
         state, metrics = step(state, batch)

@@ -36,8 +36,10 @@ gradients after the backward, and TF-GridNet, whose
 `shard_model_axis` defaults to true then, splits its folded LSTM and
 attention batch over them; a model without that support raises, and
 `shard_model_axis: false` runs the model axis redundantly, with a warning.
-For now `model_axis` > 1 runs on CPU processes (gloo) only: across cards
-it raises (ROADMAP.md C.3a). `--checkpoint` and `model_init` take this
+Under `model_axis` > 1 the epochs take cuDNN's deterministic algorithms
+(mesh.deterministic_convolutions). For now `model_axis` > 1 runs on CPU
+processes (gloo) only: across cards it raises (ROADMAP.md C.3a).
+`--checkpoint` and `model_init` take this
 package's bundles or the JAX package's msgpack bundles
 (train/checkpoint.py).
 
@@ -261,11 +263,10 @@ def check_model_axis(model, model_name, model_axis, logger, rank):
 
 
 def check_model_axis_device(model_axis, world_size, device):
-    """`model_axis` > 1 across several cards is refused for now: on four
-    H100s the model-axis step's first gradient once differed from one
-    process's by 6.3e-4 (rel. L2) and once by 1.7e-6 on the same rows, and
-    no run of bin/train at 2 x 2 has ended whole (ROADMAP.md C.3a).
-    Processes on the CPU (gloo) run it."""
+    """`model_axis` > 1 across several cards is refused until four-card
+    runs hold the grid's first gradient against one process that runs each
+    rank's shares of the rows (chip_smoke.py phase 18 (d)); ROADMAP.md
+    C.3a. Processes on the CPU (gloo) run it."""
     if model_axis > 1 and world_size > 1 and device.type == "cuda":
         raise NotImplementedError(
             f"model_axis={model_axis} across {world_size} cards is not "

@@ -105,7 +105,10 @@ def train_gan(config, checkpoint=None, overrides=None, **kwargs):
     gen = build_model(configs, device)[0].to(device)
     disc_name = configs["model"].get("discriminator", "CMGAN_Discriminator")
     disc_args = configs.get("model_args", {}).get("discriminator") or {}
-    disc = get_model(disc_name)(**disc_args).to(device)
+    # D as the JAX train_gan draws it: params and spectral-norm state from
+    # PRNGKey(1), whatever the config's seed
+    disc = get_model(disc_name)(**disc_args).to(device).init_like_jax(
+        1, device)
     g_sched_args = dict(configs["scheduler_args"]["tse_model"],
                         num_epochs=configs["num_epochs"],
                         epoch_iter=epoch_iter)

@@ -22,7 +22,8 @@ from wesep_tpu_torch.ops.rnn import bilstm, bilstm_unfold, lstm
 __all__ = ["Dense", "Conv1d", "Conv2d", "ConvTranspose", "convolve",
            "GlobalLayerNorm", "ChannelLayerNorm", "LayerNorm", "BatchNorm",
            "BatchNorm1d", "PReLU", "get_norm", "norm_auto_name", "FiLM",
-           "SpeakerTransform", "SpeakerFuse", "LSTM", "uniform_param"]
+           "SpeakerTransform", "SpeakerFuse", "LSTM", "uniform_param",
+           "flax_default"]
 
 
 def uniform_param(*shape, fan_in: int) -> nn.Parameter:
@@ -32,6 +33,17 @@ def uniform_param(*shape, fan_in: int) -> nn.Parameter:
     param = nn.Parameter(torch.empty(*shape).uniform_(-bound, bound))
     param.jax_init = ("uniform", bound)
     return param
+
+
+def flax_default(layer: nn.Module) -> nn.Module:
+    """Mark a Dense or Conv2d whose JAX counterpart keeps flax's default
+    init: utils/jax_init draws its kernel from lecun_normal and zeros its
+    bias, as the JAX package's `model.init` does; the constructor's own
+    draw (torch's default) is left as it is."""
+    layer.kernel.jax_init = ("lecun_normal",)
+    if layer.bias is not None:
+        layer.bias.jax_init = ("zeros",)
+    return layer
 
 
 class Dense(nn.Module):

@@ -26,8 +26,14 @@ them. PReLU is `where(x >= 0, x, a * x)` (F.prelu's input gradient differs
 at 0), and the pooling is `amax`, which splits the gradient evenly among
 ties as `jnp.max` does. Dropout takes explicit masks, one [B, features]
 per Dense layer but the last (kept elements scaled by 1 / 0.7), so that a
-caller can give every call of a step the same draw; without them, train
-mode draws them from `generator`.
+caller can give every call of a step the same draw (`dropout_mask`: flax
+Dropout's draw from a step's key).
+
+`init_like_jax` gives the JAX package's initial D: `discriminator.init(
+{"params": PRNGKey(1), "dropout": PRNGKey(2)}, ..., train=True)` of
+wesep_tpu/bin/train_gan.py, whose parameters flax keys by their scope,
+whose u each `SpectralNorm_{j}` scope draws from N(0, 1), and whose forward
+stores one power step (u, sigma, and each kernel divided by its sigma).
 """
 
 from typing import List, Optional, Tuple
@@ -47,11 +53,21 @@ _SN_EPS = 1e-12
 
 
 def _lecun_normal(*shape, fan_in: int) -> nn.Parameter:
-    """flax's default kernel init: truncated normal, variance 1 / fan_in."""
+    """flax's default kernel init: truncated normal, variance 1 / fan_in
+    (torch's draw; utils/jax_init draws flax's, `jax_init`, in the flax
+    layout `jax_shape`, mapped to this one by `jax_to_port`)."""
     std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
     w = torch.empty(*shape)
     nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std)
-    return nn.Parameter(w)
+    param = nn.Parameter(w)
+    param.jax_init = ("lecun_normal",)
+    if len(shape) == 4:  # OIHW <- HWIO
+        param.jax_shape = (shape[2], shape[3], shape[1], shape[0])
+        param.jax_to_port = lambda t: t.permute(3, 2, 0, 1)
+    else:  # [out, in] <- [in, out]
+        param.jax_shape = (shape[1], shape[0])
+        param.jax_to_port = lambda t: t.t()
+    return param
 
 
 def _l2_normalize(x):
@@ -67,6 +83,7 @@ class SpectralNormed(nn.Module):
         self.weight = _lecun_normal(*weight_shape, fan_in=fan_in)
         if bias:
             self.bias = nn.Parameter(torch.zeros(weight_shape[0]))
+            self.bias.jax_init = ("zeros",)
         else:
             self.register_parameter("bias", None)
         self.register_buffer("u", torch.randn(1, weight_shape[0]))
@@ -153,16 +170,40 @@ class CMGANDiscriminator(nn.Module):
         self.fc_final = SpectralNormed((1, in_ch), in_ch, True)
         self.lsigmoid = LearnableSigmoid(1)
 
-    def dropout_mask(self, batch: int, generator: Optional[torch.Generator]
-                     = None, device=None) -> List[torch.Tensor]:
-        """One dropout draw, [batch, features] per dropout layer: keep with
-        probability 0.7, kept elements scaled by 1 / 0.7. Drawn on the CPU
-        from `generator` (the same draw on every device), then moved to
-        `device`."""
+    def init_like_jax(self, seed: int = 1, device=None):
+        """The JAX package's initial D at PRNGKey(`seed`): the parameters
+        (utils/jax_init.init_like_jax), each SpectralNorm_{j}'s u drawn
+        from N(0, 1) with its scope's key, then the one power step that
+        flax's init stores: u, sigma, and the kernel divided by sigma (flax
+        writes the normalised kernel back as the parameter)."""
+        from wesep_tpu_torch.utils import jax_init
+
+        jax_init.init_like_jax(self, seed, device=device)
+        root = jax_init.seed_key(seed)
+        normed = [m for m in self.modules() if isinstance(m, SpectralNormed)]
+        with torch.no_grad():
+            for j, sn in enumerate(normed):
+                key = jax_init.fold_in_static(root, (f"SpectralNorm_{j}", 1))
+                sn.u.copy_(jax_init.normal(key, tuple(sn.u.shape),
+                                           device or "cpu"))
+                sn.weight.copy_(sn.normalized_weight(update=True))
+        return self
+
+    def dropout_mask(self, batch: int, key, device=None
+                     ) -> List[torch.Tensor]:
+        """flax Dropout's draw from `key` (a jax PRNG key's two words, the
+        `dropout` key an apply is given), [batch, features] per dropout
+        layer `Dropout_{i}`: keep where U[0, 1) < 0.7, kept elements scaled
+        by 1 / 0.7. Drawn on the CPU (the same draw on every device), then
+        moved to `device`."""
+        from wesep_tpu_torch.utils import jax_init
+
         keep = 1.0 - DROPOUT_RATE
         masks = []
-        for feats in self.dropout_features:
-            u = torch.rand(batch, feats, generator=generator)
+        for i, feats in enumerate(self.dropout_features):
+            u = jax_init.uniform(
+                jax_init.fold_in_static(key, (f"Dropout_{i}", 1)),
+                (batch, feats), 0.0, 1.0)
             masks.append(((u < keep).float() / keep).to(
                 device or self.fc_final.weight.device))
         return masks

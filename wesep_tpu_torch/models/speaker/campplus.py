@@ -27,7 +27,13 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from wesep_tpu_torch.models.common import BatchNorm, Conv1d, Conv2d, Dense
+from wesep_tpu_torch.models.common import (
+    BatchNorm,
+    Conv1d,
+    Conv2d,
+    Dense,
+    flax_default,
+)
 from wesep_tpu_torch.models.speaker.ecapa import f32_input
 from wesep_tpu_torch.models.speaker.pooling import get_pooling
 
@@ -38,8 +44,8 @@ _STAGES = ((12, 1), (24, 2), (16, 2))
 
 
 def _conv3x3(cin, cout, stride=1):
-    return Conv2d(cin, cout, (3, 3), ((1, 1), (1, 1)), (stride, 1),
-                  use_bias=False)
+    return flax_default(Conv2d(cin, cout, (3, 3), ((1, 1), (1, 1)),
+                               (stride, 1), use_bias=False))
 
 
 class BasicResBlock(nn.Module):
@@ -54,9 +60,9 @@ class BasicResBlock(nn.Module):
         self.bn2 = BatchNorm(planes)
         self.shortcut = stride != 1 or in_planes != planes
         if self.shortcut:
-            self.shortcut_conv = Conv2d(in_planes, planes, (1, 1),
-                                        ((0, 0), (0, 0)), (stride, 1),
-                                        use_bias=False)
+            self.shortcut_conv = flax_default(Conv2d(
+                in_planes, planes, (1, 1), ((0, 0), (0, 0)), (stride, 1),
+                use_bias=False))
             self.shortcut_bn = BatchNorm(planes)
 
     def forward(self, x):
@@ -179,7 +185,8 @@ class CAMPPlus(nn.Module):
             self.stages.append(names)
         self.out_bn = BatchNorm(ch)
         self.pool = get_pooling(pooling_func)(ch)
-        self.dense = Dense(self.pool.out_dim, embed_dim, use_bias=False)
+        self.dense = flax_default(Dense(self.pool.out_dim, embed_dim,
+                                        use_bias=False))
         self.dense_bn = BatchNorm(embed_dim, use_scale=False, use_bias=False)
 
     def forward(self, feats):

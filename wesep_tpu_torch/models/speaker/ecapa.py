@@ -28,7 +28,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from wesep_tpu_torch.models.common import BatchNorm, Conv1d, Dense
+from wesep_tpu_torch.models.common import (
+    BatchNorm,
+    Conv1d,
+    Dense,
+    flax_default,
+)
 from wesep_tpu_torch.models.speaker.pooling import ASTP
 
 __all__ = ["ECAPA_TDNN", "SEBlock", "make_ecapa"]
@@ -56,8 +61,8 @@ class SEBlock(nn.Module):
                  names=("fc1", "fc2")):
         super().__init__()
         self.names = names
-        self.add_module(names[0], Dense(channels, bottleneck))
-        self.add_module(names[1], Dense(bottleneck, channels))
+        self.add_module(names[0], flax_default(Dense(channels, bottleneck)))
+        self.add_module(names[1], flax_default(Dense(bottleneck, channels)))
 
     def forward(self, x):
         first, second = (getattr(self, n) for n in self.names)
@@ -131,7 +136,7 @@ class ECAPA_TDNN(nn.Module):
             self.conv_agg = Conv1d(3 * channels, 1536, 1)
             self.pool = ASTP(1536, 128, global_context=global_context_att)
             self.pool_bn = BatchNorm(self.pool.out_dim)
-            self.linear = Dense(self.pool.out_dim, embed_dim)
+            self.linear = flax_default(Dense(self.pool.out_dim, embed_dim))
 
     def forward(self, feats, return_frame_feats: bool = False):
         x = _bn(self.bn1, F.relu(self.layer1(feats)))

@@ -19,7 +19,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from wesep_tpu_torch.models.common import BatchNorm, Conv1d, Dense
+from wesep_tpu_torch.models.common import (
+    BatchNorm,
+    Conv1d,
+    Dense,
+    flax_default,
+)
 from wesep_tpu_torch.models.speaker.ecapa import DILATIONS, SEBlock
 from wesep_tpu_torch.models.speaker.pooling import ASTP
 
@@ -112,7 +117,7 @@ class ECAPA_TDNN_WS(nn.Module):
         if head:
             self.pool = ASTP(cat, 128, global_context=global_context_att)
             self.bn = BatchNorm(self.pool.out_dim)
-            self.linear = Dense(self.pool.out_dim, embed_dim)
+            self.linear = flax_default(Dense(self.pool.out_dim, embed_dim))
             if emb_bn:
                 self.bn2 = BatchNorm(embed_dim)
 

@@ -6,7 +6,7 @@ result in the input's dtype."""
 import torch
 from torch import nn
 
-from wesep_tpu_torch.models.common import Dense
+from wesep_tpu_torch.models.common import Dense, flax_default
 
 __all__ = ["TSTP", "ASTP", "MQMHASTP", "get_pooling"]
 
@@ -37,9 +37,9 @@ class ASTP(nn.Module):
         super().__init__()
         self.global_context = global_context
         self.out_dim = 2 * in_dim
-        self.linear1 = Dense(in_dim * (3 if global_context else 1),
-                             bottleneck_dim)
-        self.linear2 = Dense(bottleneck_dim, in_dim)
+        self.linear1 = flax_default(Dense(
+            in_dim * (3 if global_context else 1), bottleneck_dim))
+        self.linear2 = flax_default(Dense(bottleneck_dim, in_dim))
 
     def forward(self, x):
         xf = x.float()

@@ -23,7 +23,12 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from wesep_tpu_torch.models.common import BatchNorm, Conv2d, Dense
+from wesep_tpu_torch.models.common import (
+    BatchNorm,
+    Conv2d,
+    Dense,
+    flax_default,
+)
 from wesep_tpu_torch.models.speaker.pooling import get_pooling
 
 __all__ = ["ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
@@ -33,8 +38,8 @@ __all__ = ["ResNet", "ResNet18", "ResNet34", "ResNet50", "ResNet101",
 def _conv(cin, cout, k, stride=1):
     # flax padding=1 for the 3x3 convs; "SAME" for a 1x1 conv is no padding
     p = (k - 1) // 2
-    return Conv2d(cin, cout, (k, k), ((p, p), (p, p)), (stride, stride),
-                  use_bias=False)
+    return flax_default(Conv2d(cin, cout, (k, k), ((p, p), (p, p)),
+                               (stride, stride), use_bias=False))
 
 
 class BasicBlock(nn.Module):
@@ -108,11 +113,11 @@ class ResNet(nn.Module):
             self.stages.append(names)
             f = (f - 1) // stride + 1
         self.pool = get_pooling(pooling_func)(f * in_planes)
-        self.seg_1 = Dense(self.pool.out_dim, embed_dim)
+        self.seg_1 = flax_default(Dense(self.pool.out_dim, embed_dim))
         if two_emb_layer:
             self.seg_bn_1 = BatchNorm(embed_dim, use_scale=False,
                                       use_bias=False)
-            self.seg_2 = Dense(embed_dim, embed_dim)
+            self.seg_2 = flax_default(Dense(embed_dim, embed_dim))
 
     def forward(self, feats):
         x = feats.to(torch.promote_types(feats.dtype, torch.float32))

@@ -57,7 +57,7 @@ from wesep_tpu_torch.models.speaker import (
     speaker_frontend,
 )
 from wesep_tpu_torch.ops.stft import hamming_window, hann_window, istft, stft
-from wesep_tpu_torch.train.mesh import gather_rows, shard_rows
+from wesep_tpu_torch.train.mesh import run_sharded
 
 __all__ = ["TFGridNet", "GridNetBlock"]
 
@@ -135,11 +135,8 @@ class GridNetBlock(nn.Module):
 
     def _sharded(self, fn, *xs):
         """fn on this rank's share of the folded rows of xs, the result
-        gathered back (fn on xs without a model group)."""
-        if self.model_group is None:
-            return fn(*xs)
-        out = fn(*(shard_rows(x, self.model_group) for x in xs))
-        return gather_rows(out, self.model_group, xs[0].shape[0])
+        gathered back (fn on xs without a model group; mesh.run_sharded)."""
+        return run_sharded(fn, self.model_group, *xs)
 
     def _rnn_branch(self, x, name):
         """LayerNorm -> unfold + BiLSTM -> transposed conv -> residual over
@@ -279,10 +276,11 @@ class TFGridNet(nn.Module):
         self.deconv = ConvTranspose(emb_dim, 2 * n_srcs, (3, 3), (1, 1))
 
     def set_model_group(self, group):
-        """The process group of the model axis (None: no sharding); taken
-        only with `shard_model_axis`. A model that has this method shards
-        over a model axis (bin/train reads it, as the JAX package reads the
-        flax field)."""
+        """The process group of the model axis (None: no sharding; an int n:
+        n shares run in turn in this process, mesh.run_sharded); taken only
+        with `shard_model_axis`. A model that has this method shards over a
+        model axis (bin/train reads it, as the JAX package reads the flax
+        field)."""
         for i in range(self.n_layers):
             getattr(self, f"block_{i}").model_group = \
                 group if self.shard_model_axis else None

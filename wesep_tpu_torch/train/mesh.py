@@ -37,7 +37,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Mesh", "make_mesh", "shard_rows", "gather_rows",
+__all__ = ["Mesh", "make_mesh", "shard_rows", "gather_rows", "run_sharded",
            "deterministic_convolutions"]
 
 
@@ -166,3 +166,27 @@ def gather_rows(local: torch.Tensor, group, rows: int) -> torch.Tensor:
     """The inverse of shard_rows: every rank's share, in rank order, with
     the padding dropped (`rows` rows); gradients flow back to each share."""
     return _GatherRows.apply(local, group, rows)
+
+
+def run_sharded(fn, group, *xs):
+    """fn over the model axis' shares of xs' rows (dim 0), the result put
+    back together: with no group, fn(*xs); with a process group, fn on this
+    rank's share (shard_rows), gathered back (gather_rows); with an int n,
+    fn on each of the n shares in turn in this process, padded as
+    shard_rows pads them, the outputs concatenated and cut back. The last
+    is the grid's reference in one process: every call inside fn sees the
+    rows it sees on a rank of a model group of n (so cuDNN and cuBLAS pick
+    the algorithms they pick there), and the shares' gradients meet in the
+    concatenation's backward."""
+    if group is None:
+        return fn(*xs)
+    rows = xs[0].shape[0]
+    if not isinstance(group, int):
+        return gather_rows(fn(*(shard_rows(x, group) for x in xs)), group,
+                           rows)
+    share = math.ceil(rows / group)
+    pad = share * group - rows
+    if pad:
+        xs = [torch.cat([x, x.new_zeros((pad,) + x.shape[1:])]) for x in xs]
+    return torch.cat([fn(*(x[i * share:(i + 1) * share] for x in xs))
+                      for i in range(group)])[:rows]

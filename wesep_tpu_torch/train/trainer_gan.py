@@ -10,8 +10,9 @@ Per batch:
      m(mixture), then (clean, est_k) -> m(est_k) for every estimate, each
      call's masked MSE summed; the spectral-norm u moves once per call and
      threads from call to call; every call applies the same dropout mask,
-     one draw per step from a generator seeded by (`seed`, D's step), as
-     the JAX step passes one rng to every apply; then D's optimizer (clip
+     flax Dropout's draw from the JAX step's key fold_in(PRNGKey(`seed`),
+     D's step), as the JAX step passes one rng to every apply (`dropout_key`,
+     CMGANDiscriminator.dropout_mask); then D's optimizer (clip
      -> + wd * p -> Adam -> its own schedule);
   4. G step: `weighted_loss` + gan_loss_weight * mean((D(clean, est_k) -
      1)^2) summed over the estimates, through the UPDATED D in eval mode
@@ -69,7 +70,7 @@ from wesep_tpu_torch.train.trainer import (
 
 __all__ = ["make_gan_train_step", "metric_sisdr_norm", "metric_pesq",
            "metric_pesq_callback", "masked_mse", "estimates",
-           "dropout_generator"]
+           "dropout_key"]
 
 
 @torch.no_grad()
@@ -124,10 +125,12 @@ def estimates(outputs):
     return [ests]
 
 
-def dropout_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of D's dropout draw at `step`."""
-    return torch.Generator().manual_seed(
-        int(np.random.SeedSequence([seed, step]).generate_state(1)[0]))
+def dropout_key(seed: int, step: int):
+    """The dropout key of D's calls at `step`, the JAX step's
+    fold_in(PRNGKey(seed), step) (wesep_tpu/train/trainer_gan.py)."""
+    from wesep_tpu_torch.utils import jax_init
+
+    return jax_init.fold_in(jax_init.seed_key(seed), step)
 
 
 def make_gan_train_step(
@@ -170,8 +173,7 @@ def make_gan_train_step(
         disc.train()
         rows = targets.shape[0]
         mask = [m[rank * rows:(rank + 1) * rows] for m in disc.dropout_mask(
-            rows * world, dropout_generator(seed, dis_state.step),
-            targets.device)]
+            rows * world, dropout_key(seed, dis_state.step), targets.device)]
         ones = torch.ones(rows, device=targets.device)
         valids = [ones, noisy_valid] + [v for _, v in est_metrics]
         counts = [None] * len(valids)
