@@ -282,6 +282,24 @@ pass):
    steps, f32 validation and bin/infer), one line a row with its SI-SNRi,
    floor, margin, epochs, train steps, wall time, peak memory and the
    kernels it launched; a row under its floor fails the phase.
+21. The port's C++ serving runtime (wesep_tpu_torch/runtime/, g++ from the
+   checkout's sources; the interpreter's Py_ENABLE_SHARED, LIBDIR and
+   LDLIBRARY printed): runtime_test, then separate_main --device cuda over
+   a two-utterance wav_scp (3 s and 10 s mixtures, 6 s enrollments, float32
+   wavs) for the full-width v2 BSRNN (fbank cues from the C++ frontend)
+   served from a model dir and from a bin/export dir, and for the v2 SpEx+
+   (wav cues) from a model dir, with the engine's RTF lines and its own
+   kernel launches (its last line), which must be 12 f32 chains and
+   projections a BSRNN request and 32 K4 launches a SpEx+ request, and no
+   other kernel; each int16 output equal bit for bit to
+   runtime_host.separate in this process on the same inputs, written the
+   same way (for the BSRNN the features fbank_dump writes from the same
+   frontend sources), whose counters must show the same launches a call.
+22. tools/trace_step on the pBSRNN at its bench envelope (bf16, 16 x 3 s,
+   3 warm-up and 3 traced steps), read by tools/op_profile: the six
+   tensor-core LSTM kernels' launches in the trace equal their wrappers'
+   counters over the traced steps, the busy ms is within the window, and
+   the busy share is printed beside the card's name and power limit.
 
 Phase 3 also holds the fused Conv2dBlock (K5 forward, K5b backward) against
 its plain versions at the six distinct shapes DPCCN gives it (T 376), at
@@ -329,6 +347,16 @@ runs phases 1 and 2 and phase 19, and prints no final line.
     python3 chip_smoke.py --only-phase20
 
 runs phases 1 and 2 and phase 20, and prints no final line.
+
+    python3 chip_smoke.py --only-phase21
+
+runs phases 1 and 2 and phases 21 and 22, and prints no final line.
+
+    python3 chip_smoke.py --only-gan-nan N
+
+runs phases 1 and 2 and phase 15 (c), (d) N times with a hook that names
+the first modules to make a non-finite value (ROADMAP C.9), and prints no
+final line.
 
     python3 chip_smoke.py --only-ddp
 
@@ -7170,8 +7198,8 @@ def check_model_axis_across_cards(world):
     run again against itself, each rank's step time and peak memory beside
     the reference's, and the one-process step with and without cuDNN's
     deterministic algorithms in turns (deterministic_cost). bin/train
-    itself refuses the model axis across cards until such runs pass
-    (ROADMAP.md C.3a): that refusal is checked."""
+    itself refuses the model axis across cards until its own 2 x 2 run is
+    checked on four cards (ROADMAP.md C.3a): that refusal is checked."""
     tag = f"model_axis {GRID_CARD_AXIS} across {world} cards"
     shares = (world // GRID_CARD_AXIS, GRID_CARD_AXIS)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
@@ -8528,6 +8556,334 @@ def phase19_only() -> int:
     return 0
 
 
+# Phase 21: the port's C++ serving runtime. A wav_scp of two utterances
+# (3 s and 10 s mixtures, 6 s enrollments) served by separate_main --device
+# cuda for each model dir
+RUNTIME_SECONDS = (("u3s", 3.0), ("u10s", 10.0))
+RUNTIME_TIMEOUT = 300
+
+
+def write_float_wav(path, wav, sr=16000):
+    """A mono IEEE float32 RIFF file: the engine reads its samples back
+    exactly."""
+    import struct
+
+    data = np.ascontiguousarray(wav, "<f4").tobytes()
+    header = b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE"
+    header += b"fmt " + struct.pack("<IHHIIHH", 16, 3, 1, sr, 4 * sr, 4, 32)
+    with open(path, "wb") as f:
+        f.write(header + b"data" + struct.pack("<I", len(data)) + data)
+
+
+@contextlib.contextmanager
+def torch_defaults():
+    """PyTorch's own settings of TF32 and cuDNN, which a fresh process (the
+    engine's) runs with; this script's are restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = saved
+
+
+def runtime_requests(root):
+    """The wav_scp's requests: {key: (mix, enroll1, enroll2)} as float32
+    arrays, written as float32 wavs; -> (scp path, requests)."""
+    gen = torch.Generator().manual_seed(SEED + 210)
+    requests, rows = {}, []
+    for key, seconds in RUNTIME_SECONDS:
+        mix = voices(1, int(seconds * 16000), gen)[0].numpy()
+        e1, e2 = voices(2, ENROLL_SAMPLES, gen).numpy()
+        requests[key] = (mix, e1, e2)
+        paths = [os.path.join(root, f"{key}_{n}.wav")
+                 for n in ("mix", "e1", "e2")]
+        for path, wav in zip(paths, requests[key]):
+            write_float_wav(path, wav)
+        rows.append(" ".join([key] + paths))
+    scp = os.path.join(root, "wav.scp")
+    with open(scp, "w") as f:
+        f.write("\n".join(rows) + "\n")
+    return scp, requests
+
+
+def read_pcm16(path):
+    """A PCM16 wav's samples as int16."""
+    import wave
+
+    with wave.open(path, "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def pcm16(wav):
+    """float32 samples as separate_main writes them: clipped to [-1, 1],
+    times 32767 in float32, truncated to int16."""
+    return (np.clip(wav, -1.0, 1.0).astype(np.float32)
+            * np.float32(32767.0)).astype(np.int16)
+
+
+def serve_with_engine(binary, model_dir, scp, out_dir):
+    """separate_main --device cuda over the wav_scp -> ({key: [2, T]
+    int16}, {key: the engine's RTF}, its TOTAL RTF, the engine's own kernel
+    launches, wall s)."""
+    os.makedirs(out_dir)
+    torch.cuda.empty_cache()  # the engine's process shares the card
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [binary, "--model_path", model_dir, "--wav_scp", scp, "--result_dir",
+         out_dir, "--device", "cuda"],
+        capture_output=True, text=True, timeout=RUNTIME_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"separate_main on {model_dir} exit "
+                             f"{proc.returncode}:\n{proc.stdout}\n"
+                             f"{proc.stderr[-3000:]}")
+    rtf = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^(\S+): decode \d+ ms, audio [\d.]+ s, RTF ([\d.]+)$",
+        proc.stdout, re.M)}
+    engine_launches = re.search(r"^kernel launches: (\{.*\})$",
+                                proc.stdout, re.M)
+    if engine_launches is None:
+        raise AssertionError(f"separate_main on {model_dir} printed no "
+                             f"kernel launches:\n{proc.stdout}")
+    outputs = {key: np.stack([
+        read_pcm16(os.path.join(out_dir, f"{key}-spk{i}.wav"))
+        for i in (1, 2)]) for key, _ in RUNTIME_SECONDS}
+    return (outputs, rtf, rtf.pop("TOTAL", None),
+            json.loads(engine_launches.group(1)), wall)
+
+
+def check_runtime(root):
+    """Phase 21 -> (launches by path, summary)."""
+    from wesep_tpu_torch import runtime_host
+    from wesep_tpu_torch.bin.export import export_model
+    from wesep_tpu_torch.models.convtasnet import ConvTasNet
+    from wesep_tpu_torch.ops.cuda_tcn import tcn_block_gln
+    from wesep_tpu_torch.runtime import build
+
+    tag = "phase 21"
+    config = build.python_config()
+    log(f"{tag}: the interpreter {config['executable']} (Python "
+        f"{config['version']}): Py_ENABLE_SHARED {config['Py_ENABLE_SHARED']},"
+        f" LIBDIR {config['LIBDIR']}, LDLIBRARY {config['LDLIBRARY']}, "
+        f"LINKFORSHARED {config['LINKFORSHARED']}, Python.h "
+        f"{'found' if config['has_python_h'] else 'missing'} under "
+        f"{config['include']}")
+    t0 = time.perf_counter()
+    programs = build.build_all()
+    build_s = time.perf_counter() - t0
+    tests = build.run_tests(programs["runtime_test"])
+    log(f"{tag}: g++ built {sorted(programs)} in {build_s:.2f} s; "
+        f"runtime_test: {tests.strip().splitlines()[-1]}")
+    scp, requests = runtime_requests(root)
+    features = {}
+    for key in requests:
+        pair = []
+        for n in ("e1", "e2"):
+            wav = os.path.join(root, f"{key}_{n}.wav")
+            out = os.path.join(root, f"{key}_{n}.f32")
+            proc = subprocess.run([programs["fbank_dump"], wav, out],
+                                  capture_output=True, text=True, timeout=60,
+                                  check=True)
+            frames, dim = map(int, proc.stdout.split())
+            pair.append(np.fromfile(out, "<f4").reshape(frames, dim))
+        features[key] = pair
+
+    bsrnn_dir = os.path.join(root, "v2_bsrnn")
+    os.makedirs(bsrnn_dir)
+    save_model(os.path.join(bsrnn_dir, "avg_model.ckpt"), v2_bsrnn())
+    with open(os.path.join(bsrnn_dir, "config.yaml"), "w") as f:
+        json.dump({"model": {"tse_model": "BSRNN"},
+                   "model_args": {"tse_model": dict(V2_BSRNN_ARGS)},
+                   "dataset_args": v2_infer_dataset_args()}, f)
+    t0 = time.perf_counter()
+    export_dir = os.path.join(root, "v2_bsrnn_export")
+    export_model(os.path.join(bsrnn_dir, "config.yaml"),
+                 os.path.join(bsrnn_dir, "avg_model.ckpt"), export_dir)
+    export_s = time.perf_counter() - t0
+    spex_dir = os.path.join(root, "v2_spex")
+    os.makedirs(spex_dir)
+    torch.manual_seed(SEED)
+    save_model(os.path.join(spex_dir, "avg_model.ckpt"),
+               ConvTasNet(**SPEX_MODEL_ARGS))
+    with open(os.path.join(spex_dir, "config.yaml"), "w") as f:
+        json.dump({"model": {"tse_model": "ConvTasNet"},
+                   "model_args": {"tse_model": dict(SPEX_MODEL_ARGS)},
+                   "dataset_args": {"resample_rate": 16000,
+                                    "speaker_feat": False}}, f)
+
+    per_forward = 2 * V2_BSRNN_ARGS["num_repeat"]
+    lstm_names = set(lstm_counters())
+    launches, summary = {}, {"build_s": build_s, "export_s": export_s}
+    for name, model_dir, fbank in (("v2_bsrnn_model_dir", bsrnn_dir, True),
+                                   ("v2_bsrnn_export_dir", export_dir, True),
+                                   ("v2_spex_model_dir", spex_dir, False)):
+        outputs, rtf, total_rtf, engine, wall = serve_with_engine(
+            programs["separate_main"], model_dir, scp,
+            os.path.join(root, f"out_{name}"))
+        # the engine's own counters over its requests: the f32 K0 chain
+        # and projection 12 times a BSRNN call, K4 32 times a SpEx+ call,
+        # no other kernel
+        if fbank:
+            others = set(engine) - lstm_names
+            expect_counts({n: engine.get(n, 0) for n in lstm_names},
+                          per_forward * len(requests), 0, "layer",
+                          f"{tag}: separate_main on {name}", f32=True)
+        else:
+            others = set(engine) - {"tcn_block_gln"}
+            if engine.get("tcn_block_gln", 0) != SPEX_BLOCKS * len(requests):
+                raise AssertionError(f"{tag}: separate_main on {name}: "
+                                     f"launches {engine}")
+        if others:
+            raise AssertionError(f"{tag}: separate_main on {name} launched "
+                                 f"{others}: {engine}")
+        runtime_host.load(model_dir)
+        if runtime_host.expects_fbank() != fbank:
+            raise AssertionError(f"{tag}: {name} expects_fbank "
+                                 f"{runtime_host.expects_fbank()}")
+        counts, same = {}, {}
+        for key, (mix, e1, e2) in requests.items():
+            zero_counts()
+            tcn_block_gln.launches = 0
+            with torch_defaults():
+                want = runtime_host.separate(
+                    mix, *(features[key] if fbank else (e1, e2)))
+            torch.cuda.synchronize()
+            lstm = read_counts()
+            if fbank:
+                expect_counts(lstm, per_forward, 0, "layer",
+                              f"{tag}: {name} {key}", f32=True)
+                for n, v in lstm.items():
+                    counts[n] = counts.get(n, 0) + v
+            elif tcn_block_gln.launches != SPEX_BLOCKS or any(lstm.values()):
+                raise AssertionError(
+                    f"{tag}: {name} {key}: K4 {tcn_block_gln.launches} "
+                    f"launches (expected {SPEX_BLOCKS}), LSTM {lstm}")
+            else:
+                counts["tcn_block_gln"] = counts.get("tcn_block_gln", 0) \
+                    + tcn_block_gln.launches
+            same[key] = bool(outputs[key].shape == want.shape
+                             and np.array_equal(outputs[key], pcm16(want)))
+        runtime_host.unload()
+        launches[f"runtime_{name}"] = engine
+        summary[name] = {"engine_rtf": rtf, "engine_total_rtf": total_rtf,
+                         "engine_wall_s": wall, "bit_for_bit": same,
+                         "launches": engine, "in_process_launches": {
+                             n: v for n, v in counts.items() if v}}
+        log(f"{tag}: separate_main --device cuda on {name}: {wall:.2f} s "
+            f"wall (interpreter, model load and both requests), the "
+            f"engine's RTF {rtf}, TOTAL {total_rtf}, its launches {engine}; "
+            f"its int16 wavs equal bit for bit to runtime_host.separate in "
+            f"this process written the same way {same}, whose launches "
+            f"{summary[name]['in_process_launches']}")
+        if not all(same.values()):
+            raise AssertionError(f"{tag}: {name}: the engine's outputs "
+                                 f"differ from the in-process call: {same}")
+    return launches, summary
+
+
+# Phase 22: the wrappers of the bf16 train step's tensor-core LSTM kernels
+# and the names of their kernels in a trace (csrc/lstm_tc.cuh: the
+# product's first template argument is its Mode, kWgrad 0, kGates 1, kDx 2,
+# kProject 3)
+TRACE_KERNELS = {
+    "lstm_project": r"tc_product_kernel<(\([^)]*\))?3\b",
+    "lstm_gates": r"tc_product_kernel<(\([^)]*\))?1\b",
+    "lstm_dx": r"tc_product_kernel<(\([^)]*\))?2\b",
+    "lstm_wgrad": r"tc_product_kernel<(\([^)]*\))?0\b",
+    "lstm_forward_chain": r"lstm_forward_chain_kernel<",
+    "lstm_adjoint_chain": r"lstm_chain_kernel<",
+}
+TRACE_STEPS = 3
+
+
+def check_trace_step():
+    """Phase 22 -> (launches by path, summary)."""
+    from wesep_tpu_torch.tools import op_profile, trace_step
+
+    tag = "phase 22"
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+        t0 = time.perf_counter()
+        path = trace_step.trace_step("bsrnn", logdir, steps=TRACE_STEPS,
+                                     device="cuda", before_trace=zero_counts)
+        step_s = time.perf_counter() - t0
+        counts = read_counts()
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        prof = op_profile.profile(op_profile.load_trace(logdir))
+        read_s = time.perf_counter() - t0
+    layers = 2 * trace_step.ENVELOPES["bsrnn"]["args"]["num_repeat"]
+    expect_counts(counts, layers * TRACE_STEPS, layers * TRACE_STEPS,
+                  "layer", f"{tag}: the traced steps")
+    in_trace = {name: sum(n for label, (_, n) in prof["kernels"].items()
+                          if re.match(pattern, label))
+                for name, pattern in TRACE_KERNELS.items()}
+    if prof["busy_ms"] is None:
+        raise AssertionError(f"{tag}: the trace holds no device event")
+    share = prof["busy_ms"] / prof["window_ms"]
+    table = [f"{ms:.3f} ms {pct:.1f}% {label.strip()}"
+             for ms, pct, label in op_profile.rows(prof, 12)]
+    log(f"{tag}: trace_step of the pBSRNN (bf16, 16 x 3 s, "
+        f"{TRACE_STEPS} traced steps) in {step_s:.2f} s, a {size} byte "
+        f"trace read in {read_s:.2f} s: device busy {prof['busy_ms']:.3f} ms "
+        f"of a {prof['window_ms']:.3f} ms window, busy share {share:.4f} "
+        f"({card_line()}); op_profile: {table}")
+    log(f"{tag}: tensor-core LSTM kernels in the trace {in_trace}, their "
+        f"wrappers' counters { {n: counts[n] for n in TRACE_KERNELS} }")
+    wrong = {n: (in_trace[n], counts[n]) for n in TRACE_KERNELS
+             if in_trace[n] != counts[n] or not counts[n]}
+    if wrong or prof["busy_ms"] > prof["window_ms"]:
+        raise AssertionError(f"{tag}: trace against counters {wrong}; busy "
+                             f"{prof['busy_ms']} ms, window "
+                             f"{prof['window_ms']} ms")
+    return {"trace_step_bsrnn": {n: v for n, v in counts.items() if v}}, {
+        "busy_ms": prof["busy_ms"], "window_ms": prof["window_ms"],
+        "busy_share": share, "classes_ms": prof["classes"],
+        "kernels": prof["kernels"], "trace_bytes": size, "wall_s": step_s}
+
+
+def phase21():
+    """Phases 21 and 22 -> (launches by path, summary)."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        launches, runtime = check_runtime(root)
+    t1 = time.perf_counter()
+    trace_launches, traced = check_trace_step()
+    launches.update(trace_launches)
+    summary = {"runtime": runtime, "trace": traced,
+               "phase21_s": t1 - t0, "phase22_s": time.perf_counter() - t1}
+    log("phase 21-22 summary", json.dumps(summary))
+    log(f"phase 21 in {summary['phase21_s']:.1f} s, phase 22 in "
+        f"{summary['phase22_s']:.1f} s")
+    return launches, summary
+
+
+def phase21_only() -> int:
+    """`--only-phase21`: phases 1 and 2 and phases 21 and 22; no final
+    line."""
+    from wesep_tpu_torch.ops import _build
+
+    log(card_line())
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build in {time.perf_counter() - t0:.2f} s")
+    launches, _ = phase21()
+    log("phase 21-22 launches", json.dumps(launches))
+    log(f"wall {time.perf_counter() - t0:.1f} s")
+    log(card_line())
+    return 0
+
+
 def kernel_counters():
     """Every wrapper's counter: the LSTM routes', K4/K4b's and K5/K5b's."""
     from wesep_tpu_torch.ops import cuda_tcn
@@ -8732,6 +9088,56 @@ def phase15_only() -> int:
     return 0
 
 
+def nonfinite_hook(found):
+    """A forward hook on every module: the class of each module whose
+    output holds a non-finite value while its inputs are finite is added to
+    `found`, in call order; -> the hook's handle."""
+    def finite(x):
+        tensors = [t for t in (x if isinstance(x, (tuple, list)) else (x,))
+                   if torch.is_tensor(t) and t.is_floating_point()]
+        return all(bool(torch.isfinite(t).all()) for t in tensors)
+
+    def hook(module, inputs, output):
+        if not finite(output) and finite(inputs):
+            found.append(type(module).__name__)
+
+    return torch.nn.modules.module.register_module_forward_hook(hook)
+
+
+def gan_nan_probe(repeats) -> int:
+    """`--only-gan-nan N`: phases 1 and 2, then phase 15 (c) and (d)
+    (train_gan_dpccn) N times under nonfinite_hook (ROADMAP C.9); one line
+    a run with its outcome and the first modules that made a non-finite
+    value, then the count of clean runs; no final line. Exit 1 if a run
+    failed."""
+    from wesep_tpu_torch.ops import _build
+
+    log(card_line())
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"build in {time.perf_counter() - t0:.2f} s")
+    clean = 0
+    for run in range(repeats):
+        found, t1 = [], time.perf_counter()
+        handle = nonfinite_hook(found)
+        try:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+                _, gan = train_gan_dpccn(root)
+            outcome = f"passed, val {gan['runs']['pallas']['losses'][3]}"
+        except AssertionError as e:
+            outcome = f"failed: {e}"
+        finally:
+            handle.remove()
+        clean += outcome.startswith("passed") and not found
+        log(f"gan nan probe run {run}: {outcome} in "
+            f"{time.perf_counter() - t1:.1f} s; first modules with "
+            f"non-finite outputs {found[:5]} ({len(found)} in all)")
+    log(f"gan nan probe: {clean} of {repeats} runs clean; "
+        f"wall {time.perf_counter() - t0:.1f} s")
+    log(card_line())
+    return 0 if clean == repeats else 1
+
+
 def conv2d_only() -> int:
     """`--only-conv2d`: phases 1 and 2 for the Conv2dBlock's sources and
     phase 3's K5/K5b cases and batch-slice case, printed one JSON line each;
@@ -8785,6 +9191,10 @@ def main() -> int:
         return phase19_only()
     if sys.argv[1:] == ["--only-phase20"]:
         return phase20_only()
+    if sys.argv[1:] == ["--only-phase21"]:
+        return phase21_only()
+    if sys.argv[1:2] == ["--only-gan-nan"] and len(sys.argv) == 3:
+        return gan_nan_probe(int(sys.argv[2]))
 
     # 1. device
     card = card_line()
@@ -9101,6 +9511,9 @@ def main() -> int:
     lap("19 recipe stages, checkpoints, extractor, export")
     # 20. tools/validate_synthetic's battery: the six convergence floors
     phase20_launches, _ = phase20()
+    lap("20 synthetic battery")
+    # 21. the C++ serving runtime through the port; 22. a traced train step
+    phase21_launches, _ = phase21()
 
     # the headline case of each kernel: the band RNN, the shape that takes
     # most of its path's time, in the dtype that path runs (serving f32,
@@ -9274,7 +9687,7 @@ def main() -> int:
     for path, counts in list(phase15_launches.items()) + list(
             phase16_launches.items()) + list(phase17_launches.items()) + list(
             phase18_launches.items()) + list(phase19_launches.items()) + list(
-            phase20_launches.items()):
+            phase20_launches.items()) + list(phase21_launches.items()):
         add_path(path, counts)
     # the main path of a kernel: its training path; for the f32 cluster
     # forward, serving (phase 4); for the routes' own FMA forward kernels,
@@ -9415,7 +9828,7 @@ def main() -> int:
                      B=c["B"], D=c["D"], H=c["H"], rel_limit=c["rel_limit"])
                 for c in train_cases]
         kernels.append(entry)
-    lap("20 synthetic battery, the kernel line")
+    lap("21-22 runtime, traced step, the kernel line")
     log("chip_smoke: wall s by phase", json.dumps(laps))
     log(f"chip_smoke: wall {time.perf_counter() - t_start:.1f} s")
     log(card_line())

@@ -6,8 +6,10 @@ setup(
     description="TPU-native target speaker extraction framework",
     packages=find_packages(include=["wesep_tpu", "wesep_tpu.*",
                                     "wesep_tpu_torch", "wesep_tpu_torch.*"]),
-    # CUDA sources of the PyTorch port, built with nvcc at first use
-    package_data={"wesep_tpu_torch": ["csrc/*.cu"]},
+    # CUDA sources of the PyTorch port, built with nvcc at first use, and
+    # its C++ serving runtime's sources, built with g++ at first use
+    package_data={"wesep_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                      "runtime/*/*.h", "runtime/*/*.cc"]},
     python_requires=">=3.10",
     install_requires=[
         "jax",

@@ -5,6 +5,7 @@ package."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -149,3 +150,39 @@ def test_the_last_host_modules_are_checked():
     for module in ("utils/datadir_writer.py",
                    "tools/print_train_val_curve.py"):
         assert os.path.join("wesep_tpu_torch", module) in names, module
+
+
+def test_the_runtime_and_trace_modules_are_checked():
+    """The C++ runtime's build script and the trace tools are among the
+    files checked."""
+    names = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for module in ("runtime/__init__.py", "runtime/build.py",
+                   "tools/op_profile.py", "tools/trace_step.py"):
+        assert os.path.join("wesep_tpu_torch", module) in names, module
+
+
+def test_the_ports_runtime_includes_only_its_own_sources():
+    """Every `#include "..."` of the port's C++ sources names a file of
+    wesep_tpu_torch/runtime/, and build.py compiles nothing under the
+    JAX package's runtime/."""
+    from wesep_tpu_torch.runtime import build
+
+    sources = []
+    for dirpath, _, names in os.walk(build.RUNTIME_DIR):
+        sources += [os.path.join(dirpath, n) for n in names
+                    if n.endswith((".h", ".cc"))]
+    assert len(sources) >= 15
+    for path in sources:
+        with open(path) as f:
+            for target in re.findall(r'^#include "([^"]+)"', f.read(), re.M):
+                assert os.path.exists(
+                    os.path.join(build.RUNTIME_DIR, target)), (path, target)
+    assert build.RUNTIME_DIR == os.path.join(ROOT, "wesep_tpu_torch",
+                                             "runtime")
+    jax_runtime = os.path.join(ROOT, "runtime")
+    for name, files in build.PROGRAMS.items():
+        for rel in files:
+            assert os.path.exists(os.path.join(build.RUNTIME_DIR, rel))
+        assert not any(jax_runtime + os.sep in arg
+                       or arg == "-I" + jax_runtime
+                       for arg in build._command(name, "out")), name

@@ -263,16 +263,17 @@ def check_model_axis(model, model_name, model_axis, logger, rank):
 
 
 def check_model_axis_device(model_axis, world_size, device):
-    """`model_axis` > 1 across several cards is refused until four-card
-    runs hold the grid's first gradient against one process that runs each
-    rank's shares of the rows (chip_smoke.py phase 18 (d)); ROADMAP.md
-    C.3a. Processes on the CPU (gloo) run it."""
+    """`model_axis` > 1 across several cards is refused until bin/train's
+    own run at 2 x 2 is checked on four cards; the grid's train step
+    matches one process that runs each rank's shares of the rows there
+    (chip_smoke.py phase 18 (d)); ROADMAP.md C.3a. Processes on the CPU
+    (gloo) run it."""
     if model_axis > 1 and world_size > 1 and device.type == "cuda":
         raise NotImplementedError(
             f"model_axis={model_axis} across {world_size} cards is not "
-            "ported yet: its gradients on four H100s are not yet shown to "
-            "match one process's (ROADMAP.md C.3a); it runs on CPU "
-            "processes (gloo)")
+            "ported yet: bin/train's own run of it on four H100s has not "
+            "been checked (ROADMAP.md C.3a); it runs on CPU processes "
+            "(gloo)")
 
 
 def init_distributed(device):

@@ -1,10 +1,12 @@
 """In-process model host for a serving runtime that embeds CPython.
 
 Counterpart of wesep_tpu/runtime_host.py with its interface: `load`,
-`expects_fbank` and `separate`. The C++ `separate_main`
-(runtime/separate/) imports the JAX package's module by name; this one
-serves the port, from Python or from an embedding that imports it
-instead. The model runs on the card unless `load` is given device "cpu".
+`expects_fbank` and `separate`, and `unload`, which drops the model before
+an embedding interpreter is finalized; `launches` reads the kernel
+wrappers' launch counters, which `load` sets to 0. The port's C++
+`separate_main` (wesep_tpu_torch/runtime/) imports this module by name, as
+the JAX package's imports its own, and prints `launches()` last. The
+model runs on the card unless `load` is given device "cpu".
 
 `load` takes either
   * an export dir of bin/export.py (model.pt2 + export.json): the program
@@ -20,6 +22,26 @@ import os
 import numpy as np
 
 _STATE = {}
+# the modules of the port's kernel wrappers; each wrapper counts its
+# launches in its `launches` attribute
+_KERNEL_MODULES = ("cuda_lstm", "cuda_lstm_unfold", "cuda_lstm_fused",
+                   "cuda_lstm_tc", "cuda_lstm_f32", "cuda_tcn", "cuda_conv2d")
+
+
+def _kernel_wrappers():
+    import importlib
+
+    return {name: fn for module in _KERNEL_MODULES
+            for name, fn in vars(importlib.import_module(
+                f"wesep_tpu_torch.ops.{module}")).items()
+            if not name.startswith("_") and hasattr(fn, "launches")}
+
+
+def launches() -> dict:
+    """{wrapper name: launches} of each kernel wrapper launched since
+    `load`."""
+    return {name: fn.launches for name, fn in _kernel_wrappers().items()
+            if fn.launches}
 
 
 def load(model_path: str, device=None):
@@ -30,6 +52,8 @@ def load(model_path: str, device=None):
     from wesep_tpu_torch.device import resolve_device
 
     _STATE.clear()
+    for fn in _kernel_wrappers().values():
+        fn.launches = 0
     manifest_path = os.path.join(model_path, "export.json")
     if os.path.exists(manifest_path):
         with open(manifest_path) as f:
@@ -65,6 +89,22 @@ def expects_fbank() -> bool:
     features) rather than waveforms or embeddings."""
     m = _STATE["manifest"]
     return bool(m.get("joint_training")) and bool(m.get("speaker_feat"))
+
+
+def unload():
+    """Drop the model and its tensors; on the card wait for its work and
+    return the cached memory (the embedding engine calls this before
+    Py_FinalizeEx)."""
+    import gc
+
+    import torch
+
+    device = _STATE.get("device")
+    _STATE.clear()
+    gc.collect()
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
 
 
 def _call(mix: np.ndarray, enroll: np.ndarray) -> np.ndarray:
